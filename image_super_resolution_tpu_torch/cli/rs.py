@@ -1,0 +1,237 @@
+"""Inference CLI ("rs" = resolution scaler), image and folder paths
+(counterpart of the JAX package's ``cli/rs.py``).
+
+    python -m image_super_resolution_tpu_torch.cli.rs --model a.isr --src img.png
+
+The flags are the JAX CLI's, plus ``--device`` (default ``cuda``). Image
+path: load artifact -> overlap-tiled batched upscale -> PNG. A folder is
+served image by image with one loaded model. Flags whose paths are not
+ported yet exit with a message naming the slice that brings them.
+"""
+
+from __future__ import annotations
+
+import argparse
+from collections import Counter, deque
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+
+from ..utils.general import IMG_FORMATS, VID_FORMATS
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description="Tiled SR inference (image or folder)")
+    parser.add_argument("--model", type=str, required=True, help="deployed artifact (.isr)")
+    parser.add_argument("--src", type=str, required=True)
+    parser.add_argument("--save_dir", type=str, default="result.png")
+    parser.add_argument("--window_size", type=int, default=96,
+                        help="tile size; 0 = whole-image (untiled) inference")
+    parser.add_argument("--batch_size", type=int, default=8)
+    parser.add_argument("--worker", type=int, default=4, help="accepted for parity; unused")
+    parser.add_argument("--overlap", type=int, default=8)
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda (default) or cpu")
+    parser.add_argument("--spatial_devices", type=int, default=1,
+                        help="multi-GPU sharding: slice 5")
+    parser.add_argument("--spatial_grid", type=int, nargs=2, default=None,
+                        metavar=("NY", "NX"), help="multi-GPU sharding: slice 5")
+    parser.add_argument("--data_devices", type=int, default=1,
+                        help="multi-GPU sharding: slice 5")
+    parser.add_argument("--tp_devices", type=int, default=1,
+                        help="tensor parallelism: slice 5")
+    parser.add_argument("--int8", action="store_true",
+                        help="int8 PTQ serving: slice 2")
+    parser.add_argument("--int8_percentile", type=float, default=None,
+                        help="int8 calibration percentile: slice 2")
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="device trace of the run: slice 5")
+    parser.add_argument("--compile_cache", type=str, default=None,
+                        help="accepted for parity; the port compiles no XLA programs")
+    parser.add_argument("--codec", type=str, default=None,
+                        help="video encoder (video serving: slice 5)")
+    return parser
+
+
+def main(argv=None):
+    opt = build_parser().parse_args(argv)
+    return run(**vars(opt))
+
+
+def _refuse_unported(src: Path, spatial_devices, data_devices, spatial_grid,
+                     tp_devices, int8, int8_percentile, profile_dir) -> None:
+    if int8 or int8_percentile is not None:
+        raise SystemExit("--int8 serving is not ported yet: it comes with "
+                         "slice 2 (fast-family serving with int8 PTQ)")
+    if tp_devices != 1 or spatial_devices != 1 or data_devices != 1 or (
+        spatial_grid and tuple(spatial_grid) != (1, 1)
+    ):
+        raise SystemExit("multi-device serving (--tp_devices, "
+                         "--spatial_devices, --spatial_grid, --data_devices) "
+                         "is not ported yet: it comes with slice 5 (multi-GPU)")
+    if profile_dir:
+        raise SystemExit("--profile_dir is not ported yet: it comes with slice 5")
+    if src.suffix.lower() in VID_FORMATS:
+        raise SystemExit("video sources are not ported yet: they come with "
+                         "slice 5 (eval, video, interop)")
+
+
+def run(
+    model: str,
+    src: str,
+    save_dir: str = "result.png",
+    window_size: int = 96,
+    batch_size: int = 8,
+    overlap: int = 8,
+    worker: int = 4,
+    device: str = "cuda",
+    spatial_devices: int = 1,
+    data_devices: int = 1,
+    spatial_grid=None,
+    tp_devices: int = 1,
+    int8: bool = False,
+    int8_percentile: float | None = None,
+    profile_dir: str | None = None,
+    codec: str | None = None,
+    compile_cache: str | None = None,
+) -> Path:
+    from ..infer.engine import TiledUpscaler
+    from ..models.deploy import load_artifact
+
+    src_path = Path(src)
+    out_path = Path(save_dir)
+    _refuse_unported(src_path, spatial_devices, data_devices, spatial_grid,
+                     tp_devices, int8, int8_percentile, profile_dir)
+    try:
+        deployed = load_artifact(model, device=device)
+    except NotImplementedError as e:
+        raise SystemExit(str(e)) from None
+    try:
+        engine = TiledUpscaler(deployed, window=window_size, overlap=overlap,
+                               batch_size=batch_size)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    if src_path.is_dir():
+        return _run_folder(engine, src_path, out_path)
+    return _run_image(engine, src_path, out_path)
+
+
+def _output_names(images) -> list:
+    """Outputs are always .png; photo.jpg and photo.png share a stem, so
+    duplicate stems fold the whole source name in, and any remaining
+    collision gets a numeric suffix."""
+    stem_counts = Counter(p.stem for p in images)
+    bases = [
+        p.name[: -len(p.suffix)] if stem_counts[p.stem] == 1
+        else p.name.replace(".", "_")
+        for p in images
+    ]
+    used: set = set()
+    out_names = []
+    for base in bases:
+        name, k = f"{base}.png", 1
+        while name in used:
+            name = f"{base}_{k}.png"
+            k += 1
+        used.add(name)
+        out_names.append(name)
+    return out_names
+
+
+def _run_folder(engine, src_path: Path, out_path: Path) -> Path:
+    """One loaded model serves every image; a small IO pool reads the next
+    image and writes the previous result while the device upscales."""
+    images = sorted(p for p in src_path.iterdir() if p.suffix.lower() in IMG_FORMATS)
+    if not images:
+        raise FileNotFoundError(f"no images in {src_path}")
+    out_path.mkdir(parents=True, exist_ok=True)
+    failed = []
+
+    def fail(name, e):
+        import warnings
+
+        failed.append(name)
+        warnings.warn(f"skipping {name}: {type(e).__name__}: {e}")
+
+    items = list(zip(images, _output_names(images)))
+    with ThreadPoolExecutor(max_workers=2) as io_pool:
+        depth = 2
+        reads = deque(
+            (p, name, io_pool.submit(_read_image_rgb, p)) for p, name in items[:depth]
+        )
+        next_i = len(reads)
+        writes = []
+        while reads:
+            p, out_name, fut = reads.popleft()
+            if next_i < len(items):
+                p2, n2 = items[next_i]
+                reads.append((p2, n2, io_pool.submit(_read_image_rgb, p2)))
+                next_i += 1
+            try:  # one bad file must not kill the batch
+                image = fut.result()
+                print("input shape", image.shape, p.name)
+                result = engine.upscale_image(image)
+                writes.append(
+                    (p.name, io_pool.submit(_write_png, out_path / out_name, result))
+                )
+            except Exception as e:
+                fail(p.name, e)
+        for name, wf in writes:
+            try:
+                wf.result()
+            except Exception as e:
+                fail(name, e)
+    if failed:
+        print(f"batch done with {len(failed)} failure(s): {failed[:5]}")
+        if len(failed) == len(images):
+            raise RuntimeError("every image in the batch failed")
+    return out_path
+
+
+def _read_image_rgb(path: Path) -> np.ndarray:
+    """OpenCV, else Pillow, else the package's own PNG reader
+    (``utils/png.py``), which exists only for hosts that have neither
+    library and reads PNG alone."""
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    img = None if cv2 is None else cv2.imread(str(path), cv2.IMREAD_COLOR)
+    if img is not None:
+        return img[..., ::-1].copy()
+    try:
+        from PIL import Image
+    except ImportError:
+        from ..utils.png import read_png
+
+        return read_png(path)
+    return np.asarray(Image.open(path).convert("RGB"))
+
+
+def _write_png(out: Path, result_rgb: np.ndarray) -> Path:
+    out.parent.mkdir(parents=True, exist_ok=True)
+    try:
+        import cv2
+    except ImportError:
+        from ..utils.png import write_png
+
+        write_png(out, result_rgb)
+    else:
+        if not cv2.imwrite(str(out), result_rgb[..., ::-1]):
+            raise IOError(f"failed to write {out}")
+    print("output shape", result_rgb.shape, str(out))
+    return out
+
+
+def _run_image(engine, src: Path, out: Path) -> Path:
+    image = _read_image_rgb(src)
+    print("input shape", image.shape)
+    result = engine.upscale_image(image)
+    if out.suffix.lower() != ".png":  # append, never replace: "a.v2" is a
+        out = out.parent / (out.name + ".png")  # stem, not a suffix to drop
+    return _write_png(out, result)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,226 @@
+"""Frozen deployment artifact: uint8 image in -> uint8 image out (counterpart
+of the JAX package's ``models/deploy.py``).
+
+- ``DeployedModel`` wraps ``normalize`` -> generator -> ``tanh_to_uint8``
+  on one device. For ``sr`` at x2/x4 it builds the optimized graph
+  (scatter-form RDBs through the fused kernel, folded tail); the weight
+  transforms run once, at construction.
+- ``save_artifact``/``load_artifact`` read and write the ``.isr`` file that
+  the JAX package writes, with ``msgpack`` alone: ``{"spec": json,
+  "params": fp16 tree, "format_version": 1}``, each array a msgpack ext
+  type 1 whose payload is ``msgpack.packb((shape, dtype_name, C-order
+  bytes))`` -- flax's own ndarray encoding.
+"""
+
+from __future__ import annotations
+
+import json
+from dataclasses import asdict, dataclass
+from pathlib import Path
+from typing import Any, Dict, Mapping, Tuple
+
+import msgpack
+import numpy as np
+import torch
+
+from ..core.device import resolve_device
+from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD, normalize, tanh_to_uint8
+from ..interop.from_jax import params_from_jax, params_to_jax
+from .generator import SRGenerator
+from .optimized import OptimizedSRGenerator, optimize_generator_params
+
+_LATER_SLICE = {
+    "fast": "slice 2 (fast-family serving with int8 PTQ)",
+    "denoise_fast": "slice 2 (fast-family serving with int8 PTQ)",
+    "denoise": "slice 3 (the remaining serving families)",
+    "denoise_legacy": "slice 3 (the remaining serving families)",
+}
+
+# Largest uint8 difference allowed between a bf16 and an fp32 run of one
+# sr x4 artifact at full depth 16. Measured on the CPU: 3
+# (tests/test_torch_deploy.py); one more LSB leaves room for the card's own
+# order of sums. Against the JAX DeployedModel (which rounds every conv
+# output to bf16, where the port follows the Pallas kernel's fp32 sums
+# inside each RDB) the measured difference at depth 1 is 1.
+BF16_MAX_LSB = 4
+
+
+def family_defaults(family: str, rs_deep=None, width=None) -> Tuple[int, int]:
+    """Resolve (depth, width) CLI defaults per model family."""
+    fast = family in ("fast", "denoise_fast")
+    if rs_deep is None:
+        rs_deep = 14 if fast else 16
+    if width is None:
+        width = 128 if fast else 64
+    return rs_deep, width
+
+
+def infer_family_dims(params, family: str):
+    """(depth, width) read from a checkpoint's param TREE, or (None, None)."""
+    prefixes = {"sr": ("rrdb", 1), "fast": ("block", 1),
+                "denoise_fast": ("block", 1),
+                "denoise": ("res0_", 2), "denoise_legacy": ("res", 1)}
+    try:
+        prefix, per_unit = prefixes[family]
+        depth = per_unit * sum(1 for k in params
+                               if str(k).startswith(prefix))
+        width = int(params["head"]["conv"]["kernel"].shape[-1])
+    except Exception:
+        return None, None
+    return (depth, width) if depth > 0 and width > 0 else (None, None)
+
+
+def _require_ported(family: str) -> None:
+    if family in _LATER_SLICE:
+        raise NotImplementedError(
+            f"family {family!r} is not ported yet: it comes with "
+            f"{_LATER_SLICE[family]}"
+        )
+    if family != "sr":
+        raise ValueError(f"unknown model family {family!r}")
+
+
+@dataclass(frozen=True)
+class DeploySpec:
+    """Everything needed to rebuild the inference graph."""
+
+    family: str = "sr"  # "sr" | "fast" | "denoise" | "denoise_fast" | "denoise_legacy"
+    depth: int = 16
+    width: int = 64
+    add_rate: float = 0.2
+    scale: int = 2
+    enchant: bool = False
+    mean: Tuple[float, float, float] = IMAGENET_MEAN
+    std: Tuple[float, float, float] = IMAGENET_STD
+    hidden: int = 0
+    downshuffle: int = 1
+    refine_blocks: int = 0
+    refine_width: int = 32
+
+    def build_model(self, dtype=torch.float32, device="cuda") -> SRGenerator:
+        _require_ported(self.family)
+        return SRGenerator(depth=self.depth, add_rate=self.add_rate,
+                           scale=self.scale, width=self.width,
+                           enchant=self.enchant, fused=True, dtype=dtype,
+                           device=device)
+
+    @property
+    def output_scale(self) -> int:
+        return 1 if self.family.startswith("denoise") else self.scale
+
+
+class DeployedModel:
+    """uint8 NHWC -> uint8 NHWC super-resolver on one device.
+
+    ``optimize=True`` (the default) builds the optimized graph for x2/x4
+    (``tail_fold`` 0 = auto: 2 for x4, 1 for x2). Artifacts store the
+    standard fused layout; the transform happens here, once. On the card
+    the scatter-form RDBs need ``dtype=torch.bfloat16``.
+    """
+
+    def __init__(self, spec: DeploySpec, fused_params: Mapping[str, Any],
+                 dtype=torch.bfloat16, device="cuda", optimize: bool = True,
+                 tail_fold: int = 0):
+        _require_ported(spec.family)
+        self.spec = spec
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        self.optimized = bool(optimize and spec.scale in (2, 4))
+        if self.optimized:
+            tail_fold = tail_fold or (2 if spec.scale == 4 else 1)
+            params = optimize_generator_params(fused_params, tail_fold=tail_fold)
+            model = OptimizedSRGenerator(
+                depth=spec.depth, add_rate=spec.add_rate, scale=spec.scale,
+                width=spec.width, enchant=spec.enchant, tail_fold=tail_fold,
+                dtype=dtype, device=self.device)
+        else:
+            params = fused_params
+            model = spec.build_model(dtype, self.device)
+        model.load_state_dict(params_from_jax(params))
+        self.model = model.eval()
+        self._mean = tuple(float(v) for v in spec.mean)
+        self._std = tuple(float(v) for v in spec.std)
+
+    @torch.inference_mode()
+    def __call__(self, u8_batch) -> torch.Tensor:
+        """uint8 NHWC (numpy or tensor) -> uint8 NHWC tensor on the device."""
+        x = torch.as_tensor(u8_batch).to(self.device)
+        return tanh_to_uint8(self.model(normalize(x, self._mean, self._std)))
+
+
+# ------------------------------------------------------------ persistence --
+
+def _pack(obj):
+    if isinstance(obj, np.ndarray):
+        return msgpack.ExtType(1, msgpack.packb(
+            (obj.shape, obj.dtype.name, obj.tobytes("C")), use_bin_type=True))
+    raise TypeError(f"cannot serialize {type(obj).__name__}")
+
+
+def _unpack(code: int, data: bytes):
+    if code in (1, 3):  # ndarray, numpy scalar (stored as a 0-d array)
+        shape, dtype_name, buf = msgpack.unpackb(data, raw=True)
+        arr = np.frombuffer(buf, dtype=np.dtype(dtype_name.decode())).reshape(shape)
+        return arr[()] if code == 3 else arr
+    raise ValueError(f"unsupported msgpack ext type {code} in artifact")
+
+
+def _map_tree(fn, tree):
+    """Apply ``fn`` to every leaf; dict keys come out sorted, as a JAX
+    tree_map orders them."""
+    if isinstance(tree, Mapping):
+        return {k: _map_tree(fn, tree[k]) for k in sorted(tree)}
+    return fn(tree)
+
+
+def _to_fp16(x):
+    x = np.asarray(x)
+    return x.astype(np.float16) if np.issubdtype(x.dtype, np.floating) else x
+
+
+def _to_fp32(x):
+    x = np.asarray(x)
+    return x.astype(np.float32) if x.dtype == np.float16 else x
+
+
+def save_artifact(path: str | Path, spec: DeploySpec,
+                  fused_params: Mapping[str, Any]) -> None:
+    """Write ``fused_params`` (flax tree of numpy arrays) as an ``.isr``."""
+    payload = {  # keys in sorted order, as flax writes them
+        "format_version": 1,
+        "params": _map_tree(_to_fp16, fused_params),
+        "spec": json.dumps(asdict(spec)),
+    }
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(msgpack.packb(payload, default=_pack, strict_types=True))
+
+
+def read_artifact(path: str | Path) -> Tuple[DeploySpec, Dict[str, Any]]:
+    """(spec, params tree as stored: fp16 numpy arrays)."""
+    payload = msgpack.unpackb(Path(path).read_bytes(), ext_hook=_unpack, raw=False)
+    spec_dict = json.loads(payload["spec"])
+    spec_dict["mean"] = tuple(spec_dict["mean"])
+    spec_dict["std"] = tuple(spec_dict["std"])
+    return DeploySpec(**spec_dict), payload["params"]
+
+
+def load_artifact(path: str | Path, dtype=torch.bfloat16,
+                  device="cuda") -> DeployedModel:
+    spec, params = read_artifact(path)
+    return DeployedModel(spec, _map_tree(_to_fp32, params), dtype, device)
+
+
+def init_fused_params(spec: DeploySpec, seed: int = 0) -> Dict[str, Any]:
+    """Random fused-layout params for ``spec`` (flax tree of fp32 numpy
+    arrays) from a numpy seed: U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for every
+    kernel and bias, torch's default Conv2d init."""
+    rng = np.random.default_rng(seed)
+    shapes = spec.build_model(device="meta").state_dict()
+    sd = {}
+    for key, t in shapes.items():
+        w = shapes[key.rsplit(".", 1)[0] + ".weight"]
+        bound = 1.0 / np.sqrt(w.shape[1] * w.shape[2] * w.shape[3])
+        sd[key] = torch.from_numpy(
+            rng.uniform(-bound, bound, tuple(t.shape)).astype(np.float32))
+    return params_to_jax(sd)

@@ -1,0 +1,48 @@
+"""Declarative activation specs: ``None``, a name, or ``(name, param)``.
+
+Counterpart of the JAX package's ``ops/activations.py``. The learnable
+``prelu`` arrives with the families that use it.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+ActSpec = Union[None, str, Tuple[str, float]]
+
+_PLAIN = {
+    "relu": F.relu,
+    "tanh": torch.tanh,
+    "silu": F.silu,
+    "sigmoid": torch.sigmoid,
+    "gelu": F.gelu,  # exact erf form, as jax.nn.gelu(approximate=False)
+    "elu": F.elu,
+    "relu6": F.relu6,
+    "hardswish": F.hardswish,
+    "hardsigmoid": F.hardsigmoid,  # relu6(x+3)/6
+    "softsign": F.softsign,
+    "softplus": F.softplus,
+    "softmax": lambda x: torch.softmax(x, dim=-1),  # channels last, as in JAX
+}
+
+
+def apply_act(x: torch.Tensor, act: ActSpec) -> torch.Tensor:
+    """Apply an activation spec to an NHWC tensor. ``None``/``False`` ->
+    identity; ``True`` means SiLU, as in the reference."""
+    if act is None or act is False:
+        return x
+    if act is True:
+        act = "silu"
+    name, param = (act, None) if isinstance(act, str) else act
+    if name == "leaky_relu":
+        return F.leaky_relu(x, 0.01 if param is None else param)
+    if name == "prelu":
+        raise NotImplementedError(
+            "PReLU is ported with the denoise families (slice 3)"
+        )
+    if name in _PLAIN:
+        return _PLAIN[name](x)
+    raise ValueError(f"unknown activation spec: {act!r}")

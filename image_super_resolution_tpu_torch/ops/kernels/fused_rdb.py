@@ -1,0 +1,156 @@
+"""The fused scatter-RDB kernel (``csrc/fused_rdb.cu``) and its plain version.
+
+Replaces the JAX package's Pallas kernel ``scatter_rdb_pallas``
+(``ops/pallas/fused_rdb.py``): one whole scatter-form RDB (ops/scatter.py)
+over NHWC bf16 activations with C=64, g=32. Five 3x3 convs with fp32
+accumulation: ``sx`` 9C->4g+C, ``s0`` 9g->3g+C, ``s1`` 9g->2g+C,
+``s2`` 9g->g+C, ``s3`` 9g->C; the bias goes on the first; each
+``y_i = bf16(leaky(fp32 running sum of its slices))``; the output is
+``bf16(fuse * add_rate + x)``.
+
+Unlike the Pallas kernel it takes any batch and any H, W (whole-image
+serving sends non-square images through it). The CUDA design and its bound
+are described at the top of the ``.cu`` file.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..conv import same_conv
+
+C = 64  # block width the kernel is written for
+G = C // 2  # growth channels
+PC = 4 * G + C  # channels of the fp32 running-sum scratch
+
+# Kernel vs plain version in bf16: both keep fp32 sums and round at the same
+# places, but sum each conv in another order. That can flip the bf16
+# rounding of some y_i, moving the output by about one bf16 ulp of a
+# unit-scale value (2^-7); allow a few: |got - want| <= ATOL + RTOL * |want|.
+KERNEL_ATOL = 2.0 ** -5
+KERNEL_RTOL = 2.0 ** -7
+
+
+def scatter_params_to_matmul(scatter: Dict[str, Any], dtype=torch.bfloat16
+                             ) -> Tuple[torch.Tensor, ...]:
+    """ScatterRDB params (HWIO kernels) -> the (9*Cin, Cout) matmul forms,
+    rows kernel-major (dy, dx, cin), in ``dtype``; bias (1, 4g+C) fp32."""
+    def flat(k):
+        k = np.asarray(k, np.float32)
+        kh, kw, cin, cout = k.shape
+        return torch.from_numpy(k.reshape(kh * kw * cin, cout).copy()).to(dtype)
+
+    bias = np.asarray(scatter["bias"], np.float32).reshape(1, -1)
+    return (
+        flat(scatter["sx"]), flat(scatter["s0"]), flat(scatter["s1"]),
+        flat(scatter["s2"]), flat(scatter["s3"]), torch.from_numpy(bias.copy()),
+    )
+
+
+def scatter_rdb_reference(x, sx, s0, s1, s2, s3, bias, add_rate: float = 0.2,
+                          slope: float = 0.01) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, NHWC in and out.
+
+    The convs run in fp32 on the given values (bf16 x bf16 products are
+    exact in fp32); each ``y_i`` and the output are rounded to ``x.dtype``.
+    For fp32 input this is the JAX ``ScatterRDB`` in fp32; for bf16 input it
+    is the Pallas kernel's numerics (fp32 running sums, bf16 ``y_i``)."""
+    dt = x.dtype
+    g = x.shape[-1] // 2
+
+    def conv(v, w):  # v NHWC, w (9*Cin, Cout) -> fp32 NHWC
+        cin = v.shape[-1]
+        k = w.float().reshape(3, 3, cin, -1).permute(3, 2, 0, 1).contiguous()
+        return same_conv(v.float(), k)
+
+    def act(s):
+        return F.leaky_relu(s, slope).to(dt)
+
+    cx = conv(x, sx) + bias.float().reshape(-1)
+    y0 = act(cx[..., :g])
+    c0 = conv(y0, s0)
+    y1 = act(cx[..., g:2 * g] + c0[..., :g])
+    c1 = conv(y1, s1)
+    y2 = act(cx[..., 2 * g:3 * g] + c0[..., g:2 * g] + c1[..., :g])
+    c2 = conv(y2, s2)
+    y3 = act(cx[..., 3 * g:4 * g] + c0[..., 2 * g:3 * g] + c1[..., g:2 * g]
+             + c2[..., :g])
+    c3 = conv(y3, s3)
+    fuse = cx[..., 4 * g:] + c0[..., 3 * g:] + c1[..., 2 * g:] + c2[..., g:] + c3
+    return (fuse * add_rate + x.float()).to(dt)
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    from ._build import load
+
+    lib = load("fused_rdb")
+    fn = lib.isr_fused_rdb_forward
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.isr_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.isr_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(x, weights, bias) -> None:
+    if x.dim() != 4 or x.shape[-1] != C:
+        raise ValueError(f"x must be (B, H, W, {C}), got {tuple(x.shape)}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the CUDA kernel takes bf16 activations, got {x.dtype}")
+    cins = (C, G, G, G, G)
+    couts = (PC, PC - G, PC - 2 * G, PC - 3 * G, C)
+    for name, w, cin, cout in zip(("sx", "s0", "s1", "s2", "s3"), weights,
+                                  cins, couts):
+        if w.dtype != torch.bfloat16:
+            raise TypeError(f"{name} must be bf16, got {w.dtype}")
+        if tuple(w.shape) != (9 * cin, cout):
+            raise ValueError(f"{name} must be {(9 * cin, cout)}, got {tuple(w.shape)}")
+    if bias.dtype != torch.float32 or bias.numel() != PC:
+        raise ValueError(f"bias must be {PC} fp32 values, got {bias.dtype} "
+                         f"{tuple(bias.shape)}")
+    for t in (x, *weights, bias):
+        if t.device != x.device:
+            raise ValueError("all operands must be on one device")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("operands must be contiguous and 16-byte aligned")
+
+
+def scatter_rdb(x, sx, s0, s1, s2, s3, bias, add_rate: float = 0.2,
+                slope: float = 0.01) -> torch.Tensor:
+    """One scatter-form RDB, NHWC. CPU tensor: the plain version. CUDA
+    tensor: the hand-written kernel, on the current stream, or an error."""
+    if x.device.type == "cpu":
+        return scatter_rdb_reference(x, sx, s0, s1, s2, s3, bias, add_rate, slope)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    weights = (sx, s0, s1, s2, s3)
+    _check(x, weights, bias)
+    b, h, w, _ = x.shape
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(x.device):
+        scratch = torch.empty((b, h, w, PC), dtype=torch.float32, device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.isr_fused_rdb_forward(
+            x.data_ptr(), *(t.data_ptr() for t in weights), bias.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), b, h, w, float(add_rate),
+            float(slope), stream,
+        )
+    if err != 0:
+        msg = lib.isr_cuda_error_string(err).decode()
+        raise RuntimeError(f"fused_rdb kernel launch failed: CUDA error {err} ({msg})")
+    scatter_rdb.launches += 1
+    return out
+
+
+scatter_rdb.launches = 0

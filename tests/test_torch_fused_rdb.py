@@ -1,0 +1,151 @@
+"""The fused scatter-RDB kernel's plain version against the JAX package.
+
+The CUDA kernel itself runs only on the card (tests/test_torch_cuda.py and
+chip_smoke.py); here its plain version, which the wrapper takes for CPU
+tensors, is held against the Pallas kernel in interpret mode and against
+the JAX ScatterRDB and RDB.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
+
+from image_super_resolution_tpu.ops.blocks import RDB as JaxRDB
+from image_super_resolution_tpu.ops.pallas.fused_rdb import (
+    scatter_params_to_matmul as jax_scatter_params_to_matmul,
+    scatter_rdb_pallas,
+)
+from image_super_resolution_tpu.ops.scatter import (
+    ScatterRDB as JaxScatterRDB,
+    rdb_params_to_scatter as jax_rdb_params_to_scatter,
+)
+from image_super_resolution_tpu_torch.ops.kernels.fused_rdb import (
+    KERNEL_ATOL,
+    KERNEL_RTOL,
+    scatter_params_to_matmul,
+    scatter_rdb,
+    scatter_rdb_reference,
+)
+from image_super_resolution_tpu_torch.ops.scatter import (
+    ScatterRDB,
+    rdb_params_to_scatter,
+)
+
+C, G = 64, 32  # the kernel's real widths
+
+
+@pytest.fixture(scope="module")
+def rdb_case():
+    """Standard RDB params (JAX init) and an input tile batch B=4, T=8."""
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal((4, 8, 8, C)) * 0.5).astype(np.float32)
+    rdb = JaxRDB(growth=G, act=("leaky_relu", 0.01), add_rate=0.2,
+                 use_bn=False, dtype=jnp.float32)
+    params = rdb.init(jax.random.PRNGKey(1), jnp.asarray(x))["params"]
+    params = jax.tree_util.tree_map(np.asarray, params)
+    want = np.asarray(rdb.apply({"params": params}, jnp.asarray(x)))
+    return x, params, want
+
+
+def test_rdb_params_to_scatter_matches_jax(rdb_case):
+    _, params, _ = rdb_case
+    ours = rdb_params_to_scatter(params)
+    theirs = jax_rdb_params_to_scatter(params)
+    assert sorted(ours) == sorted(theirs)
+    for k in ours:
+        np.testing.assert_array_equal(ours[k], np.asarray(theirs[k]))
+
+
+def test_scatter_params_to_matmul_matches_jax(rdb_case):
+    _, params, _ = rdb_case
+    scatter = rdb_params_to_scatter(params)
+    ours = scatter_params_to_matmul(scatter)
+    theirs = jax_scatter_params_to_matmul(jax_rdb_params_to_scatter(params))
+    for a, b in zip(ours, theirs):
+        assert tuple(a.shape) == b.shape
+        np.testing.assert_array_equal(a.float().numpy(), np.asarray(b, np.float32))
+    assert ours[0].dtype == torch.bfloat16 and ours[-1].dtype == torch.float32
+
+
+def test_reference_bf16_matches_pallas_kernel(rdb_case):
+    """bf16 inputs at the real widths: the plain version rounds where the
+    Pallas kernel rounds (each y_i and the output) and keeps fp32 sums in
+    between; only the order of the fp32 sums inside each conv may differ.
+    Such a difference can flip a bf16 rounding of some y_i, which moves the
+    output by about one bf16 ulp of a unit-scale value: allow 2^-5 + 2^-7|x|
+    (a few bf16 ulps), the tolerance the card's check uses too."""
+    x, params, _ = rdb_case
+    jax_scatter = jax_rdb_params_to_scatter(params)
+    x16 = jnp.asarray(x).astype(jnp.bfloat16)
+    with pltpu.force_tpu_interpret_mode():
+        want = scatter_rdb_pallas(
+            x16, *jax_scatter_params_to_matmul(jax_scatter), tiles_per_block=2)
+    want = np.asarray(want, np.float32)
+    xt = torch.from_numpy(np.array(x16.astype(jnp.float32))).to(torch.bfloat16)
+    got = scatter_rdb_reference(xt, *scatter_params_to_matmul(rdb_params_to_scatter(params)))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want,
+                               rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+    # Rounding in the same places: measured bit-identical here, while a
+    # version that skips the bf16 rounding of each y_i differs on 3% of the
+    # outputs (by one ulp, inside the tolerance above).
+    assert (got.float().numpy() != want).mean() < 0.01
+
+
+def test_reference_fp32_matches_jax_scatter_and_rdb(rdb_case):
+    """In fp32 the plain version is the JAX ScatterRDB (same sums, another
+    conv implementation: rtol/atol 1e-5) and the standard RDB up to
+    reassociation (1e-5 too, as tests/test_optimized.py holds them)."""
+    x, params, want_rdb = rdb_case
+    jax_scatter = jax_rdb_params_to_scatter(params)
+    want = np.asarray(JaxScatterRDB(features=C, dtype=jnp.float32).apply(
+        {"params": jax_scatter}, jnp.asarray(x)))
+    mats = scatter_params_to_matmul(rdb_params_to_scatter(params), torch.float32)
+    got = scatter_rdb_reference(torch.from_numpy(x), *mats).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, want_rdb, rtol=1e-5, atol=1e-5)
+
+
+def test_scatter_rdb_module_on_cpu_takes_plain_version(rdb_case):
+    """ScatterRDB on a CPU tensor runs the plain version, not the kernel:
+    the launch count stays where it was."""
+    x, params, want = rdb_case
+    mod = ScatterRDB(C, dtype=torch.float32, device="cpu")
+    names = ("sx", "s0", "s1", "s2", "s3", "bias")
+    mats = scatter_params_to_matmul(rdb_params_to_scatter(params), torch.float32)
+    mod.load_state_dict(dict(zip(names, mats)))
+    before = scatter_rdb.launches
+    got = mod(torch.from_numpy(x)).numpy()
+    assert scatter_rdb.launches == before == 0
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_scatter_rdb_module_rejects_winograd():
+    with pytest.raises(NotImplementedError, match="wino"):
+        ScatterRDB(C, wino_m=2)
+
+
+@pytest.mark.parametrize("b,h,w", [(1, 1, 1), (3, 5, 9)])
+def test_reference_ragged_shapes(b, h, w):
+    """Any batch and any H, W (whole-image mode sends non-square images);
+    the plain version keeps the shape and zero-pads at the border, so a
+    1x1 image sees only the centre taps."""
+    rng = np.random.default_rng(b * 100 + h)
+    x = torch.from_numpy(rng.standard_normal((b, h, w, C)).astype(np.float32))
+    shapes = [(9 * C, 4 * G + C), (9 * G, 3 * G + C), (9 * G, 2 * G + C),
+              (9 * G, G + C), (9 * G, C)]
+    mats = [torch.from_numpy(rng.standard_normal(s).astype(np.float32) * 0.05)
+            for s in shapes]
+    bias = torch.zeros(1, 4 * G + C)
+    out = scatter_rdb_reference(x, *mats, bias)
+    assert out.shape == x.shape and torch.isfinite(out).all()
+    if h == w == 1:  # only tap (1, 1), rows [4*Cin, 5*Cin), reaches the pixel
+        centre = [m[4 * m.shape[0] // 9:5 * m.shape[0] // 9] for m in mats]
+        zeroed = [torch.zeros_like(m) for m in mats]
+        for z, m, c in zip(zeroed, mats, centre):
+            z[4 * m.shape[0] // 9:5 * m.shape[0] // 9] = c
+        torch.testing.assert_close(scatter_rdb_reference(x, *zeroed, bias), out)
