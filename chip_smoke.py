@@ -8,19 +8,35 @@ Run it from a checkout of the repository: it needs the package
 Phases, each of which raises on failure:
 
 1. the card: ``nvidia-smi`` name and power limit, torch's device name;
-2. the build of every CUDA source of the serving path, timed;
-3. each kernel against its plain PyTorch version on the card, at the
-   serving shape and at a ragged shape, with the tolerance stated; then
-   timed (CUDA events) beside its plain version and the cuDNN yardstick;
-4. the serving path at full width: ``sr`` x4, depth 16, width 64, random
-   weights from a numpy seed -> ``.isr`` -> ``load_artifact`` ->
-   ``DeployedModel`` in bf16 on a b256 t24 uint8 batch; the kernel's
-   launches are counted over these requests, and two tiles are held
-   against the port's fp32 CPU path; then, outside the counted run, the
-   request's time by generator stage (CUDA events) and by kernel
-   (``torch.profiler``), with the device's idle share;
-5. the ``rs`` CLI on a folder of two PNGs (512x384 and odd-sized), timed
-   as one run: artifact load, both images and the host PNG codec.
+2. the build of every CUDA source of the serving paths (one ``nvcc`` per
+   source, all started together), timed;
+3. K1, the fused scatter RDB, against its plain PyTorch version on the
+   card, at the serving shape and at a ragged shape, with the tolerance
+   stated; then timed (CUDA events) beside its plain version and the cuDNN
+   yardstick;
+4. K2, the int8/bf16 GEMM: ``matmul`` at the probe's check shape and a
+   ragged one (int8 exact), ``conv3x3_int8`` at b256 t24 w128 and 3x17x29
+   (exact against its plain version, on every int8 value and on an fp32
+   stream with ties), then timed beside its plain version,
+   ``torch._int_mm``, bf16 ``torch.matmul`` and a cuDNN bf16 conv;
+5. ``sr`` x4 serving at full width: depth 16, width 64, random weights from
+   a numpy seed -> ``.isr`` -> ``load_artifact`` -> ``DeployedModel`` in
+   bf16 on a b256 t24 uint8 batch; K1's launches are counted over these
+   requests, two tiles are held against the port's fp32 CPU path; then,
+   outside the counted run, the request's time by stage (CUDA events) and
+   by kernel (``torch.profiler``), with the device's idle share;
+6. ``fast`` x4 serving at full width and depth (14, 128) on the same
+   batch shape, in bf16 and then in int8 (``quantize_deployed`` calibrated
+   on the batch): K2's launches counted (29 per int8 forward, 0 per bf16
+   one), two tiles held against the port's CPU paths, and the breakdown of
+   both requests; then the same int8 path calibrated at the 99.9th
+   percentile on that batch (2^24+ values per site), held to bf16;
+7. ``denoise_fast`` (14, 128, downshuffle 2) in int8 through
+   ``TiledUpscaler`` on one odd-sized image: output shape and launches;
+8. the ``rs`` CLI on a folder of two PNGs (512x384 and odd-sized), with the
+   ``sr`` artifact and then ``--int8`` with the ``fast`` artifact, each
+   timed as one run: artifact load, calibration, both images and the host
+   PNG codec.
 
 It prints one JSON line of per-kernel numbers, the ``nvidia-smi`` line,
 and last ``{"ok": true, "device": {...}}``. Without CUDA, or outside a
@@ -39,14 +55,15 @@ from pathlib import Path
 SEED = 0
 ROOT = Path(__file__).resolve().parent
 PACKAGE = "image_super_resolution_tpu_torch"
+SOURCES = ("fused_rdb", "matmul")  # csrc/<name>.cu
 
 # Dense peaks from NVIDIA's data sheets, by product name (first match):
-# bf16 tensor-core FLOP/s and device-memory bytes/s.
+# bf16 tensor-core FLOP/s, int8 tensor-core OP/s and device-memory bytes/s.
 PEAKS = (
-    ("H100 PCIe", 756e12, 2.0e12),
-    ("H100 NVL", 835e12, 3.9e12),
-    ("H200", 989e12, 4.8e12),
-    ("H100", 989e12, 3.35e12),
+    ("H100 PCIe", 756e12, 1513e12, 2.0e12),
+    ("H100 NVL", 835e12, 1671e12, 3.9e12),
+    ("H200", 989e12, 1979e12, 4.8e12),
+    ("H100", 989e12, 1979e12, 3.35e12),
 )
 
 
@@ -55,11 +72,19 @@ def _log(msg: str) -> None:
 
 
 def _peaks(name: str):
-    for key, flops, bw in PEAKS:
-        if key in name:
-            return key, flops, bw
+    """(product, bf16 FLOP/s, int8 OP/s, bytes/s) for the card ``name``."""
+    for row in PEAKS:
+        if row[0] in name:
+            return row
     _log(f"peaks: no entry for {name!r}; using the H100 SXM's")
-    return "H100", PEAKS[-1][1], PEAKS[-1][2]
+    return PEAKS[-1]
+
+
+def _bound(ops: float, nbytes: float, peak_ops: float, peak_bw: float):
+    """(bound ms, "operations" or "bytes", ops ms, bytes ms)."""
+    t_ops, t_bytes = ops / peak_ops * 1e3, nbytes / peak_bw * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), \
+        t_ops, t_bytes
 
 
 def _cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
@@ -103,12 +128,14 @@ def phase_build():
     from image_super_resolution_tpu_torch.ops.kernels import _build
 
     t0 = time.perf_counter()
-    log = _build.build("fused_rdb")
+    logs = _build.build(*SOURCES)
     secs = time.perf_counter() - t0
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            _log(f"[build] fused_rdb: {line.strip()}")
-    _log(f"[build] nvcc sm_90a fused_rdb: {'built' if log else 'already built'} "
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                _log(f"[build] {name}: {line.strip()}")
+    built = [n for n, log in logs.items() if log]
+    _log(f"[build] nvcc sm_90a {', '.join(SOURCES)} in parallel: built {built} "
          f"in {secs:.1f} s")
 
 
@@ -146,7 +173,7 @@ def _cudnn_scatter_form(x, kernels, bias16, add_rate=0.2, slope=0.01):
     return (fuse * add_rate + xn).permute(0, 2, 3, 1)
 
 
-def phase_kernel(kind: str):
+def phase_k1(kind: str, card: str):
     import numpy as np
     import torch
 
@@ -198,10 +225,9 @@ def phase_kernel(kind: str):
                      - k1.scatter_rdb_reference(x, *mats).float()).abs().max())
 
     flops, nbytes = _k1_work(*x.shape[:3])
-    peak_name, peak_flops, peak_bw = _peaks(kind)
-    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    _log(f"[kernel] fused_rdb b256 t24 on {kind}: kernel {ms:.4f} ms, plain "
+    peak_name, peak_flops, _, peak_bw = _peaks(kind)
+    bound_ms, bound_by, t_ops, t_bytes = _bound(flops, nbytes, peak_flops, peak_bw)
+    _log(f"[kernel] fused_rdb b256 t24 on {card}: kernel {ms:.4f} ms, plain "
          f"{plain_ms:.4f} ms, cuDNN five-conv scatter form {library_ms:.4f} ms "
          f"(its max_abs_err vs plain {lib_err:.4g}); bound {bound_ms:.4f} ms "
          f"({flops:.4g} FLOP at {peak_flops:.4g}/s = {t_ops:.4f} ms, {nbytes:.4g} B "
@@ -212,19 +238,182 @@ def phase_kernel(kind: str):
         "route": "cuda",
         "source": f"{PACKAGE}/csrc/fused_rdb.cu",
         "replaces": "image_super_resolution_tpu/ops/pallas/fused_rdb.py:84",
-        "launches": None,  # filled in from the serving phase
+        "launches": None,  # filled in from the sr serving phase
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_by": bound_by,
         "library_ms": library_ms,
     }
 
 
 # ------------------------------------------------------------------ phase 4 --
 
-def phase_serve(work: Path, kind: str):
+def _int_mm(a, b):
+    """``torch._int_mm`` (cuBLASLt int8 -> int32), K2's yardstick, used
+    nowhere in the port. Builds differ in the layout of B they take; the
+    first one taken is timed."""
+    import torch
+
+    try:
+        torch._int_mm(a, b)
+    except RuntimeError:
+        b = b.t().contiguous().t()
+        torch._int_mm(a, b)
+    return lambda: torch._int_mm(a, b)
+
+
+def phase_k2(kind: str, card: str):
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from image_super_resolution_tpu_torch.ops.kernels import matmul as k2
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 3)
+    peak_name, peak_bf16, peak_int8, peak_bw = _peaks(kind)
+
+    def i8(*shape):
+        return torch.from_numpy(rng.integers(-127, 128, shape, dtype=np.int8)).to(dev)
+
+    def bf16(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
+            dev, torch.bfloat16)
+
+    for m, k, n in ((1024, 2048, 1024), (777, 1152, 130)):
+        a, b = i8(m, k), i8(k, n)
+        got, want = k2.matmul(a, b), k2.matmul_reference(a, b)
+        torch.cuda.synchronize()
+        bad = int((got != want).sum())
+        _log(f"[kernel] matmul int8 {m}x{k}x{n}: {bad} of {got.numel()} values "
+             f"differ from the exact product (tolerance: none)")
+        if bad or got.dtype != torch.int32:
+            raise AssertionError(f"matmul int8 is not exact at {(m, k, n)}")
+        a, b = bf16(m, k), bf16(k, n)
+        got, want = k2.matmul(a, b), k2.matmul_reference(a, b)
+        tol = k2.BF16_ATOL_PER_K * k * float(a.float().abs().max() * b.float().abs().max())
+        err = float((got - want).abs().max())
+        _log(f"[kernel] matmul bf16 {m}x{k}x{n}: max_abs_err {err:.4g} against "
+             f"float64 (tolerance 2^-22 * K * max|a| * max|b| = {tol:.4g})")
+        if not err <= tol:
+            raise AssertionError(f"matmul bf16 outside its tolerance at {(m, k, n)}")
+
+    def site(b, h, w, c=128):
+        deq = torch.from_numpy(rng.uniform(1e-4, 1e-3, c).astype(np.float32)).to(dev)
+        bias = torch.from_numpy(rng.uniform(-1, 1, c).astype(np.float32)).to(dev)
+        return i8(b, h, w, c), i8(9 * c, c), deq, bias
+
+    # The serving path's input is the fp32 stream, which the kernel
+    # requantizes on load (scale 1/inv_x); ties and values past +-127 steps
+    # are planted in it.
+    inv_x = 0.25
+
+    def stream(shape):
+        h32 = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * 40)
+        h32[..., :4] = torch.tensor([0.5, -2.5, 300.0, -1e6]) / inv_x
+        return h32.to(dev)
+
+    serve = site(256, 24, 24)
+    h32 = stream(serve[0].shape)
+    max_err = 0.0
+    for args in (serve, site(3, 17, 29)):
+        x32 = h32 if args is serve else stream(args[0].shape)
+        # every int8 value as fp32 with scale 1, then the stream
+        for x, scale, what in ((args[0].float(), 1.0, "int8 values"),
+                               (x32, inv_x, "stream")):
+            for leaky in (True, False):
+                got = k2.conv3x3_int8(x, *args[1:], leaky, scale)
+                want = k2.conv3x3_int8_reference(x, *args[1:], leaky, scale)
+                torch.cuda.synchronize()
+                bad = int((got != want).sum())
+                err = float((got - want).abs().max())
+                _log(f"[kernel] conv3x3_int8 fp32 {what} {tuple(x.shape)} leaky={leaky}: "
+                     f"max_abs_err {err:.4g}, {bad} of {got.numel()} values differ "
+                     f"from the plain version (tolerance: none)")
+                if bad:
+                    raise AssertionError("conv3x3_int8 disagrees with its plain version")
+                max_err = max(max_err, err)
+
+    x8, w_q, deq, bias = serve
+    b, h, w, c = x8.shape
+    m = b * h * w
+    ms = _cuda_ms(lambda: k2.conv3x3_int8(h32, w_q, deq, bias, True, inv_x))
+    plain_ms = _cuda_ms(lambda: k2.conv3x3_int8_reference(h32, w_q, deq, bias, True, inv_x),
+                        warmup=1, iters=3)
+    xb = x8.to(torch.bfloat16).permute(0, 3, 1, 2)  # channels_last NCHW view
+    wb = w_q.to(torch.bfloat16).reshape(3, 3, c, c).permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last)
+    library_ms = _cuda_ms(lambda: F.conv2d(xb, wb, padding=1))
+    int_mm_site_ms = _cuda_ms(_int_mm(i8(m, 9 * c), w_q))
+    ops = 2 * m * 9 * c * c
+    nbytes = m * c * 4 + w_q.numel() + 8 * c + m * c * 4  # fp32 in, fp32 out
+    bound_ms, bound_by, t_ops, t_bytes = _bound(ops, nbytes, peak_int8, peak_bw)
+    _log(f"[kernel] conv3x3_int8 b256 t24 w128 on {card}: fp32 in, requantized on "
+         f"load, {ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+         f"({ops:.4g} int8 OP at {peak_int8:.4g}/s = {t_ops:.4f} ms, {nbytes:.4g} B at "
+         f"{peak_bw:.4g} B/s = {t_bytes:.4f} ms; {peak_name} peaks); plain (requantize "
+         f"+ float64 cuDNN conv + epilogue) {plain_ms:.4f} ms; cuDNN bf16 conv channels_last "
+         f"{library_ms:.4f} ms; torch._int_mm on its GEMM form ({m}x{9 * c}x{c}, no "
+         f"im2col) {int_mm_site_ms:.4f} ms; {ops / ms / 1e9:.1f} TOP/s achieved")
+
+    n = 4096
+    a, bm = i8(n, n), i8(n, n)
+    mm_ms = _cuda_ms(lambda: k2.matmul(a, bm))
+    mm_plain_ms = _cuda_ms(lambda: k2.matmul_reference(a, bm), warmup=1, iters=3)
+    int_mm_ms = _cuda_ms(_int_mm(a, bm))
+    a16, b16 = bf16(n, n), bf16(n, n)
+    mm16_ms = _cuda_ms(lambda: k2.matmul(a16, b16))
+    torch16_ms = _cuda_ms(lambda: torch.matmul(a16, b16))
+    ops = 2 * n ** 3
+    b8, _, o8, _ = _bound(ops, 2 * n * n + 4 * n * n, peak_int8, peak_bw)
+    b16_bound, _, _, _ = _bound(ops, 4 * n * n + 4 * n * n, peak_bf16, peak_bw)
+    _log(f"[kernel] matmul 4096^3 on {card}: int8 kernel {mm_ms:.4f} ms "
+         f"({ops / mm_ms / 1e9:.1f} TOP/s), plain (float64) {mm_plain_ms:.4f} ms, "
+         f"torch._int_mm {int_mm_ms:.4f} ms, bound {b8:.4f} ms by operations; "
+         f"bf16 kernel {mm16_ms:.4f} ms ({ops / mm16_ms / 1e9:.1f} TFLOP/s), "
+         f"torch.matmul bf16 {torch16_ms:.4f} ms, bound {b16_bound:.4f} ms")
+    return {
+        "name": "conv3x3_int8",
+        "route": "cuda",
+        "source": f"{PACKAGE}/csrc/matmul.cu",
+        "replaces": "scripts/bench_int8_pallas.py:37",
+        "launches": None,  # filled in from the fast int8 serving phase
+        "max_abs_err": max_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": library_ms,
+    }
+
+
+# ------------------------------------------------------------------ phase 5 --
+
+def _serve(model, x, n: int):
+    """One request, then ``n`` timed by the host clock (synchronized):
+    (ms per request, last output)."""
+    import torch
+
+    out = model(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        out = model(x)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3, out
+
+
+def _lsb(got, want) -> tuple:
+    """(max, share of values that differ) of two uint8 arrays."""
+    import numpy as np
+
+    diff = np.abs(np.asarray(got).astype(int) - np.asarray(want).astype(int))
+    return int(diff.max()), float((diff > 0).mean())
+
+
+def phase_sr(work: Path, card: str):
     import numpy as np
     import torch
 
@@ -244,15 +433,9 @@ def phase_serve(work: Path, kind: str):
     xd = torch.from_numpy(x).cuda()
     torch.cuda.reset_peak_memory_stats()
     per_forward = 3 * spec.depth
-    scatter_rdb.launches = 0
-    out = deployed(xd)  # first request
     n = 5
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        out = deployed(xd)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / n * 1e3
+    scatter_rdb.launches = 0
+    ms, out = _serve(deployed, xd, n)
     launches = scatter_rdb.launches
     if launches != per_forward * (n + 1):
         raise AssertionError(f"fused_rdb launched {launches} times in {n + 1} "
@@ -260,76 +443,103 @@ def phase_serve(work: Path, kind: str):
     if out.dtype != torch.uint8 or tuple(out.shape) != (b, t * s, t * s, 3):
         raise AssertionError(f"bad output {out.dtype} {tuple(out.shape)}")
     mpix = b * (t * s) ** 2 / (ms / 1e3) / 1e6
-    _log(f"[serve] sr x4 d16 w64 bf16 b{b} t{t} on {kind}: {ms:.3f} ms/iter "
+    _log(f"[serve] sr x4 d16 w64 bf16 b{b} t{t} on {card}: {ms:.3f} ms/iter "
          f"(host clock over {n} requests after one), {mpix:.2f} output MPix/s; "
          f"fused_rdb launches {launches} ({per_forward} per forward); artifact "
          f"load {load_s:.2f} s; peak memory "
          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     ref = load_artifact(isr, dtype=torch.float32, device="cpu")(x[:2]).numpy()
-    diff = np.abs(out[:2].cpu().numpy().astype(int) - ref.astype(int))
-    _log(f"[serve] 2 tiles, card bf16 vs CPU fp32: max {diff.max()} LSB "
-         f"(bound {BF16_MAX_LSB}), {(diff > 0).mean():.4f} of values differ")
-    if diff.max() > BF16_MAX_LSB:
+    worst, share = _lsb(out[:2].cpu(), ref)
+    _log(f"[serve] 2 tiles, card bf16 vs CPU fp32: max {worst} LSB "
+         f"(bound {BF16_MAX_LSB}), {share:.4f} of values differ")
+    if worst > BF16_MAX_LSB:
         raise AssertionError("card bf16 output is outside the recorded bound")
-    _breakdown(deployed, xd, n)
+    _breakdown("sr bf16", lambda: deployed(xd), n, _module_stages(deployed.model))
     return isr, launches
 
 
-def _breakdown(deployed, x, iters: int):
+def _event():
+    import torch
+
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def _module_stages(model):
+    """Stage marks from CUDA events on the model's top-level children;
+    numbered repeats (rrdb0.., block0..) are summed as one stage."""
+    import re
+
+    def install(marks):
+        handles = []
+        for name, child in model.named_children():
+            key = re.sub(r"\d+$", " (all)", name) if name.startswith(("rrdb", "block")) \
+                else name
+
+            def pre(_mod, _inp, key=key):
+                marks.setdefault(key, []).append([_event(), None])
+
+            def post(_mod, _inp, _out, key=key):
+                marks[key][-1][1] = _event()
+
+            handles += [child.register_forward_pre_hook(pre),
+                        child.register_forward_hook(post)]
+        return lambda: [h.remove() for h in handles]
+
+    return install
+
+
+def _int8_site_stages(marks):
+    """Stage marks around each int8 trunk site: K2's conv3x3_int8 launch,
+    which requantizes its fp32 input on load."""
+    from image_super_resolution_tpu_torch.models import quantized
+
+    orig = quantized.quant_site
+
+    def timed(p, h, leaky):
+        e0 = _event()
+        y = orig(p, h, leaky)
+        marks.setdefault("conv3x3_int8 (all sites)", []).append([e0, _event()])
+        return y
+
+    quantized.quant_site = timed
+    return lambda: setattr(quantized, "quant_site", orig)
+
+
+def _breakdown(title: str, run, iters: int, install):
     """Where one request's time goes, after the counted run: CUDA events
-    around each top-level module of the generator (the rest of the request
-    -- input copy, normalize, tail shuffles, uint8 -- is the request less
-    their sum), then device time by kernel name under ``torch.profiler`` and
-    the device's idle share over that window (1 - kernel time / wall)."""
+    around the stages that ``install`` marks (the rest of the request --
+    input copy, normalize, residual adds, shuffles, uint8 -- is the request
+    less their sum), then device time by kernel name under
+    ``torch.profiler`` and the device's idle share over that window
+    (1 - kernel time / wall)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     marks = {}
-
-    def pre(name):
-        def hook(_mod, _inp):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            marks.setdefault(name, []).append([ev, None])
-        return hook
-
-    def post(name):
-        def hook(_mod, _inp, _out):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            marks[name][-1][1] = ev
-        return hook
-
-    handles = []
-    for name, child in deployed.model.named_children():
-        handles.append(child.register_forward_pre_hook(pre(name)))
-        handles.append(child.register_forward_hook(post(name)))
+    cleanup = install(marks)
     try:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+        start = _event()
         for _ in range(iters):
-            deployed(x)
-        end.record()
+            run()
+        end = _event()
         torch.cuda.synchronize()
     finally:
-        for h in handles:
-            h.remove()
+        cleanup()
     request_ms = start.elapsed_time(end) / iters
     stages = {name: sum(a.elapsed_time(b) for a, b in pairs) / iters
               for name, pairs in marks.items()}
-    shown = {k: v for k, v in stages.items() if not k.startswith("rrdb")}
-    shown["rrdb (all)"] = sum(v for k, v in stages.items() if k.startswith("rrdb"))
-    shown["rest"] = request_ms - sum(stages.values())
-    _log(f"[breakdown] request {request_ms:.4f} ms (CUDA events, mean of {iters})")
-    for name, ms in shown.items():
-        _log(f"[breakdown] stage {name:12s} {ms:9.4f} ms  {ms / request_ms:6.1%}")
+    stages["rest"] = request_ms - sum(stages.values())
+    _log(f"[breakdown] {title}: request {request_ms:.4f} ms (CUDA events, mean of {iters})")
+    for name, ms in stages.items():
+        _log(f"[breakdown] {title}: stage {name:26s} {ms:9.4f} ms  {ms / request_ms:6.1%}")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
-            deployed(x)
+            run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / iters
     kernels = {}
@@ -341,45 +551,201 @@ def _breakdown(deployed, x, iters: int):
             kernels[evt.key] = kernels.get(evt.key, 0.0) + dev_us / 1e3 / iters
     busy = sum(kernels.values())
     idle = f"{1 - busy / wall:.1%}" if busy else "not measured (no device events)"
-    _log(f"[breakdown] profiler: device kernel time {busy:.4f} ms of {wall:.4f} ms "
-         f"wall per request; idle share {idle}")
+    _log(f"[breakdown] {title}: profiler: device kernel time {busy:.4f} ms of "
+         f"{wall:.4f} ms wall per request; idle share {idle}")
     for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]:
-        _log(f"[breakdown] kernel {ms:9.4f} ms  {ms / max(busy, 1e-9):6.1%}  {name[:100]}")
+        _log(f"[breakdown] {title}: kernel {ms:9.4f} ms  {ms / max(busy, 1e-9):6.1%}  "
+             f"{name[:100]}")
 
 
-# ------------------------------------------------------------------ phase 5 --
+# ------------------------------------------------------------------ phase 6 --
 
-def phase_cli(work: Path, isr: Path):
+def phase_fast(work: Path, card: str):
+    import numpy as np
+    import torch
+
+    from image_super_resolution_tpu_torch.models.deploy import (
+        FAST_BF16_MAX_LSB, DeploySpec, init_fused_params, load_artifact, save_artifact)
+    from image_super_resolution_tpu_torch.models.quantized import (
+        INT8_CARD_MAX_LSB, Int8DeployedFast, quantize_deployed)
+    from image_super_resolution_tpu_torch.ops.kernels.matmul import conv3x3_int8
+
+    spec = DeploySpec(family="fast", depth=14, width=128, scale=4)
+    isr = work / "fast_x4_d14_w128.isr"
+    save_artifact(isr, spec, init_fused_params(spec, SEED))
+    deployed = load_artifact(isr, dtype=torch.bfloat16, device="cuda")
+    b, t, s = 256, 24, spec.scale
+    x = np.random.default_rng(SEED + 4).integers(0, 256, (b, t, t, 3), dtype=np.uint8)
+    xd = torch.from_numpy(x).cuda()
+    sites = 2 * spec.depth + 1
+    n = 5
+
+    conv3x3_int8.launches = 0
+    bf16_ms, out16 = _serve(deployed, xd, n)
+    if conv3x3_int8.launches != 0:
+        raise AssertionError("the bf16 fast forward launched conv3x3_int8")
+    t0 = time.perf_counter()
+    quant = quantize_deployed(deployed, [xd])
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+
+    conv3x3_int8.launches = 0
+    int8_ms, out8 = _serve(quant, xd, n)
+    launches = conv3x3_int8.launches
+    if launches != sites * (n + 1):
+        raise AssertionError(f"conv3x3_int8 launched {launches} times in {n + 1} "
+                             f"int8 forwards, want {sites} per forward")
+    for out in (out16, out8):
+        if out.dtype != torch.uint8 or tuple(out.shape) != (b, t * s, t * s, 3):
+            raise AssertionError(f"bad output {out.dtype} {tuple(out.shape)}")
+    for name, ms in (("bf16", bf16_ms), ("int8", int8_ms)):
+        _log(f"[serve] fast x4 d14 w128 {name} b{b} t{t} on {card}: {ms:.3f} ms/request "
+             f"(host clock over {n} requests after one), "
+             f"{b * (t * s) ** 2 / (ms / 1e3) / 1e6:.2f} output MPix/s")
+    _log(f"[serve] fast int8: conv3x3_int8 launches {launches} ({sites} per forward, "
+         f"0 in the bf16 forwards); calibration + quantization {calib_s:.2f} s")
+
+    ref32 = load_artifact(isr, dtype=torch.float32, device="cpu")(x[:2])
+    worst16, share16 = _lsb(out16[:2].cpu(), ref32)
+    ref8 = Int8DeployedFast(spec, quant.params, device="cpu")(x[:2])
+    worst8, share8 = _lsb(out8[:2].cpu(), ref8)
+    diff = np.abs(out8.cpu().numpy().astype(int) - out16.cpu().numpy().astype(int))
+    _log(f"[serve] fast, 2 tiles: card bf16 vs CPU fp32 max {worst16} LSB (bound "
+         f"{FAST_BF16_MAX_LSB}), {share16:.4f} differ; card int8 vs CPU int8 on the "
+         f"same quantized params max {worst8} LSB (bound {INT8_CARD_MAX_LSB}), "
+         f"{share8:.4f} differ; whole batch card int8 vs card bf16 mean "
+         f"{diff.mean():.4f} max {diff.max()} LSB (bound mean < 1, max <= 8)")
+    if worst16 > FAST_BF16_MAX_LSB or worst8 > INT8_CARD_MAX_LSB:
+        raise AssertionError("fast card output is outside its recorded bound")
+    if not (diff.mean() < 1.0 and diff.max() <= 8):
+        raise AssertionError("fast int8 drifted from bf16 beyond the JAX package's bound")
+    _breakdown("fast bf16", lambda: deployed(xd), n, _module_stages(deployed.model))
+    _breakdown("fast int8", lambda: quant(xd), n, _int8_site_stages)
+    _fast_percentile(deployed, quant, xd, out16, spec, card)
+    return isr, launches
+
+
+def _fast_percentile(deployed, amax, xd, out16, spec, card):
+    """int8 calibrated at the 99.9th percentile of |x| on the whole b256
+    t24 batch: 147,456 x 128 values per site, above torch.quantile's 2^24.
+    The card's percentile equals the CPU's on one such tensor; every site's
+    scale is at most its amax scale; one request launches K2 29 times and
+    stays within the JAX package's int8 bound of bf16 (mean < 1, max <= 8)."""
+    import numpy as np
+    import torch
+
+    from image_super_resolution_tpu_torch.models.quantized import (
+        linear_percentile, quantize_deployed, trunk_sites)
+    from image_super_resolution_tpu_torch.ops.kernels.matmul import conv3x3_int8
+
+    big = torch.from_numpy(np.abs(np.random.default_rng(SEED + 6).standard_normal(
+        147456 * 128, dtype=np.float32)))
+    on_card = float(linear_percentile(big.cuda(), 99.9))
+    on_cpu = float(linear_percentile(big, 99.9))
+    if on_card != on_cpu:
+        raise AssertionError(f"percentile on the card {on_card} != CPU {on_cpu}")
+    t0 = time.perf_counter()
+    quant = quantize_deployed(deployed, [xd], percentile=99.9)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    sites = list(trunk_sites(spec.depth))
+    ratio = [amax.params[s]["inv_x"] / quant.params[s]["inv_x"] for s in sites]
+    if max(ratio) > 1.0 + 1e-6 or min(ratio) >= 1.0:
+        raise AssertionError(f"p99.9 scales / amax scales {min(ratio)}..{max(ratio)}: "
+                             f"want all <= 1 and some < 1")
+    conv3x3_int8.launches = 0
+    out = quant(xd)
+    torch.cuda.synchronize()
+    if conv3x3_int8.launches != len(sites):
+        raise AssertionError(f"p99.9 int8 launched conv3x3_int8 {conv3x3_int8.launches} "
+                             f"times, want {len(sites)}")
+    if out.dtype != torch.uint8 or out.shape != out16.shape:
+        raise AssertionError(f"bad output {out.dtype} {tuple(out.shape)}")
+    diff = np.abs(out.cpu().numpy().astype(int) - out16.cpu().numpy().astype(int))
+    _log(f"[serve] fast int8 p99.9 on {card}: percentile of {big.numel()} values card "
+         f"== CPU ({on_card:.7g}); calibration + quantization on b{xd.shape[0]} "
+         f"t{xd.shape[1]} {calib_s:.2f} s; scales {min(ratio):.4f}..{max(ratio):.4f} "
+         f"of amax; conv3x3_int8 launches {conv3x3_int8.launches}; vs card bf16 mean "
+         f"{diff.mean():.4f} max {diff.max()} LSB (bound mean < 1, max <= 8)")
+    if not (diff.mean() < 1.0 and diff.max() <= 8):
+        raise AssertionError("p99.9 int8 drifted from bf16 beyond the JAX package's bound")
+
+
+# ------------------------------------------------------------------ phase 7 --
+
+def phase_denoise(card: str):
+    import numpy as np
+    import torch
+
+    from image_super_resolution_tpu_torch.cli.rs import _grid_crops
+    from image_super_resolution_tpu_torch.infer.engine import TiledUpscaler
+    from image_super_resolution_tpu_torch.infer.tiling import plan_tiles
+    from image_super_resolution_tpu_torch.models.deploy import (
+        DeployedModel, DeploySpec, init_fused_params)
+    from image_super_resolution_tpu_torch.models.quantized import quantize_deployed
+    from image_super_resolution_tpu_torch.ops.kernels.matmul import conv3x3_int8
+
+    spec = DeploySpec(family="denoise_fast", depth=14, width=128, downshuffle=2)
+    deployed = DeployedModel(spec, init_fused_params(spec, SEED + 5),
+                             dtype=torch.bfloat16, device="cuda")
+    img = np.random.default_rng(SEED + 5).integers(0, 256, (301, 203, 3), dtype=np.uint8)
+    quant = quantize_deployed(deployed, [np.stack(_grid_crops(img, 96, 2, 4))])
+    window, overlap, batch = 96, 8, 8
+    engine = TiledUpscaler(quant, window=window, overlap=overlap, batch_size=batch)
+    conv3x3_int8.launches = 0
+    out = engine.upscale_image(img)
+    tiles = len(plan_tiles(*img.shape[:2], window, overlap)[0])
+    want = (2 * spec.depth + 1) * -(-tiles // batch)
+    if out.shape != img.shape or out.dtype != np.uint8:
+        raise AssertionError(f"denoise_fast wrote {out.shape} {out.dtype} for {img.shape}")
+    if conv3x3_int8.launches != want:
+        raise AssertionError(f"denoise_fast int8 launched conv3x3_int8 "
+                             f"{conv3x3_int8.launches} times, want {want}")
+    _log(f"[serve] denoise_fast d14 w128 ds2 int8 on {card}: one {img.shape[1]}x"
+         f"{img.shape[0]} image through TiledUpscaler ({tiles} tiles of {window}, "
+         f"batch {batch}): output {out.shape}, conv3x3_int8 launches {want}")
+
+
+# ------------------------------------------------------------------ phase 8 --
+
+def phase_cli(work: Path, sr_isr: Path, fast_isr: Path, card: str):
     import numpy as np
 
     from image_super_resolution_tpu_torch.cli import rs
     from image_super_resolution_tpu_torch.infer.tiling import plan_tiles
     from image_super_resolution_tpu_torch.ops.kernels.fused_rdb import scatter_rdb
+    from image_super_resolution_tpu_torch.ops.kernels.matmul import conv3x3_int8
     from image_super_resolution_tpu_torch.utils.png import read_png, write_png
 
     rng = np.random.default_rng(SEED + 2)
-    src, dst = work / "in", work / "out"
+    src = work / "in"
     src.mkdir()
     sizes = {"photo": (384, 512), "odd": (77, 53)}
     for name, hw in sizes.items():
         write_png(src / f"{name}.png", rng.integers(0, 256, (*hw, 3), dtype=np.uint8))
     window, overlap, batch = 96, 8, 8  # the CLI's defaults
-    want = 0
+    chunks = 0
     for h, w in sizes.values():
         tiles = plan_tiles(h, w, min(window, max(h, w) + 2 * overlap), overlap)[0]
-        want += 48 * -(-len(tiles) // batch)
-    scatter_rdb.launches = 0
-    t0 = time.perf_counter()
-    rs.main(["--model", str(isr), "--src", str(src), "--save_dir", str(dst)])
-    secs = time.perf_counter() - t0
-    if scatter_rdb.launches != want:
-        raise AssertionError(f"rs launched fused_rdb {scatter_rdb.launches} times, want {want}")
-    for name, (h, w) in sizes.items():
-        got = read_png(dst / f"{name}.png")
-        if got.shape != (4 * h, 4 * w, 3):
-            raise AssertionError(f"rs wrote {got.shape} for {name} {(h, w)}")
-    _log(f"[cli] rs --device cuda on 2 PNGs {list(sizes.values())}: x4 outputs, "
-         f"fused_rdb launches {want}, {secs:.2f} s wall")
+        chunks += -(-len(tiles) // batch)
+    runs = (("sr bf16", sr_isr, [], scatter_rdb, 48),
+            ("fast --int8", fast_isr, ["--int8"], conv3x3_int8, 29))
+    for title, isr, flags, kernel, per_chunk in runs:
+        dst = work / f"out_{kernel.__name__}"
+        kernel.launches = 0
+        t0 = time.perf_counter()
+        rs.main(["--model", str(isr), "--src", str(src), "--save_dir", str(dst), *flags])
+        secs = time.perf_counter() - t0
+        if kernel.launches != per_chunk * chunks:
+            raise AssertionError(f"rs ({title}) launched {kernel.__name__} "
+                                 f"{kernel.launches} times, want {per_chunk * chunks}")
+        for name, (h, w) in sizes.items():
+            got = read_png(dst / f"{name}.png")
+            if got.shape != (4 * h, 4 * w, 3):
+                raise AssertionError(f"rs ({title}) wrote {got.shape} for {name} {(h, w)}")
+        _log(f"[cli] rs {title} --device cuda on {card}, 2 PNGs "
+             f"{list(sizes.values())}: x4 outputs, {kernel.__name__} launches "
+             f"{kernel.launches}, {secs:.2f} s wall")
 
 
 def main() -> int:
@@ -399,12 +765,16 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     smi, kind = phase_card()
+    card = f"{smi} (nvidia-smi name, power limit)"
     phase_build()
-    k1 = phase_kernel(kind)
+    k1 = phase_k1(kind, card)
+    k2 = phase_k2(kind, card)
     with tempfile.TemporaryDirectory() as tmp:
-        isr, k1["launches"] = phase_serve(Path(tmp), kind)
-        phase_cli(Path(tmp), isr)
-    print(json.dumps({"kernels": [k1]}))
+        sr_isr, k1["launches"] = phase_sr(Path(tmp), card)
+        fast_isr, k2["launches"] = phase_fast(Path(tmp), card)
+        phase_denoise(card)
+        phase_cli(Path(tmp), sr_isr, fast_isr, card)
+    print(json.dumps({"kernels": [k1, k2]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -5,8 +5,10 @@
 
 The flags are the JAX CLI's, plus ``--device`` (default ``cuda``). Image
 path: load artifact -> overlap-tiled batched upscale -> PNG. A folder is
-served image by image with one loaded model. Flags whose paths are not
-ported yet exit with a message naming the slice that brings them.
+served image by image with one loaded model. ``--int8`` serves a fast-family
+artifact with its trunk in int8, calibrated on crops of the input itself.
+Flags whose paths are not ported yet exit with a message naming the slice
+that brings them.
 """
 
 from __future__ import annotations
@@ -42,9 +44,13 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--tp_devices", type=int, default=1,
                         help="tensor parallelism: slice 5")
     parser.add_argument("--int8", action="store_true",
-                        help="int8 PTQ serving: slice 2")
+                        help="serve the fast-family trunk in int8 (PTQ "
+                             "self-calibrated on the input; fast and "
+                             "denoise_fast artifacts only)")
     parser.add_argument("--int8_percentile", type=float, default=None,
-                        help="int8 calibration percentile: slice 2")
+                        help="with --int8: calibrate activation scales to "
+                             "this percentile of |x| (0 < p <= 100, e.g. "
+                             "99.99) instead of the max")
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="device trace of the run: slice 5")
     parser.add_argument("--compile_cache", type=str, default=None,
@@ -61,9 +67,21 @@ def main(argv=None):
 
 def _refuse_unported(src: Path, spatial_devices, data_devices, spatial_grid,
                      tp_devices, int8, int8_percentile, profile_dir) -> None:
-    if int8 or int8_percentile is not None:
-        raise SystemExit("--int8 serving is not ported yet: it comes with "
-                         "slice 2 (fast-family serving with int8 PTQ)")
+    if int8 and tp_devices != 1:
+        raise SystemExit("--int8 is mutually exclusive with --tp_devices (the "
+                         "TP wrapper shards the bf16 graph; an int8-TP path "
+                         "is not built)")
+    if int8 and (spatial_devices != 1 or spatial_grid):
+        raise SystemExit("--int8 is mutually exclusive with --spatial_devices/"
+                         "--spatial_grid: requantization amplifies "
+                         "band-boundary differences")
+    if int8_percentile is not None:
+        from ..models.quantized import check_percentile
+
+        try:
+            check_percentile(int8_percentile)
+        except ValueError as e:
+            raise SystemExit(f"--int8_percentile: {e}") from None
     if tp_devices != 1 or spatial_devices != 1 or data_devices != 1 or (
         spatial_grid and tuple(spatial_grid) != (1, 1)
     ):
@@ -107,6 +125,15 @@ def run(
         deployed = load_artifact(model, device=device)
     except NotImplementedError as e:
         raise SystemExit(str(e)) from None
+    if int8:
+        from ..models.quantized import quantize_deployed
+
+        try:  # quantize_deployed owns the family whitelist
+            deployed = quantize_deployed(
+                deployed, _int8_calib_batches(src_path, window_size),
+                percentile=int8_percentile)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
     try:
         engine = TiledUpscaler(deployed, window=window_size, overlap=overlap,
                                batch_size=batch_size)
@@ -187,6 +214,46 @@ def _run_folder(engine, src_path: Path, out_path: Path) -> Path:
         if len(failed) == len(images):
             raise RuntimeError("every image in the batch failed")
     return out_path
+
+
+def _grid_crops(img: np.ndarray, c: int, ny: int, nx: int) -> list:
+    h, w = img.shape[:2]
+    c = max(1, min(c, h, w))  # images smaller than the crop: use them whole
+    ys = np.linspace(0, h - c, ny, dtype=int)
+    xs = np.linspace(0, w - c, nx, dtype=int)
+    return [img[y:y + c, x:x + c] for y in ys for x in xs]
+
+
+def _int8_calib_batches(src_path: Path, window: int) -> list:
+    """PTQ calibration data from the input itself, as one uint8 batch.
+    Activation scales are per-tensor scalars, so any crop size serves any
+    serving shape. A folder gives crops of up to 8 images spread across it
+    (skipping unreadable ones), at one common crop size; a single image
+    gives a 2 x 4 grid of crops."""
+    c = window or 96
+    if src_path.is_dir():
+        images = sorted(p for p in src_path.iterdir() if p.suffix.lower() in IMG_FORMATS)
+        if not images:
+            raise FileNotFoundError(f"no images in {src_path}")
+        sel = images[:: max(1, len(images) // 8)][:8]
+        imgs = []
+        for p in sel:
+            try:
+                imgs.append(_read_image_rgb(p))
+            except Exception as e:
+                print(f"int8 calibration: skipping unreadable {p}: {e}")
+        if not imgs:
+            raise FileNotFoundError(
+                f"no readable calibration images among {len(sel)} sampled "
+                f"from {src_path}")
+        c = max(1, min([c] + [min(i.shape[:2]) for i in imgs]))
+        crops = [crop for i in imgs
+                 for crop in _grid_crops(i, c, 1, max(1, 8 // len(imgs)))]
+    else:
+        img = _read_image_rgb(src_path)
+        c = max(1, min(c, *img.shape[:2]))
+        crops = _grid_crops(img, c, 2, 4)
+    return [np.stack(crops)]
 
 
 def _read_image_rgb(path: Path) -> np.ndarray:

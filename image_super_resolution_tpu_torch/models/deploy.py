@@ -4,7 +4,10 @@ of the JAX package's ``models/deploy.py``).
 - ``DeployedModel`` wraps ``normalize`` -> generator -> ``tanh_to_uint8``
   on one device. For ``sr`` at x2/x4 it builds the optimized graph
   (scatter-form RDBs through the fused kernel, folded tail); the weight
-  transforms run once, at construction.
+  transforms run once, at construction. The fast families (``fast``,
+  ``denoise_fast``) serve their own graph (``models/fast.py``), whose
+  training graph is already the serving graph; their int8 form is
+  ``models/quantized.py``.
 - ``save_artifact``/``load_artifact`` read and write the ``.isr`` file that
   the JAX package writes, with ``msgpack`` alone: ``{"spec": json,
   "params": fp16 tree, "format_version": 1}``, each array a msgpack ext
@@ -26,12 +29,12 @@ import torch
 from ..core.device import resolve_device
 from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD, normalize, tanh_to_uint8
 from ..interop.from_jax import params_from_jax, params_to_jax
+from .fast import FastSRGenerator
 from .generator import SRGenerator
 from .optimized import OptimizedSRGenerator, optimize_generator_params
 
+_PORTED = ("sr", "fast", "denoise_fast")
 _LATER_SLICE = {
-    "fast": "slice 2 (fast-family serving with int8 PTQ)",
-    "denoise_fast": "slice 2 (fast-family serving with int8 PTQ)",
     "denoise": "slice 3 (the remaining serving families)",
     "denoise_legacy": "slice 3 (the remaining serving families)",
 }
@@ -43,6 +46,9 @@ _LATER_SLICE = {
 # output to bf16, where the port follows the Pallas kernel's fp32 sums
 # inside each RDB) the measured difference at depth 1 is 1.
 BF16_MAX_LSB = 4
+# The same for a fast x4 artifact at full depth 14, width 128: measured on
+# the CPU at most 2 (tests/test_torch_fast.py), one more for the card.
+FAST_BF16_MAX_LSB = 3
 
 
 def family_defaults(family: str, rs_deep=None, width=None) -> Tuple[int, int]:
@@ -70,13 +76,40 @@ def infer_family_dims(params, family: str):
     return (depth, width) if depth > 0 and width > 0 else (None, None)
 
 
+def infer_downshuffle(params) -> int | None:
+    """The fast graph's sub-pixel front factor f, read from the tree: the
+    head conv sees 3*f^2 input channels. None when the tree does not look
+    like a fast family."""
+    try:
+        cin = int(params["head"]["conv"]["kernel"].shape[2])
+    except Exception:
+        return None
+    if cin % 3:
+        return None
+    f = round((cin // 3) ** 0.5)
+    return f if 3 * f * f == cin else None
+
+
+def infer_refine(params) -> Tuple[int, int]:
+    """(refine_blocks, refine_width) read from a fast-family tree: a
+    ``refine_proj`` conv, ``refine0..refine{k-1}`` blocks, and a tail conv
+    whose input width is the refine width. (0, 32), the spec's defaults,
+    when the tree has no refinement stage."""
+    if not isinstance(params, dict) or "refine_proj" not in params:
+        return 0, 32
+    blocks = sum(1 for k in params
+                 if str(k).startswith("refine") and str(k)[6:].isdigit())
+    width = int(params["tail"]["conv"]["kernel"].shape[2])
+    return blocks, width
+
+
 def _require_ported(family: str) -> None:
     if family in _LATER_SLICE:
         raise NotImplementedError(
             f"family {family!r} is not ported yet: it comes with "
             f"{_LATER_SLICE[family]}"
         )
-    if family != "sr":
+    if family not in _PORTED:
         raise ValueError(f"unknown model family {family!r}")
 
 
@@ -97,8 +130,14 @@ class DeploySpec:
     refine_blocks: int = 0
     refine_width: int = 32
 
-    def build_model(self, dtype=torch.float32, device="cuda") -> SRGenerator:
+    def build_model(self, dtype=torch.float32, device="cuda"):
         _require_ported(self.family)
+        if self.family in ("fast", "denoise_fast"):
+            return FastSRGenerator(
+                depth=self.depth, add_rate=self.add_rate, scale=self.output_scale,
+                width=self.width, downshuffle=self.downshuffle or 1,
+                refine_blocks=self.refine_blocks or 0,
+                refine_width=self.refine_width or 32, dtype=dtype, device=device)
         return SRGenerator(depth=self.depth, add_rate=self.add_rate,
                            scale=self.scale, width=self.width,
                            enchant=self.enchant, fused=True, dtype=dtype,
@@ -112,10 +151,11 @@ class DeploySpec:
 class DeployedModel:
     """uint8 NHWC -> uint8 NHWC super-resolver on one device.
 
-    ``optimize=True`` (the default) builds the optimized graph for x2/x4
-    (``tail_fold`` 0 = auto: 2 for x4, 1 for x2). Artifacts store the
-    standard fused layout; the transform happens here, once. On the card
-    the scatter-form RDBs need ``dtype=torch.bfloat16``.
+    ``optimize=True`` (the default) builds the optimized graph for ``sr``
+    at x2/x4 (``tail_fold`` 0 = auto: 2 for x4, 1 for x2). Artifacts store
+    the standard fused layout; the transform happens here, once. On the card
+    the scatter-form RDBs need ``dtype=torch.bfloat16``. The fast families
+    have no rewrite; their params are committed in ``dtype`` once, here.
     """
 
     def __init__(self, spec: DeploySpec, fused_params: Mapping[str, Any],
@@ -125,7 +165,8 @@ class DeployedModel:
         self.spec = spec
         self.dtype = dtype
         self.device = resolve_device(device)
-        self.optimized = bool(optimize and spec.scale in (2, 4))
+        self.optimized = bool(optimize and spec.family == "sr"
+                              and spec.scale in (2, 4))
         if self.optimized:
             tail_fold = tail_fold or (2 if spec.scale == 4 else 1)
             params = optimize_generator_params(fused_params, tail_fold=tail_fold)

@@ -1,0 +1,281 @@
+"""Post-training int8 serving for the fast families (counterpart of the JAX
+package's ``models/quantized.py``).
+
+Scheme (symmetric PTQ):
+
+- weights: per-output-channel int8, scale = max|w[..., o]| / 127;
+- activations: one static scale per trunk conv input, calibrated on sample
+  batches (max of |x|, or a percentile of it) over the bf16 forward;
+- the 2*depth+1 trunk convs (``trunk_sites``) run int8 x int8 -> int32 in
+  ``ops/kernels/matmul.py``'s ``conv3x3_int8`` (the hand-written kernel on
+  the card), dequantized in its epilogue (``acc * deq + bias``, leaky on
+  conv0 sites); the residual stream between them stays fp32, and each
+  site's input is requantized afresh (``clip(round(h / s_x), +-127)``,
+  inside the kernel's operand load on the card);
+- head, tail and the refinement tail stay bf16.
+
+``fast_forward`` is ``models/fast.py``'s forward written as a function of a
+param dict (the port's ``state_dict`` names), with the JAX hooks: ``record``
+sees every trunk conv input (calibration) and ``quant`` replaces every
+trunk conv (int8 serving). Without hooks it is the bf16 module's forward.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Iterable, Optional
+
+import numpy as np
+import torch
+
+from ..core.device import resolve_device
+from ..data.transforms import normalize, tanh_to_uint8
+from ..ops.activations import apply_act
+from ..ops.conv import conv_bias_nhwc
+from ..ops.kernels.matmul import conv3x3_int8
+from ..ops.pixel_shuffle import pixel_shuffle
+from .fast import _LEAKY, downshuffle_front, scale_residual
+
+FAMILIES = ("fast", "denoise_fast")
+# Largest uint8 difference allowed between the card's int8 output and the
+# port's int8 CPU path on the same quantized params (fast x4, depth 14).
+# The int8 sites agree exactly; the bf16 head and tail convs (cuDNN against
+# the CPU) can flip a bf16 rounding, which requantization at the next site
+# turns into a whole int8 step. Measured on an H100 (chip_smoke.py, two
+# 24x24 tiles): 1 LSB on 0.01% of the values; bound 4.
+INT8_CARD_MAX_LSB = 4
+
+
+def trunk_sites(depth: int):
+    """Names of the quantized conv sites, in forward order."""
+    for i in range(depth):
+        yield f"block{i}.conv0"
+        yield f"block{i}.conv1"
+    yield "trunk_conv"
+
+
+def _bf16_conv_act(x: torch.Tensor, params, name: str, act: bool) -> torch.Tensor:
+    """One ConvBlock as flax runs it in bf16: bf16 operands, conv rounded to
+    bf16, + bf16 bias, optional leaky_relu."""
+    w = params[f"{name}.conv.weight"].to(torch.bfloat16)
+    y = conv_bias_nhwc(x.to(torch.bfloat16), w, params[f"{name}.conv.bias"],
+                       padding=w.shape[-1] // 2)
+    return apply_act(y, _LEAKY) if act else y
+
+
+def fast_forward(
+    params: Dict[str, Any],
+    x: torch.Tensor,
+    depth: int,
+    add_rate: float,
+    scale: int,
+    record: Optional[Callable[[str, torch.Tensor], None]] = None,
+    quant: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None,
+    downshuffle: int = 1,
+    refine_blocks: int = 0,
+) -> torch.Tensor:
+    """FastSRGenerator's forward on a param dict. ``record(site, h)`` is
+    called with every trunk conv input; ``quant(site, h)`` replaces each
+    trunk conv (conv + bias + act for conv0 sites, conv + bias for the
+    rest), and then the residual stream runs in fp32."""
+    stream = torch.float32 if quant is not None else torch.bfloat16
+
+    def site_conv(site, h, act):
+        if record is not None:
+            record(site, h)
+        if quant is not None:
+            return quant(site, h)
+        return _bf16_conv_act(h, params, site, act)
+
+    h_in, w_in = x.shape[1], x.shape[2]
+    x = downshuffle_front(x.to(torch.bfloat16), downshuffle)
+    x = _bf16_conv_act(x, params, "head", act=True).to(stream)
+    h = x
+    for i in range(depth):
+        t = site_conv(f"block{i}.conv0", h, act=True)
+        t = site_conv(f"block{i}.conv1", t, act=False)
+        h = h + scale_residual(t.to(stream), add_rate)
+    x = x + site_conv("trunk_conv", h, act=False).to(stream)
+    r = scale * downshuffle
+    if refine_blocks:
+        x = _bf16_conv_act(x, params, "refine_proj", act=True)
+        if r > 1:
+            x = pixel_shuffle(x, r)
+        for i in range(refine_blocks):
+            t = _bf16_conv_act(x, params, f"refine{i}.conv0", act=True)
+            t = _bf16_conv_act(t, params, f"refine{i}.conv1", act=False)
+            x = x + scale_residual(t, add_rate)
+        x = torch.tanh(_bf16_conv_act(x, params, "tail", act=False))
+    else:
+        x = torch.tanh(_bf16_conv_act(x, params, "tail", act=False))
+        if r > 1:
+            x = pixel_shuffle(x, r)
+    return x[:, :h_in * scale, :w_in * scale].float()
+
+
+# ------------------------------------------------------------ calibration --
+
+
+def linear_percentile(a: torch.Tensor, q: float) -> torch.Tensor:
+    """``jnp.percentile(a.ravel(), q)`` (linear interpolation between the
+    two order statistics around q/100 * (n - 1)), by ``torch.kthvalue``:
+    ``torch.quantile`` refuses inputs above 2^24 elements. Returns a 0-d
+    tensor on ``a``'s device, with no host sync."""
+    flat = a.reshape(-1)
+    n = flat.numel()
+    pos = q / 100.0 * (n - 1)
+    lo, hi = int(np.floor(pos)), int(np.ceil(pos))
+    w_hi = pos - lo
+    lo_v = torch.kthvalue(flat, lo + 1).values
+    if hi == lo:
+        return lo_v
+    hi_v = torch.kthvalue(flat, hi + 1).values
+    return lo_v * (1.0 - w_hi) + hi_v * w_hi
+
+
+def check_percentile(p: Optional[float]) -> None:
+    """A calibration percentile must lie in (0, 100]."""
+    if p is not None and not 0.0 < p <= 100.0:
+        raise ValueError(f"int8 calibration percentile must be in (0, 100], got {p}")
+
+
+@torch.inference_mode()
+def calibrate_scales(
+    params: Dict[str, Any],
+    batches: Iterable[torch.Tensor],
+    depth: int,
+    add_rate: float,
+    scale: int,
+    downshuffle: int = 1,
+    refine_blocks: int = 0,
+    percentile: Optional[float] = None,
+) -> Dict[str, float]:
+    """Static per-site activation scales: the max over the batches of
+    max|x| (or its ``percentile``-th percentile) at every trunk conv input
+    of the bf16 forward, / 127. ``batches``: normalized float NHWC."""
+    check_percentile(percentile)
+    maxes: Dict[str, float] = {}
+    for x in batches:
+        seen: Dict[str, torch.Tensor] = {}
+
+        def record(site, t):
+            a = t.float().abs()
+            seen[site] = (a.max() if percentile is None
+                          else linear_percentile(a, percentile))
+
+        fast_forward(params, x, depth, add_rate, scale, record=record,
+                     downshuffle=downshuffle, refine_blocks=refine_blocks)
+        # one device->host copy for all sites of the batch
+        for site, m in zip(seen, torch.stack(list(seen.values())).tolist()):
+            maxes[site] = max(maxes.get(site, 0.0), float(m))
+    if not maxes:
+        raise ValueError("calibrate_scales needs at least one batch")
+    # guard degenerate all-zero activations (scale 0 would divide by zero)
+    return {site: max(m, 1e-8) / 127.0 for site, m in maxes.items()}
+
+
+def quantize_fast_params(params: Dict[str, Any], act_scales: Dict[str, float],
+                         depth: int) -> Dict[str, Any]:
+    """Param dict -> int8 serving dict, on the host. Per site: ``w_q`` int8
+    in the (9*Cin, Cout) matmul form, ``inv_x`` (an fp32 value, as a Python
+    float the kernel takes by value), ``deq`` =
+    act_scale * per-channel weight scale, ``bias`` (fp32). Head, tail and
+    refinement params pass through."""
+    q: Dict[str, Any] = {k: v for k, v in params.items()
+                         if k.startswith(("head.", "tail.", "refine"))}
+    for site in trunk_sites(depth):
+        w = params[f"{site}.conv.weight"].detach().float().cpu().numpy()
+        w = w.transpose(2, 3, 1, 0)  # OIHW -> HWIO, as the JAX tree holds it
+        w_scale = np.maximum(np.abs(w).max(axis=(0, 1, 2)), 1e-12) / 127.0
+        w_q = np.clip(np.rint(w / w_scale), -127, 127).astype(np.int8)
+        s_x = float(act_scales[site])
+        q[site] = {
+            "w_q": torch.from_numpy(np.ascontiguousarray(w_q.reshape(-1, w.shape[3]))),
+            "inv_x": float(np.float32(1.0 / s_x)),
+            "deq": torch.from_numpy(np.asarray(s_x * w_scale, np.float32)),
+            "bias": params[f"{site}.conv.bias"].detach().float().cpu(),
+        }
+    return q
+
+
+def quant_site(p: Dict[str, Any], h: torch.Tensor, leaky: bool) -> torch.Tensor:
+    """One int8 trunk site: the fp32 input requantized with the site's
+    scale (inside the kernel on the card), the int8 conv and its
+    dequantizing epilogue."""
+    return conv3x3_int8(h, p["w_q"], p["deq"], p["bias"], leaky=leaky,
+                        inv_x=p["inv_x"])
+
+
+def int8_forward(qparams: Dict[str, Any], x: torch.Tensor, depth: int,
+                 add_rate: float, scale: int, downshuffle: int = 1,
+                 refine_blocks: int = 0) -> torch.Tensor:
+    """Serving forward with the trunk convs in int8 (int32 sums)."""
+
+    def quant(site, h):
+        return quant_site(qparams[site], h, leaky=site.endswith("conv0"))
+
+    return fast_forward(qparams, x, depth, add_rate, scale, quant=quant,
+                        downshuffle=downshuffle, refine_blocks=refine_blocks)
+
+
+# ------------------------------------------------------------- deployment --
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+class Int8DeployedFast:
+    """uint8 NHWC -> uint8 NHWC int8-trunk server with ``DeployedModel``'s
+    call surface, so ``TiledUpscaler`` takes it unchanged. Build it with
+    :func:`quantize_deployed`. ``params`` (the int8 dict) is committed to
+    ``device`` once, here."""
+
+    def __init__(self, spec, params: Dict[str, Any], device="cuda"):
+        self.spec = spec
+        self.device = resolve_device(device)
+        self.params = _to_device(params, self.device)
+        self._mean = tuple(float(v) for v in spec.mean)
+        self._std = tuple(float(v) for v in spec.std)
+
+    @torch.inference_mode()
+    def __call__(self, u8_batch) -> torch.Tensor:
+        """uint8 NHWC (numpy or tensor) -> uint8 NHWC tensor on the device."""
+        spec = self.spec
+        x = normalize(torch.as_tensor(u8_batch).to(self.device), self._mean, self._std)
+        y = int8_forward(self.params, x, spec.depth, spec.add_rate, spec.output_scale,
+                         downshuffle=spec.downshuffle or 1,
+                         refine_blocks=spec.refine_blocks or 0)
+        return tanh_to_uint8(y)
+
+
+def quantize_deployed(deployed, calib_u8_batches, percentile: Optional[float] = None
+                      ) -> Int8DeployedFast:
+    """PTQ a fast-family ``DeployedModel`` with uint8 calibration batches
+    (e.g. crops of the images being served). Weight scales come from the
+    deployed (dtype-committed) weights; the activation scales from the
+    bf16 forward on the deployed model's device."""
+    spec = deployed.spec
+    if spec.family not in FAMILIES:
+        raise ValueError(
+            "int8 serving is built for the fast families only; got "
+            f"family={spec.family!r}: the reference topologies' int8 was "
+            "measured dead at their conv shapes"
+        )
+    check_percentile(percentile)
+    device = deployed.device
+    params = dict(deployed.model.state_dict())
+    mean = tuple(float(v) for v in spec.mean)
+    std = tuple(float(v) for v in spec.std)
+    batches = [normalize(torch.as_tensor(b).to(device), mean, std)
+               for b in calib_u8_batches]
+    scales = calibrate_scales(params, batches, spec.depth, spec.add_rate,
+                              spec.output_scale, downshuffle=spec.downshuffle or 1,
+                              refine_blocks=spec.refine_blocks or 0,
+                              percentile=percentile)
+    qtree = quantize_fast_params(params, scales, spec.depth)
+    # head/tail/refine run in bf16: cast them once, not per call
+    qtree = {k: (v.to(torch.bfloat16) if isinstance(v, torch.Tensor) else v)
+             for k, v in qtree.items()}
+    return Int8DeployedFast(spec, qtree, device)

@@ -6,6 +6,7 @@ Counterpart of the JAX package's ``ops/activations.py``. The learnable
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple, Union
 
 import torch
@@ -29,6 +30,15 @@ _PLAIN = {
 }
 
 
+@functools.lru_cache(maxsize=None)
+def dtype_scalar(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as a Python float. JAX rounds a
+    Python scalar to the array's dtype before an op (bf16(0.01) in bf16);
+    torch's kernels take a Python scalar at fp32 precision, so passing the
+    rounded value gives JAX's result in one vectorized pass."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
 def apply_act(x: torch.Tensor, act: ActSpec) -> torch.Tensor:
     """Apply an activation spec to an NHWC tensor. ``None``/``False`` ->
     identity; ``True`` means SiLU, as in the reference."""
@@ -38,7 +48,8 @@ def apply_act(x: torch.Tensor, act: ActSpec) -> torch.Tensor:
         act = "silu"
     name, param = (act, None) if isinstance(act, str) else act
     if name == "leaky_relu":
-        return F.leaky_relu(x, 0.01 if param is None else param)
+        # jax.nn.leaky_relu: where(x >= 0, x, slope * x), slope in x's dtype
+        return F.leaky_relu(x, dtype_scalar(0.01 if param is None else param, x.dtype))
     if name == "prelu":
         raise NotImplementedError(
             "PReLU is ported with the denoise families (slice 3)"

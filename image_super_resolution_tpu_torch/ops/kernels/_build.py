@@ -40,22 +40,32 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless its library exists. Returns nvcc's
-    output (ptxas register and shared-memory report), or "" if nothing was
-    built; raises if the build fails."""
-    out = library_path(name)
-    if out.exists():
-        return ""
+def build(*names: str) -> dict:
+    """Compile each ``csrc/<name>.cu`` whose library does not exist yet, one
+    ``nvcc`` per source, all started together. Returns {name: nvcc's output
+    (ptxas register and shared-memory report), or "" if nothing was built};
+    raises if a build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
-    os.replace(tmp, out)  # atomic: a concurrent build cannot tear it
-    return proc.stdout
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = {name: "" for name in names}
+    failed = []
+    for name, (out, tmp, proc) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}:\n{logs[name]}")
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent build cannot tear it
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
 
 
 @functools.lru_cache(maxsize=None)

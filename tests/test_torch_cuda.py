@@ -80,3 +80,97 @@ def test_deployed_model_on_card_launches_three_per_rrdb(card):
     diff = (got.cpu().int() - want.int()).abs()
     assert got.shape == (2, 96, 80, 3)
     assert diff.max().item() <= BF16_MAX_LSB
+
+
+# --------------------------------------------------------------- K2 (matmul) --
+
+from image_super_resolution_tpu_torch.ops.kernels import matmul as k2  # noqa: E402
+
+
+@pytest.mark.parametrize("m,k,n", [(128, 32, 128), (1, 64, 1), (300, 1152, 130),
+                                   (1024, 2048, 1000)])
+def test_matmul_int8_exact_on_card(card, m, k, n):
+    """int8 -> int32 equals the integer product exactly, for ragged M and N
+    (masked edge tiles; N % 4 != 0 takes the scalar B loads)."""
+    rng = np.random.default_rng(m + k + n)
+    a = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8)).to(card)
+    b = torch.from_numpy(rng.integers(-127, 128, (k, n), dtype=np.int8)).to(card)
+    before = k2.matmul.launches
+    got = k2.matmul(a, b)
+    torch.cuda.synchronize()
+    assert k2.matmul.launches == before + 1
+    assert got.dtype == torch.int32
+    torch.testing.assert_close(got, k2.matmul_reference(a, b), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("m,k,n", [(256, 512, 128), (77, 48, 33)])
+def test_matmul_bf16_on_card(card, m, k, n):
+    """bf16 -> fp32 against float64: within BF16_ATOL_PER_K * K * max|a| max|b|
+    (fp32 sums of exact products, in another order)."""
+    rng = np.random.default_rng(k)
+    a = torch.from_numpy(rng.standard_normal((m, k), np.float32)).to(card, torch.bfloat16)
+    b = torch.from_numpy(rng.standard_normal((k, n), np.float32)).to(card, torch.bfloat16)
+    got = k2.matmul(a, b)
+    tol = k2.BF16_ATOL_PER_K * k * float(a.float().abs().max() * b.float().abs().max())
+    torch.testing.assert_close(got, k2.matmul_reference(a, b), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", [(2, 24, 24, 128, 128), (3, 17, 29, 128, 128),
+                                            (1, 1, 1, 32, 8), (1, 5, 3, 64, 130)])
+@pytest.mark.parametrize("leaky", [True, False])
+@pytest.mark.parametrize("x_kind", ["int8_values", "stream"])
+def test_conv3x3_int8_exact_on_card(card, b, h, w, cin, cout, leaky, x_kind):
+    """The int8 conv site equals its plain version bit for bit: the same
+    requantization of its fp32 input, exact int32 sums and the same fp32
+    epilogue, each op rounded once. Inputs: every int8 value as fp32 with
+    scale 1, and the fp32 stream with ties and values past +-127 steps."""
+    rng = np.random.default_rng(b * h * w + cout)
+    if x_kind == "stream":
+        x8 = torch.from_numpy(rng.standard_normal((b, h, w, cin), np.float32) * 40)
+        x8[..., :4] = torch.tensor([0.5, -2.5, 300.0, -1e6]) / 0.25
+        x8, inv_x = x8.to(card), 0.25
+    else:
+        x8 = torch.from_numpy(rng.integers(-127, 128, (b, h, w, cin), dtype=np.int8))
+        x8, inv_x = x8.to(card).float(), 1.0
+    w_q = torch.from_numpy(rng.integers(-127, 128, (9 * cin, cout), dtype=np.int8)).to(card)
+    deq = torch.from_numpy(rng.uniform(1e-4, 1e-3, cout).astype(np.float32)).to(card)
+    bias = torch.from_numpy(rng.uniform(-1, 1, cout).astype(np.float32)).to(card)
+    got = k2.conv3x3_int8(x8, w_q, deq, bias, leaky, inv_x)
+    want = k2.conv3x3_int8_reference(x8, w_q, deq, bias, leaky, inv_x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_k2_rejects_what_it_does_not_take(card):
+    a = torch.zeros(4, 48, dtype=torch.int8, device=card)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        k2.matmul(a, torch.zeros(48, 8, dtype=torch.int8, device=card))
+    with pytest.raises(TypeError):
+        k2.matmul(a.float(), a.float().t())
+    x = torch.zeros(1, 4, 4, 16, device=card)
+    w_q, zero = torch.zeros(144, 16, dtype=torch.int8, device=card), torch.zeros(16, device=card)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        k2.conv3x3_int8(x, w_q, zero, zero, True, inv_x=0.5)
+    with pytest.raises(TypeError, match="fp32"):  # the stream is fp32, never int8
+        k2.conv3x3_int8(x.to(torch.int8), w_q, zero, zero, True, inv_x=0.5)
+
+
+def test_int8_fast_on_card_launches_per_site(card):
+    """fast x4 int8 on the card: every trunk site goes through the kernel
+    (2 * depth + 1 launches per forward), and the uint8 output stays within
+    INT8_CARD_MAX_LSB of the port's int8 CPU path on the same quantized
+    params."""
+    from image_super_resolution_tpu_torch.models.quantized import (
+        INT8_CARD_MAX_LSB, Int8DeployedFast, quantize_deployed)
+
+    spec = DeploySpec(family="fast", depth=2, width=128, scale=4)
+    params = init_fused_params(spec, seed=4)
+    x = np.random.default_rng(4).integers(0, 256, (2, 24, 20, 3), dtype=np.uint8)
+    quant = quantize_deployed(DeployedModel(spec, params, device="cuda"), [x])
+    before = k2.conv3x3_int8.launches
+    got = quant(x)
+    assert k2.conv3x3_int8.launches - before == 2 * spec.depth + 1
+    cpu = Int8DeployedFast(spec, quant.params, device="cpu")
+    diff = (got.cpu().int() - cpu(x).int()).abs()
+    assert got.shape == (2, 96, 80, 3)
+    assert diff.max().item() <= INT8_CARD_MAX_LSB

@@ -23,6 +23,7 @@ from image_super_resolution_tpu_torch.interop.from_jax import (
     params_to_jax,
 )
 from image_super_resolution_tpu_torch.models.deploy import DeploySpec, init_fused_params
+from image_super_resolution_tpu_torch.models.fast import FastResBlock, FastSRGenerator
 from image_super_resolution_tpu_torch.models.generator import SRGenerator
 from image_super_resolution_tpu_torch.models.optimized import (
     OptimizedSRGenerator,
@@ -166,8 +167,13 @@ def test_init_fused_params_has_the_jax_tree_layout(enchant):
     lambda: Upsampler(WIDTH),
     lambda: ConvBlock(3, WIDTH, 9),
     lambda: DeploySpec(family="sr", depth=1).build_model(),
+    lambda: FastSRGenerator(depth=1, width=8),
+    lambda: FastResBlock(8),
+    lambda: DeploySpec(family="denoise_fast", depth=1, width=8,
+                       downshuffle=2).build_model(),
 ], ids=["SRGenerator", "OptimizedSRGenerator", "ScatterRRDB", "ScatterRDB",
-        "RRDB", "RDB", "Upsampler", "ConvBlock", "build_model"])
+        "RRDB", "RDB", "Upsampler", "ConvBlock", "build_model", "FastSRGenerator",
+        "FastResBlock", "build_model_denoise_fast"])
 def test_modules_default_to_cuda(build, monkeypatch):
     """Every module is built on the card unless the caller passes
     device="cpu": with no CUDA it raises, never dropping to the CPU."""
@@ -179,7 +185,7 @@ def test_modules_default_to_cuda(build, monkeypatch):
 def test_unported_configurations_raise():
     with pytest.raises(NotImplementedError, match="slice 4"):
         SRGenerator(fused=False)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        DeploySpec(family="fast").build_model()
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        DeploySpec(family="denoise_legacy").build_model()
     with pytest.raises(NotImplementedError, match="slice 3"):
         DeploySpec(family="denoise").build_model()

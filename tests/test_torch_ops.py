@@ -101,3 +101,34 @@ def test_png_codec_agrees_with_opencv(shape, tmp_path):
     np.testing.assert_array_equal(read_png(tmp_path / "cv.png"), rgb)
     write_png(tmp_path / "ours.png", rgb)
     np.testing.assert_array_equal(cv2.imread(str(tmp_path / "ours.png"))[..., ::-1], rgb)
+
+
+@pytest.mark.parametrize("act", [("leaky_relu", 0.01), None])
+def test_conv_block_bf16_bit_exact_with_jax(act):
+    """ConvBlock in bf16 against the JAX ConvBlock in bf16, bit for bit.
+    Small-integer inputs and weights make every product and every fp32 sum
+    of the conv exact (|sum| <= 9 * 128 * 7 * 3), so the conv itself is the
+    same number on both sides; its magnitudes (hundreds) are not all bf16
+    values, and the biases k/256 have fractional bits, so rounding conv +
+    bias once differs from rounding the conv and then adding the bias in
+    bf16, which is what flax does (and the leaky slope is bf16(0.01))."""
+    from image_super_resolution_tpu.ops.conv import ConvBlock as JaxConvBlock
+    from image_super_resolution_tpu_torch.interop.from_jax import conv_kernel_to_torch
+    from image_super_resolution_tpu_torch.ops.conv import ConvBlock
+
+    rng = np.random.default_rng(12)
+    cin = cout = 128
+    x = rng.integers(-7, 8, (2, 12, 12, cin)).astype(np.float32)
+    w = rng.integers(-3, 4, (3, 3, cin, cout)).astype(np.float32)
+    b = (rng.integers(-255, 256, cout) / 256).astype(np.float32)
+    jblock = JaxConvBlock(cout, 3, act=act, use_bn=False, dtype=jnp.bfloat16)
+    want = jblock.apply({"params": {"conv": {"kernel": jnp.asarray(w),
+                                             "bias": jnp.asarray(b)}}}, jnp.asarray(x))
+    block = ConvBlock(cin, cout, 3, act=act, dtype=torch.bfloat16, device="cpu")
+    block.conv.weight.data.copy_(torch.from_numpy(conv_kernel_to_torch(w)))
+    block.conv.bias.data.copy_(torch.from_numpy(b))
+    with torch.no_grad():
+        got = block(torch.from_numpy(x).to(torch.bfloat16))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
