@@ -10,10 +10,11 @@ Phases, each of which raises on failure:
 1. the card: ``nvidia-smi`` name and power limit, torch's device name;
 2. the build of every CUDA source of the serving paths (one ``nvcc`` per
    source, all started together), timed;
-3. K1, the fused scatter RDB, against its plain PyTorch version on the
-   card, at the serving shape and at a ragged shape, with the tolerance
-   stated; then timed (CUDA events) beside its plain version and the cuDNN
-   yardstick;
+3. K1, the fused RDB: its ptxas report (registers, shared memory, no
+   spills), then against its plain PyTorch version on the card at the
+   serving shape and at ragged and whole-image shapes, with the tolerance
+   stated; then timed (CUDA events), whole and per launch, beside its plain
+   version and the cuDNN yardstick;
 4. K2, the int8/bf16 GEMM: ``matmul`` at the probe's check shape and a
    ragged one (int8 exact), ``conv3x3_int8`` at b256 t24 w128 and 3x17x29
    (exact against its plain version, on every int8 value and on an fp32
@@ -137,6 +138,7 @@ def phase_build():
     built = [n for n, log in logs.items() if log]
     _log(f"[build] nvcc sm_90a {', '.join(SOURCES)} in parallel: built {built} "
          f"in {secs:.1f} s")
+    return logs
 
 
 # ------------------------------------------------------------------ phase 3 --
@@ -173,7 +175,36 @@ def _cudnn_scatter_form(x, kernels, bias16, add_rate=0.2, slope=0.01):
     return (fuse * add_rate + xn).permute(0, 2, 3, 1)
 
 
-def phase_k1(kind: str, card: str):
+def _k1_ptxas(log: str) -> None:
+    """K1's ptxas report, one line per instantiation: registers, dynamic
+    shared memory, spills. Fails on any spill."""
+    import re
+
+    from image_super_resolution_tpu_torch.ops.kernels import fused_rdb as k1
+
+    if not log:
+        _log("[kernel] fused_rdb ptxas: library was not rebuilt, no report")
+        return
+    lib = k1._library()[0]
+    name, spill_line = None, "spills not reported"
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = "y launches (N=32)" if "ILi32E" in m.group(1) else "last launch (N=64)"
+        elif "spill" in line and name:
+            spills = [int(v) for v in re.findall(r"(\d+) bytes spill", line)]
+            if any(spills):
+                raise AssertionError(f"fused_rdb spills registers: {line.strip()}")
+            spill_line = line.strip()
+        elif "registers" in line and name:
+            n = 32 if "N=32" in name else 64
+            _log(f"[kernel] fused_rdb ptxas, {name}: {line.split(':', 1)[-1].strip()}; "
+                 f"{lib.isr_fused_rdb_smem_bytes(n)} bytes of dynamic shared memory; "
+                 f"{spill_line}")
+            name = None
+
+
+def phase_k1(kind: str, card: str, ptxas_log: str):
     import numpy as np
     import torch
 
@@ -203,8 +234,10 @@ def phase_k1(kind: str, card: str):
             raise AssertionError(f"fused_rdb disagrees with its plain version at {(b, h, w)}")
         return x, max_err
 
+    _k1_ptxas(ptxas_log)
     x, max_err = check(256, 24, 24)
-    check(3, 17, 29)
+    for shape in ((3, 17, 29), (1, 9, 25), (2, 24, 24), (1, 7, 200), (1, 96, 128)):
+        max_err = max(max_err, check(*shape)[1])
     try:
         k1.scatter_rdb(x.float(), *mats)
     except TypeError:
@@ -232,7 +265,9 @@ def phase_k1(kind: str, card: str):
          f"(its max_abs_err vs plain {lib_err:.4g}); bound {bound_ms:.4f} ms "
          f"({flops:.4g} FLOP at {peak_flops:.4g}/s = {t_ops:.4f} ms, {nbytes:.4g} B "
          f"at {peak_bw:.4g} B/s = {t_bytes:.4f} ms; {peak_name} peaks); "
-         f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
+         f"{flops / ms / 1e9:.1f} TFLOP/s achieved, {bound_ms / ms:.1%} of bound; "
+         f"kernel / cuDNN {ms / library_ms:.3f}")
+    _k1_launch_times(x, mats, card)
     return {
         "name": "fused_rdb",
         "route": "cuda",
@@ -246,6 +281,22 @@ def phase_k1(kind: str, card: str):
         "bound_by": bound_by,
         "library_ms": library_ms,
     }
+
+
+def _k1_launch_times(x, mats, card: str) -> None:
+    """Each of K1's five launches timed alone (CUDA events) on the serving
+    input, with its FLOP and rate: which launch leads."""
+    from image_super_resolution_tpu_torch.ops.kernels import fused_rdb as k1
+
+    weights, bias = mats[:5], mats[5]
+    out, y = k1._launch(x, weights, bias, 0.2, 0.01)
+    pixels = x.shape[0] * x.shape[1] * x.shape[2]
+    parts = []
+    for i, launch in enumerate(k1.dense_plan()):
+        ms = _cuda_ms(lambda: k1._launch(x, weights, bias, 0.2, 0.01, only=i, y=y, out=out))
+        flops = 2 * pixels * 9 * k1.G * len(launch["groups"]) * launch["n"]
+        parts.append(f"{i}: {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s)")
+    _log(f"[kernel] fused_rdb b256 t24 per launch on {card}: {'; '.join(parts)}")
 
 
 # ------------------------------------------------------------------ phase 4 --
@@ -766,8 +817,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     smi, kind = phase_card()
     card = f"{smi} (nvidia-smi name, power limit)"
-    phase_build()
-    k1 = phase_k1(kind, card)
+    logs = phase_build()
+    k1 = phase_k1(kind, card, logs["fused_rdb"])
     k2 = phase_k2(kind, card)
     with tempfile.TemporaryDirectory() as tmp:
         sr_isr, k1["launches"] = phase_sr(Path(tmp), card)

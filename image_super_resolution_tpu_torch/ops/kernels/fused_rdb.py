@@ -1,4 +1,4 @@
-"""The fused scatter-RDB kernel (``csrc/fused_rdb.cu``) and its plain version.
+"""The fused RDB kernel (``csrc/fused_rdb.cu``) and its plain version.
 
 Replaces the JAX package's Pallas kernel ``scatter_rdb_pallas``
 (``ops/pallas/fused_rdb.py``): one whole scatter-form RDB (ops/scatter.py)
@@ -8,7 +8,10 @@ accumulation: ``sx`` 9C->4g+C, ``s0`` 9g->3g+C, ``s1`` 9g->2g+C,
 ``y_i = bf16(leaky(fp32 running sum of its slices))``; the output is
 ``bf16(fuse * add_rate + x)``.
 
-Unlike the Pallas kernel it takes any batch and any H, W (whole-image
+The kernel computes the same function in dense (gather) form: launch i
+gathers every source that exists so far through its column slice of the
+scatter-form weights (``dense_plan``), so no fp32 partial sum leaves the
+chip. Unlike the Pallas kernel it takes any batch and any H, W (whole-image
 serving sends non-square images through it). The CUDA design and its bound
 are described at the top of the ``.cu`` file.
 """
@@ -17,7 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -27,7 +30,9 @@ from ..conv import same_conv
 
 C = 64  # block width the kernel is written for
 G = C // 2  # growth channels
-PC = 4 * G + C  # channels of the fp32 running-sum scratch
+PC = 4 * G + C  # output channels of sx; the bias's length
+COUTS = (PC, PC - G, PC - 2 * G, PC - 3 * G, C)  # of sx, s0..s3
+MAX_GROUPS = 6  # 32-channel source groups of the last launch
 
 # Kernel vs plain version in bf16: both keep fp32 sums and round at the same
 # places, but sum each conv in another order. That can flip the bf16
@@ -86,18 +91,52 @@ def scatter_rdb_reference(x, sx, s0, s1, s2, s3, bias, add_rate: float = 0.2,
     return (fuse * add_rate + x.float()).to(dt)
 
 
+def dense_plan() -> List[Dict[str, Any]]:
+    """The kernel's five launches, in order. Launch i computes y_i (i < 4,
+    N = g outputs into channels [ig, (i+1)g) of the y buffer) or the output
+    (i = 4, N = C), summing in this order over 32-channel source groups
+    ``(source, channel0, weight, weight channel0, column0)``: channels
+    [channel0, channel0+32) of ``source`` ("x" or the y buffer "y") through
+    the rows ``tap * Cin + weight channel0 + 0..31`` (tap 0..8) and columns
+    [column0, column0 + N) of weight ``weight`` (0 = sx, 1..4 = s0..s3).
+    Then bias[bias0 : bias0 + N]."""
+    plan = []
+    for i in range(5):
+        last = i == 4
+        groups = [("x", c0, 0, c0, i * G) for c0 in (0, G)]
+        groups += [("y", j * G, j + 1, 0, (i - j - 1) * G) for j in range(i)]
+        plan.append({"groups": groups, "n": C if last else G, "bias0": i * G,
+                     "dst": "out" if last else "y", "dst_c0": 0 if last else i * G})
+    return plan
+
+
+def _plan_ints() -> List[int]:
+    """``dense_plan`` as the integers ``isr_fused_rdb_forward`` reads."""
+    ints = []
+    for launch in dense_plan():
+        ints += [len(launch["groups"]), launch["n"], launch["bias0"],
+                 int(launch["dst"] == "out"), launch["dst_c0"]]
+        for src, c0, w, wc0, col0 in launch["groups"]:
+            ints += [int(src == "y"), c0, w, wc0, col0]
+        ints += [0] * 5 * (MAX_GROUPS - len(launch["groups"]))
+    return ints
+
+
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
+def _library() -> Tuple[ctypes.CDLL, Any]:
     from ._build import load
 
     lib = load("fused_rdb")
     fn = lib.isr_fused_rdb_forward
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.isr_cuda_error_string.argtypes = [ctypes.c_int]
     lib.isr_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    ints = _plan_ints()
+    if len(ints) != 5 * lib.isr_fused_rdb_plan_ints():
+        raise RuntimeError("csrc/fused_rdb.cu reads another plan layout")
+    return lib, (ctypes.c_int * len(ints))(*ints)
 
 
 def _check(x, weights, bias) -> None:
@@ -106,9 +145,8 @@ def _check(x, weights, bias) -> None:
     if x.dtype != torch.bfloat16:
         raise TypeError(f"the CUDA kernel takes bf16 activations, got {x.dtype}")
     cins = (C, G, G, G, G)
-    couts = (PC, PC - G, PC - 2 * G, PC - 3 * G, C)
     for name, w, cin, cout in zip(("sx", "s0", "s1", "s2", "s3"), weights,
-                                  cins, couts):
+                                  cins, COUTS):
         if w.dtype != torch.bfloat16:
             raise TypeError(f"{name} must be bf16, got {w.dtype}")
         if tuple(w.shape) != (9 * cin, cout):
@@ -131,26 +169,35 @@ def scatter_rdb(x, sx, s0, s1, s2, s3, bias, add_rate: float = 0.2,
         return scatter_rdb_reference(x, sx, s0, s1, s2, s3, bias, add_rate, slope)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    weights = (sx, s0, s1, s2, s3)
+    out = _launch(x, (sx, s0, s1, s2, s3), bias, add_rate, slope)[0]
+    scatter_rdb.launches += 1
+    return out
+
+
+def _launch(x, weights, bias, add_rate, slope, only: int = -1, y=None, out=None):
+    """Run the kernel's launches (all five, or launch ``only``) on CUDA
+    tensors: (output, y buffer). ``y`` and ``out`` may be passed in, as the
+    per-launch timing does; otherwise they are allocated."""
     _check(x, weights, bias)
     b, h, w, _ = x.shape
-    out = torch.empty_like(x)
+    if out is None:
+        out = torch.empty_like(x)
+    if y is None:
+        y = torch.empty((b, h, w, 4 * G), dtype=x.dtype, device=x.device)
     if x.numel() == 0:
-        return out
-    lib = _library()
+        return out, y
+    lib, plan = _library()
     with torch.cuda.device(x.device):
-        scratch = torch.empty((b, h, w, PC), dtype=torch.float32, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.isr_fused_rdb_forward(
             x.data_ptr(), *(t.data_ptr() for t in weights), bias.data_ptr(),
-            scratch.data_ptr(), out.data_ptr(), b, h, w, float(add_rate),
-            float(slope), stream,
+            y.data_ptr(), out.data_ptr(), b, h, w, float(add_rate), float(slope),
+            plan, only, stream,
         )
     if err != 0:
         msg = lib.isr_cuda_error_string(err).decode()
         raise RuntimeError(f"fused_rdb kernel launch failed: CUDA error {err} ({msg})")
-    scatter_rdb.launches += 1
-    return out
+    return out, y
 
 
 scatter_rdb.launches = 0

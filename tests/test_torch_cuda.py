@@ -35,11 +35,14 @@ def mats(card):
     return [t.to(card) for t in k1.scatter_params_to_matmul(scatter)]
 
 
-@pytest.mark.parametrize("b,h,w", [(1, 1, 1), (2, 8, 8), (3, 17, 29), (1, 33, 130)])
+@pytest.mark.parametrize("b,h,w", [(1, 1, 1), (2, 8, 8), (3, 17, 29), (1, 33, 130),
+                                   (1, 9, 25), (2, 24, 24), (1, 7, 200), (1, 96, 128)])
 def test_fused_rdb_matches_plain_version(card, mats, b, h, w):
-    """Any batch and any H, W, including blocks of 128 pixels that straddle
-    images and a ragged last block. Tolerance: KERNEL_ATOL + KERNEL_RTOL|want|
-    (a few bf16 ulps; the two sum each conv in another order)."""
+    """Any batch and any H, W: images smaller than one 8 x 24 block,
+    rectangles that straddle both image edges (9 x 25), the serving tile,
+    rows much wider than a block and a whole-image sr input. Tolerance:
+    KERNEL_ATOL + KERNEL_RTOL|want| (a few bf16 ulps; the two sum each conv
+    in another order)."""
     rng = np.random.default_rng(b * 1000 + h * 10 + w)
     x = torch.from_numpy(rng.standard_normal((b, h, w, k1.C), np.float32))
     x = x.to(card, torch.bfloat16)
@@ -51,6 +54,17 @@ def test_fused_rdb_matches_plain_version(card, mats, b, h, w):
     assert got.dtype == torch.bfloat16 and got.shape == x.shape
     torch.testing.assert_close(got.float(), want.float(), atol=k1.KERNEL_ATOL,
                                rtol=k1.KERNEL_RTOL)
+
+
+def test_fused_rdb_is_deterministic(card, mats):
+    """No atomics: two calls on the same input are bitwise equal."""
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((4, 24, 24, k1.C), np.float32))
+    x = x.to(card, torch.bfloat16)
+    first = k1.scatter_rdb(x, *mats)
+    second = k1.scatter_rdb(x, *mats)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_fused_rdb_rejects_what_it_does_not_take(card, mats):

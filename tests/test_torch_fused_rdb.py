@@ -1,14 +1,17 @@
-"""The fused scatter-RDB kernel's plain version against the JAX package.
+"""The fused RDB kernel's plain version and launch plan against the JAX package.
 
 The CUDA kernel itself runs only on the card (tests/test_torch_cuda.py and
 chip_smoke.py); here its plain version, which the wrapper takes for CPU
 tensors, is held against the Pallas kernel in interpret mode and against
-the JAX ScatterRDB and RDB.
+the JAX ScatterRDB and RDB, and a float64 emulation of the kernel's dense
+form, driven by the same launch plan the kernel is given, is held against
+both.
 """
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax
 import jax.numpy as jnp
@@ -24,8 +27,12 @@ from image_super_resolution_tpu.ops.scatter import (
     rdb_params_to_scatter as jax_rdb_params_to_scatter,
 )
 from image_super_resolution_tpu_torch.ops.kernels.fused_rdb import (
+    COUTS,
     KERNEL_ATOL,
     KERNEL_RTOL,
+    MAX_GROUPS,
+    _plan_ints,
+    dense_plan,
     scatter_params_to_matmul,
     scatter_rdb,
     scatter_rdb_reference,
@@ -149,3 +156,117 @@ def test_reference_ragged_shapes(b, h, w):
         for z, m, c in zip(zeroed, mats, centre):
             z[4 * m.shape[0] // 9:5 * m.shape[0] // 9] = c
         torch.testing.assert_close(scatter_rdb_reference(x, *zeroed, bias), out)
+
+
+# ------------------------------------------------- the kernel's launch plan --
+
+def emulate_dense(x, mats, add_rate=0.2, slope=0.01, round_to=None, plan=None):
+    """float64 emulation of the CUDA kernel: each launch of ``dense_plan``
+    sums its source groups in the plan's order, each through the weight
+    rows and columns the kernel reads, then adds the bias; y_i and the
+    output are rounded to ``round_to`` where the kernel rounds (not at all
+    for None). x NHWC; mats = (sx, s0..s3, bias)."""
+    x = x.double()
+    weights = [m.double() for m in mats[:5]]
+    bias = mats[5].double().reshape(-1)
+    b, h, w, _ = x.shape
+    y = torch.full((b, h, w, 4 * G), float("nan"), dtype=torch.float64)
+    sources = {"x": x, "y": y}
+
+    def rnd(v):
+        return v if round_to is None else v.to(round_to).double()
+
+    out = None
+    for launch in plan or dense_plan():
+        n = launch["n"]
+        acc = torch.zeros(b, h, w, n, dtype=torch.float64)
+        for src, c0, wi, wc0, col0 in launch["groups"]:
+            cin = weights[wi].shape[0] // 9
+            rows = [tap * cin + wc0 + c for tap in range(9) for c in range(G)]
+            k = weights[wi][rows][:, col0:col0 + n]
+            k = k.reshape(3, 3, G, n).permute(3, 2, 0, 1)
+            v = sources[src][..., c0:c0 + G].permute(0, 3, 1, 2)
+            acc += F.conv2d(v, k, padding=1).permute(0, 2, 3, 1)
+        acc += bias[launch["bias0"]:launch["bias0"] + n]
+        if launch["dst"] == "y":
+            y[..., launch["dst_c0"]:launch["dst_c0"] + n] = rnd(F.leaky_relu(acc, slope))
+        else:
+            out = rnd(acc * add_rate + x)
+    return out
+
+
+def test_dense_emulation_fp32_matches_plain_version_and_jax(rdb_case):
+    """In fp32 the dense form is the same function as the scatter form and
+    the JAX ScatterRDB: only the order of the sums differs (1e-5)."""
+    x, params, _ = rdb_case
+    mats = scatter_params_to_matmul(rdb_params_to_scatter(params), torch.float32)
+    got = emulate_dense(torch.from_numpy(x), mats).numpy()
+    want = scatter_rdb_reference(torch.from_numpy(x), *mats).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    want_jax = np.asarray(JaxScatterRDB(features=C, dtype=jnp.float32).apply(
+        {"params": jax_rdb_params_to_scatter(params)}, jnp.asarray(x)))
+    np.testing.assert_allclose(got, want_jax, rtol=1e-5, atol=1e-5)
+
+
+def test_dense_emulation_bf16_matches_plain_version(rdb_case):
+    """bf16 inputs and weights, y_i and the output rounded to bf16 where the
+    kernel rounds: within the tolerance the card holds the kernel to, and
+    equal on nearly every value (a differently ordered fp32 sum flips a
+    bf16 rounding of some y_i now and then)."""
+    x, params, _ = rdb_case
+    mats = scatter_params_to_matmul(rdb_params_to_scatter(params))
+    x16 = torch.from_numpy(x).to(torch.bfloat16)
+    got = emulate_dense(x16, mats, round_to=torch.bfloat16)
+    want = scatter_rdb_reference(x16, *mats).double()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
+    assert (got != want).double().mean() < 0.01
+
+
+def test_dense_emulation_fails_on_a_wrong_column_slice(rdb_case):
+    """The emulation reads the plan: one group of one launch shifted by one
+    column block moves the fp32 output 100x past the 1e-5 that the right
+    plan meets."""
+    x, params, _ = rdb_case
+    mats = scatter_params_to_matmul(rdb_params_to_scatter(params), torch.float32)
+    want = scatter_rdb_reference(torch.from_numpy(x), *mats)
+    plan = dense_plan()
+    src, c0, w, wc0, col0 = plan[2]["groups"][2]
+    plan[2]["groups"][2] = (src, c0, w, wc0, col0 + G)
+    got = emulate_dense(torch.from_numpy(x), mats, plan=plan)
+    assert float((got - want.double()).abs().max()) > 100 * 1e-5
+
+
+@pytest.mark.parametrize("i", range(5))
+def test_dense_plan_launch_reads_every_source_once(i):
+    """Launch i reads x (two 32-channel groups) and y_0..y_{i-1} once each,
+    through a column slice inside its weight, and writes y_i (or the
+    output) with the bias slice of the same columns as sx's slice."""
+    launch = dense_plan()[i]
+    n = G if i < 4 else C
+    assert launch["n"] == n and len(launch["groups"]) == 2 + i <= MAX_GROUPS
+    seen = sorted((src, c0) for src, c0, *_ in launch["groups"])
+    assert seen == sorted([("x", 0), ("x", G)] + [("y", j * G) for j in range(i)])
+    for src, c0, w, wc0, col0 in launch["groups"]:
+        assert 0 <= col0 and col0 + n <= COUTS[w]
+        if src == "x":
+            assert w == 0 and wc0 == c0 and col0 == launch["bias0"] == i * G
+        else:
+            j = c0 // G
+            assert w == j + 1 and wc0 == 0 and col0 == (i - j - 1) * G
+    assert launch["dst"] == ("out" if i == 4 else "y")
+    assert launch["dst_c0"] == (0 if i == 4 else i * G)
+
+
+def test_plan_ints_encode_the_plan():
+    """The integers the kernel reads: 5 + 5 * MAX_GROUPS per launch, the
+    launch header then each group, unused group slots zero."""
+    ints = _plan_ints()
+    per = 5 + 5 * MAX_GROUPS
+    assert len(ints) == 5 * per
+    for i, launch in enumerate(dense_plan()):
+        q = ints[i * per:(i + 1) * per]
+        assert q[:5] == [len(launch["groups"]), launch["n"], launch["bias0"],
+                         int(launch["dst"] == "out"), launch["dst_c0"]]
+        for k, (src, c0, w, wc0, col0) in enumerate(launch["groups"]):
+            assert q[5 + 5 * k:10 + 5 * k] == [int(src == "y"), c0, w, wc0, col0]
+        assert not any(q[5 + 5 * len(launch["groups"]):])
