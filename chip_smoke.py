@@ -15,11 +15,15 @@ Phases, each of which raises on failure:
    serving shape and at ragged and whole-image shapes, with the tolerance
    stated; then timed (CUDA events), whole and per launch, beside its plain
    version and the cuDNN yardstick;
-4. K2, the int8/bf16 GEMM: ``matmul`` at the probe's check shape and a
-   ragged one (int8 exact), ``conv3x3_int8`` at b256 t24 w128 and 3x17x29
-   (exact against its plain version, on every int8 value and on an fp32
-   stream with ties), then timed beside its plain version,
-   ``torch._int_mm``, bf16 ``torch.matmul`` and a cuDNN bf16 conv;
+4. K2: the ptxas report of ``csrc/matmul.cu`` (fails on a spill);
+   ``matmul`` at the probe's check shape and a ragged one (int8 exact);
+   ``conv3x3_int8`` in every variant (fp32 or int8 in, fp32 or int8 out,
+   leaky on and off) at b256 t24 w128, 2x48x48, 1x93x93, 3x17x29 and two
+   small odd-Cout shapes, exact against its plain version (the fp32
+   stream carries ties); then the three serving variants timed at b256
+   t24 beside their bounds, the plain version, a cuDNN bf16 conv and
+   ``torch._int_mm``, and the 4096^3 GEMMs beside ``torch._int_mm`` and
+   bf16 ``torch.matmul``;
 5. ``sr`` x4 serving at full width: depth 16, width 64, random weights from
    a numpy seed -> ``.isr`` -> ``load_artifact`` -> ``DeployedModel`` in
    bf16 on a b256 t24 uint8 batch; K1's launches are counted over these
@@ -28,9 +32,11 @@ Phases, each of which raises on failure:
    by kernel (``torch.profiler``), with the device's idle share;
 6. ``fast`` x4 serving at full width and depth (14, 128) on the same
    batch shape, in bf16 and then in int8 (``quantize_deployed`` calibrated
-   on the batch): K2's launches counted (29 per int8 forward, 0 per bf16
-   one), two tiles held against the port's CPU paths, and the breakdown of
-   both requests; then the same int8 path calibrated at the 99.9th
+   on the batch; each conv0 site hands its conv1 an int8 tensor): K2's
+   launches counted (29 per int8 forward, 0 per bf16 one) and by variant
+   (14 fp32 -> int8, 14 int8 -> fp32, 1 fp32 -> fp32), two tiles held
+   against the port's CPU paths, and the breakdown of both requests (the
+   int8 one by K2 variant); then the same int8 path calibrated at the 99.9th
    percentile on that batch (2^24+ values per site), held to bf16;
 7. ``denoise_fast`` (14, 128, downshuffle 2) in int8 through
    ``TiledUpscaler`` on one odd-sized image: output shape and launches;
@@ -175,33 +181,59 @@ def _cudnn_scatter_form(x, kernels, bias16, add_rate=0.2, slope=0.01):
     return (fuse * add_rate + xn).permute(0, 2, 3, 1)
 
 
-def _k1_ptxas(log: str) -> None:
-    """K1's ptxas report, one line per instantiation: registers, dynamic
-    shared memory, spills. Fails on any spill."""
+def _instance(source: str, mangled: str) -> str:
+    """A readable name for one kernel instantiation in ptxas's report."""
     import re
 
-    from image_super_resolution_tpu_torch.ops.kernels import fused_rdb as k1
+    if source == "fused_rdb":
+        return "y launches (N=32)" if "ILi32E" in mangled else "last launch (N=64)"
+    m = re.search(r"conv3x3_int8_kernelILb([01])ELb([01])ELi(\d+)E", mangled)
+    if m:
+        ks = "K steps unrolled" if m.group(3) != "0" else "K steps at run time"
+        return (f"conv {'fp32' if m.group(1) == '1' else 'int8'} -> "
+                f"{'fp32' if m.group(2) == '1' else 'int8'}, {ks}")
+    if "transpose_kernel" in mangled:
+        return f"B transpose, {'1' if 'ILi1E' in mangled else '2'}-byte elements"
+    return "GEMM bf16" if "bfloat16" in mangled else "GEMM int8"
+
+
+def _ptxas(source: str, log: str) -> None:
+    """One source's ptxas report, one line per kernel instantiation:
+    registers, shared memory, spills. Fails on any spill."""
+    import re
 
     if not log:
-        _log("[kernel] fused_rdb ptxas: library was not rebuilt, no report")
+        _log(f"[kernel] {source} ptxas: library was not rebuilt, no report")
         return
-    lib = k1._library()[0]
     name, spill_line = None, "spills not reported"
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = "y launches (N=32)" if "ILi32E" in m.group(1) else "last launch (N=64)"
+            name = _instance(source, m.group(1))
         elif "spill" in line and name:
             spills = [int(v) for v in re.findall(r"(\d+) bytes spill", line)]
             if any(spills):
-                raise AssertionError(f"fused_rdb spills registers: {line.strip()}")
+                raise AssertionError(f"{source} spills registers ({name}): {line.strip()}")
             spill_line = line.strip()
         elif "registers" in line and name:
-            n = 32 if "N=32" in name else 64
-            _log(f"[kernel] fused_rdb ptxas, {name}: {line.split(':', 1)[-1].strip()}; "
-                 f"{lib.isr_fused_rdb_smem_bytes(n)} bytes of dynamic shared memory; "
-                 f"{spill_line}")
+            _log(f"[kernel] {source} ptxas, {name}: {line.split(':', 1)[-1].strip()}; "
+                 f"{_dynamic_smem(source, name)}{spill_line}")
             name = None
+
+
+def _dynamic_smem(source: str, name: str) -> str:
+    from image_super_resolution_tpu_torch.ops.kernels import fused_rdb as k1
+    from image_super_resolution_tpu_torch.ops.kernels import matmul as k2
+
+    if source == "fused_rdb":
+        n = 32 if "N=32" in name else 64
+        return f"{k1._library()[0].isr_fused_rdb_smem_bytes(n)} bytes of dynamic shared memory; "
+    if name.startswith("conv"):
+        return (f"{k2._library().isr_conv3x3_int8_smem_bytes(k2.MAX_CHUNK)} bytes of dynamic "
+                f"shared memory at Cin {k2.MAX_CHUNK}; ")
+    if name.startswith("GEMM"):
+        return f"{k2._library().isr_matmul_smem_bytes()} bytes of dynamic shared memory; "
+    return ""
 
 
 def phase_k1(kind: str, card: str, ptxas_log: str):
@@ -234,7 +266,7 @@ def phase_k1(kind: str, card: str, ptxas_log: str):
             raise AssertionError(f"fused_rdb disagrees with its plain version at {(b, h, w)}")
         return x, max_err
 
-    _k1_ptxas(ptxas_log)
+    _ptxas("fused_rdb", ptxas_log)
     x, max_err = check(256, 24, 24)
     for shape in ((3, 17, 29), (1, 9, 25), (2, 24, 24), (1, 7, 200), (1, 96, 128)):
         max_err = max(max_err, check(*shape)[1])
@@ -315,13 +347,21 @@ def _int_mm(a, b):
     return lambda: torch._int_mm(a, b)
 
 
-def phase_k2(kind: str, card: str):
+# The conv site's variants on the fast int8 path, named as the wrapper
+# counts them (matmul.conv_variant): (name, fp32 input, int8 output).
+K2_VARIANTS = (("fp32 -> fp32", True, False),    # trunk_conv
+               ("fp32 -> int8", True, True),     # conv0 sites
+               ("int8 -> fp32", False, False))   # conv1 sites
+
+
+def phase_k2(kind: str, card: str, ptxas_log: str):
     import numpy as np
     import torch
     import torch.nn.functional as F
 
     from image_super_resolution_tpu_torch.ops.kernels import matmul as k2
 
+    _ptxas("matmul", ptxas_log)
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED + 3)
     peak_name, peak_bf16, peak_int8, peak_bw = _peaks(kind)
@@ -351,63 +391,81 @@ def phase_k2(kind: str, card: str):
         if not err <= tol:
             raise AssertionError(f"matmul bf16 outside its tolerance at {(m, k, n)}")
 
-    def site(b, h, w, c=128):
-        deq = torch.from_numpy(rng.uniform(1e-4, 1e-3, c).astype(np.float32)).to(dev)
-        bias = torch.from_numpy(rng.uniform(-1, 1, c).astype(np.float32)).to(dev)
-        return i8(b, h, w, c), i8(9 * c, c), deq, bias
+    def site(b, h, w, cin=128, cout=128):
+        deq = torch.from_numpy(rng.uniform(1e-4, 1e-3, cout).astype(np.float32)).to(dev)
+        bias = torch.from_numpy(rng.uniform(-1, 1, cout).astype(np.float32)).to(dev)
+        return i8(b, h, w, cin), i8(9 * cin, cout), deq, bias
 
-    # The serving path's input is the fp32 stream, which the kernel
-    # requantizes on load (scale 1/inv_x); ties and values past +-127 steps
-    # are planted in it.
-    inv_x = 0.25
+    # The fp32 stream is requantized on load (scale 1/inv_x); ties and values
+    # past +-127 steps are planted in it. int8 outputs are requantized with
+    # out_inv_x.
+    inv_x, out_inv_x = 0.25, 1.0
 
     def stream(shape):
         h32 = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * 40)
         h32[..., :4] = torch.tensor([0.5, -2.5, 300.0, -1e6]) / inv_x
         return h32.to(dev)
 
-    serve = site(256, 24, 24)
-    h32 = stream(serve[0].shape)
+    # Every variant (fp32 or int8 in, fp32 or int8 out, leaky on and off) at
+    # the serving shape, the denoise_fast and CLI tile shapes, a ragged
+    # batch, and the small and odd-Cout shapes of tests/test_torch_cuda.py.
     max_err = 0.0
-    for args in (serve, site(3, 17, 29)):
-        x32 = h32 if args is serve else stream(args[0].shape)
-        # every int8 value as fp32 with scale 1, then the stream
-        for x, scale, what in ((args[0].float(), 1.0, "int8 values"),
-                               (x32, inv_x, "stream")):
-            for leaky in (True, False):
-                got = k2.conv3x3_int8(x, *args[1:], leaky, scale)
-                want = k2.conv3x3_int8_reference(x, *args[1:], leaky, scale)
-                torch.cuda.synchronize()
-                bad = int((got != want).sum())
-                err = float((got - want).abs().max())
-                _log(f"[kernel] conv3x3_int8 fp32 {what} {tuple(x.shape)} leaky={leaky}: "
-                     f"max_abs_err {err:.4g}, {bad} of {got.numel()} values differ "
-                     f"from the plain version (tolerance: none)")
-                if bad:
-                    raise AssertionError("conv3x3_int8 disagrees with its plain version")
-                max_err = max(max_err, err)
+    for shape in ((256, 24, 24, 128, 128), (2, 48, 48, 128, 128), (1, 93, 93, 128, 128),
+                  (3, 17, 29, 128, 128), (1, 1, 1, 32, 8), (1, 5, 3, 64, 130)):
+        x8, w_q, deq, bias = site(*shape)
+        w_k = k2.weights_k_major(w_q)
+        x32 = stream(x8.shape)
+        bad = total = 0
+        for x, s_in in ((x32, inv_x), (x8, None)):
+            for s_out in (None, out_inv_x):
+                for leaky in (True, False):
+                    got = k2.conv3x3_int8(x, w_q, deq, bias, leaky, s_in, s_out, w_k)
+                    want = k2.conv3x3_int8_reference(x, w_q, deq, bias, leaky, s_in, s_out)
+                    torch.cuda.synchronize()
+                    if got.dtype != want.dtype:
+                        raise AssertionError(f"conv3x3_int8 returned {got.dtype}")
+                    bad += int((got != want).sum())
+                    total += got.numel()
+                    max_err = max(max_err, float((got.float() - want.float()).abs().max()))
+        _log(f"[kernel] conv3x3_int8 {shape[:3]} {shape[3]}->{shape[4]}, 8 variants (fp32 "
+             f"or int8 in, fp32 or int8 out, leaky on and off): {bad} of {total} values "
+             f"differ from the plain version (tolerance: none)")
+        if bad:
+            raise AssertionError(f"conv3x3_int8 disagrees with its plain version at {shape}")
 
-    x8, w_q, deq, bias = serve
+    x8, w_q, deq, bias = site(256, 24, 24)
+    w_k = k2.weights_k_major(w_q)
+    h32 = stream(x8.shape)
     b, h, w, c = x8.shape
     m = b * h * w
-    ms = _cuda_ms(lambda: k2.conv3x3_int8(h32, w_q, deq, bias, True, inv_x))
-    plain_ms = _cuda_ms(lambda: k2.conv3x3_int8_reference(h32, w_q, deq, bias, True, inv_x),
-                        warmup=1, iters=3)
+    ops = 2 * m * 9 * c * c
+    variants = {}
+    for name, f32_in, i8_out in K2_VARIANTS:
+        x, s_in = (h32, inv_x) if f32_in else (x8, None)
+        s_out = out_inv_x if i8_out else None
+        ms = _cuda_ms(lambda: k2.conv3x3_int8(x, w_q, deq, bias, True, s_in, s_out, w_k))
+        plain_ms = _cuda_ms(lambda: k2.conv3x3_int8_reference(x, w_q, deq, bias, True, s_in,
+                                                              s_out), warmup=1, iters=3)
+        nbytes = m * c * (4 if f32_in else 1) + w_k.numel() + 8 * c + m * c * (1 if i8_out else 4)
+        bound_ms, bound_by, t_ops, t_bytes = _bound(ops, nbytes, peak_int8, peak_bw)
+        # launches: filled in from the fast int8 serving phase
+        variants[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                          "bound_by": bound_by}
+        _log(f"[kernel] conv3x3_int8 {name} b256 t24 w128 on {card}: {ms:.4f} ms, bound "
+             f"{bound_ms:.4f} ms by {bound_by} ({ops:.4g} int8 OP at {peak_int8:.4g}/s = "
+             f"{t_ops:.4f} ms, {nbytes:.4g} B at {peak_bw:.4g} B/s = {t_bytes:.4f} ms; "
+             f"{peak_name} peaks), {bound_ms / ms:.1%} of bound, {ops / ms / 1e9:.1f} TOP/s "
+             f"achieved; plain version {plain_ms:.4f} ms")
+    main = variants["fp32 -> fp32"]
     xb = x8.to(torch.bfloat16).permute(0, 3, 1, 2)  # channels_last NCHW view
     wb = w_q.to(torch.bfloat16).reshape(3, 3, c, c).permute(3, 2, 0, 1).contiguous(
         memory_format=torch.channels_last)
     library_ms = _cuda_ms(lambda: F.conv2d(xb, wb, padding=1))
     int_mm_site_ms = _cuda_ms(_int_mm(i8(m, 9 * c), w_q))
-    ops = 2 * m * 9 * c * c
-    nbytes = m * c * 4 + w_q.numel() + 8 * c + m * c * 4  # fp32 in, fp32 out
-    bound_ms, bound_by, t_ops, t_bytes = _bound(ops, nbytes, peak_int8, peak_bw)
-    _log(f"[kernel] conv3x3_int8 b256 t24 w128 on {card}: fp32 in, requantized on "
-         f"load, {ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-         f"({ops:.4g} int8 OP at {peak_int8:.4g}/s = {t_ops:.4f} ms, {nbytes:.4g} B at "
-         f"{peak_bw:.4g} B/s = {t_bytes:.4f} ms; {peak_name} peaks); plain (requantize "
-         f"+ float64 cuDNN conv + epilogue) {plain_ms:.4f} ms; cuDNN bf16 conv channels_last "
-         f"{library_ms:.4f} ms; torch._int_mm on its GEMM form ({m}x{9 * c}x{c}, no "
-         f"im2col) {int_mm_site_ms:.4f} ms; {ops / ms / 1e9:.1f} TOP/s achieved")
+    _log(f"[kernel] conv3x3_int8 yardsticks b256 t24 w128 on {card}: cuDNN bf16 conv "
+         f"channels_last {library_ms:.4f} ms; torch._int_mm on its GEMM form ({m}x{9 * c}x{c}, "
+         f"no im2col) {int_mm_site_ms:.4f} ms; fp32 -> fp32 kernel / cuDNN "
+         f"{main['ms'] / library_ms:.3f}")
 
     n = 4096
     a, bm = i8(n, n), i8(n, n)
@@ -416,6 +474,7 @@ def phase_k2(kind: str, card: str):
     int_mm_ms = _cuda_ms(_int_mm(a, bm))
     a16, b16 = bf16(n, n), bf16(n, n)
     mm16_ms = _cuda_ms(lambda: k2.matmul(a16, b16))
+    mm16_plain_ms = _cuda_ms(lambda: k2.matmul_reference(a16, b16), warmup=1, iters=3)
     torch16_ms = _cuda_ms(lambda: torch.matmul(a16, b16))
     ops = 2 * n ** 3
     b8, _, o8, _ = _bound(ops, 2 * n * n + 4 * n * n, peak_int8, peak_bw)
@@ -423,8 +482,10 @@ def phase_k2(kind: str, card: str):
     _log(f"[kernel] matmul 4096^3 on {card}: int8 kernel {mm_ms:.4f} ms "
          f"({ops / mm_ms / 1e9:.1f} TOP/s), plain (float64) {mm_plain_ms:.4f} ms, "
          f"torch._int_mm {int_mm_ms:.4f} ms, bound {b8:.4f} ms by operations; "
-         f"bf16 kernel {mm16_ms:.4f} ms ({ops / mm16_ms / 1e9:.1f} TFLOP/s), "
-         f"torch.matmul bf16 {torch16_ms:.4f} ms, bound {b16_bound:.4f} ms")
+         f"bf16 kernel {mm16_ms:.4f} ms ({ops / mm16_ms / 1e9:.1f} TFLOP/s), plain "
+         f"(float64) {mm16_plain_ms:.4f} ms, torch.matmul bf16 {torch16_ms:.4f} ms, bound "
+         f"{b16_bound:.4f} ms by operations; both kernel times include the transposed copy "
+         f"of B")
     return {
         "name": "conv3x3_int8",
         "route": "cuda",
@@ -432,11 +493,15 @@ def phase_k2(kind: str, card: str):
         "replaces": "scripts/bench_int8_pallas.py:37",
         "launches": None,  # filled in from the fast int8 serving phase
         "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "ms": main["ms"],  # the fp32 -> fp32 site (trunk_conv)
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
         "library_ms": library_ms,
+        "variants": variants,
+        "matmul_4096": {"int8_ms": mm_ms, "int8_plain_ms": mm_plain_ms, "int_mm_ms": int_mm_ms,
+                        "bf16_ms": mm16_ms, "bf16_plain_ms": mm16_plain_ms,
+                        "torch_matmul_bf16_ms": torch16_ms},
     }
 
 
@@ -543,16 +608,21 @@ def _module_stages(model):
 
 
 def _int8_site_stages(marks):
-    """Stage marks around each int8 trunk site: K2's conv3x3_int8 launch,
-    which requantizes its fp32 input on load."""
+    """Stage marks around each int8 trunk site, one stage per K2 variant:
+    conv0 sites (fp32 in, int8 out for their conv1), conv1 sites (int8 in)
+    and trunk_conv (fp32 in and out)."""
+    import torch
+
     from image_super_resolution_tpu_torch.models import quantized
 
     orig = quantized.quant_site
 
-    def timed(p, h, leaky):
+    def timed(p, h, leaky, out_inv_x=None):
         e0 = _event()
-        y = orig(p, h, leaky)
-        marks.setdefault("conv3x3_int8 (all sites)", []).append([e0, _event()])
+        y = orig(p, h, leaky, out_inv_x)
+        name = (f"conv3x3_int8 {'int8' if h.dtype == torch.int8 else 'fp32'} -> "
+                f"{'int8' if y.dtype == torch.int8 else 'fp32'}")
+        marks.setdefault(name, []).append([e0, _event()])
         return y
 
     quantized.quant_site = timed
@@ -580,12 +650,13 @@ def _breakdown(title: str, run, iters: int, install):
     finally:
         cleanup()
     request_ms = start.elapsed_time(end) / iters
-    stages = {name: sum(a.elapsed_time(b) for a, b in pairs) / iters
+    stages = {f"{name} (x{len(pairs) // iters})":
+              sum(a.elapsed_time(b) for a, b in pairs) / iters
               for name, pairs in marks.items()}
     stages["rest"] = request_ms - sum(stages.values())
     _log(f"[breakdown] {title}: request {request_ms:.4f} ms (CUDA events, mean of {iters})")
     for name, ms in stages.items():
-        _log(f"[breakdown] {title}: stage {name:26s} {ms:9.4f} ms  {ms / request_ms:6.1%}")
+        _log(f"[breakdown] {title}: stage {name:34s} {ms:9.4f} ms  {ms / request_ms:6.1%}")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -641,11 +712,18 @@ def phase_fast(work: Path, card: str):
     calib_s = time.perf_counter() - t0
 
     conv3x3_int8.launches = 0
+    conv3x3_int8.launches_by_variant.clear()
     int8_ms, out8 = _serve(quant, xd, n)
     launches = conv3x3_int8.launches
+    by_variant = dict(conv3x3_int8.launches_by_variant)
     if launches != sites * (n + 1):
         raise AssertionError(f"conv3x3_int8 launched {launches} times in {n + 1} "
                              f"int8 forwards, want {sites} per forward")
+    # conv0 sites hand off int8 to their conv1; trunk_conv stays fp32
+    per_forward = {"fp32 -> int8": spec.depth, "int8 -> fp32": spec.depth, "fp32 -> fp32": 1}
+    if by_variant != {k: v * (n + 1) for k, v in per_forward.items()}:
+        raise AssertionError(f"conv3x3_int8 launches by variant in {n + 1} int8 forwards: "
+                             f"{by_variant}, want {per_forward} per forward")
     for out in (out16, out8):
         if out.dtype != torch.uint8 or tuple(out.shape) != (b, t * s, t * s, 3):
             raise AssertionError(f"bad output {out.dtype} {tuple(out.shape)}")
@@ -654,7 +732,8 @@ def phase_fast(work: Path, card: str):
              f"(host clock over {n} requests after one), "
              f"{b * (t * s) ** 2 / (ms / 1e3) / 1e6:.2f} output MPix/s")
     _log(f"[serve] fast int8: conv3x3_int8 launches {launches} ({sites} per forward, "
-         f"0 in the bf16 forwards); calibration + quantization {calib_s:.2f} s")
+         f"0 in the bf16 forwards; by variant {by_variant} in {n + 1} forwards); calibration + quantization {calib_s:.2f} s; int8 / bf16 "
+         f"request time {int8_ms / bf16_ms:.3f} (host clock)")
 
     ref32 = load_artifact(isr, dtype=torch.float32, device="cpu")(x[:2])
     worst16, share16 = _lsb(out16[:2].cpu(), ref32)
@@ -673,7 +752,8 @@ def phase_fast(work: Path, card: str):
     _breakdown("fast bf16", lambda: deployed(xd), n, _module_stages(deployed.model))
     _breakdown("fast int8", lambda: quant(xd), n, _int8_site_stages)
     _fast_percentile(deployed, quant, xd, out16, spec, card)
-    return isr, launches
+    return isr, launches, {k: {"launches": v, "launches_per_forward": v // (n + 1)}
+                           for k, v in by_variant.items()}
 
 
 def _fast_percentile(deployed, amax, xd, out16, spec, card):
@@ -819,10 +899,12 @@ def main() -> int:
     card = f"{smi} (nvidia-smi name, power limit)"
     logs = phase_build()
     k1 = phase_k1(kind, card, logs["fused_rdb"])
-    k2 = phase_k2(kind, card)
+    k2 = phase_k2(kind, card, logs["matmul"])
     with tempfile.TemporaryDirectory() as tmp:
         sr_isr, k1["launches"] = phase_sr(Path(tmp), card)
-        fast_isr, k2["launches"] = phase_fast(Path(tmp), card)
+        fast_isr, k2["launches"], by_variant = phase_fast(Path(tmp), card)
+        for name, counts in by_variant.items():
+            k2["variants"][name].update(counts)
         phase_denoise(card)
         phase_cli(Path(tmp), sr_isr, fast_isr, card)
     print(json.dumps({"kernels": [k1, k2]}))

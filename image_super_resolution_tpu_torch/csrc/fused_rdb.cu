@@ -69,8 +69,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 
 constexpr int C = 64;                     // block width
@@ -106,60 +109,6 @@ struct Launch {
   int H, W, tiles_h, tiles_w;
   float add_rate, slope;
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  const int n = valid ? 16 : 0;  // 0: zero-fill, nothing read
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(n)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
-}
-
-// cp.async writes are generic-proxy writes; wgmma reads B through the
-// async proxy.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int PENDING>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
-}
-
-// Shared-memory descriptor of a B operand (16 x N, N-major, no swizzle):
-// 8 x 8 core matrices of 128 contiguous bytes (8 k rows of 16 bytes), the
-// leading byte offset `k_core` apart along K, the stride byte offset
-// `n_core` apart along N.
-__device__ __forceinline__ uint64_t b_desc(uint32_t addr, uint32_t k_core, uint32_t n_core) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((k_core & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((n_core & 0x3FFFF) >> 4) << 32);
-}
 
 // D (64 x N fp32, registers) += A (64 x 16 bf16, registers) * B (descriptor),
 // B transposed (N-major).
@@ -305,7 +254,9 @@ __global__ void __launch_bounds__(THREADS, 1) rdb_dense_conv(const __grid_consta
 #pragma unroll
       for (int ks = 0; ks < 2; ++ks) {
         const uint32_t k0 = tap * G + ks * 16;
-        Wgmma<N>::run(acc[m], ab[ks], b_desc(bs + k0 * N * 2, N * 16, 128));
+        // B (16 x N, N-major): 8 x 8 core matrices, N * 16 bytes apart
+        // along K, 128 along N
+        Wgmma<N>::run(acc[m], ab[ks], smem_desc(bs + k0 * N * 2, N * 16, 128));
       }
       wgmma_commit();
     }

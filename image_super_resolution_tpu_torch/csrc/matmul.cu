@@ -1,184 +1,208 @@
 /*
- * Tiled GEMM with a K loop, int8 x int8 -> int32 or bf16 x bf16 -> fp32, for
- * NVIDIA Hopper, sm_90a, and the int8 3x3 convolution built on it.
+ * K2 for NVIDIA Hopper, sm_90a: the int8 3x3 conv site of the fast trunk and
+ * the tiled GEMM, both on wgmma.
  *
  * Replaces scripts/bench_int8_pallas.py:pallas_matmul (body _mm_kernel), the
  * Pallas TPU kernel K2: a (tm, tk, tn) tiled GEMM whose K loop accumulates
- * in a scratch tile. Two entry points share one tile core here:
+ * in a scratch tile, int8 -> int32 or bf16 -> fp32. Entry points:
  *
- *   isr_matmul        (M,K) x (K,N) -> (M,N), int8 -> int32 (exact) or
- *                     bf16 -> fp32; any M and N, K % 32 (int8) / % 16 (bf16);
  *   isr_conv3x3_int8  the trunk site of models/quantized.py:int8_forward as
- *                     an implicit GEMM: x (B,H,W,Cin) fp32 NHWC, the
- *                     residual stream, requantized while it is loaded,
- *                     q = clamp(rint(x * inv_x), -127, 127), as int8_forward
- *                     requantizes before every site; zero padding of 1,
- *                     w_q (9*Cin, Cout) rows (dy, dx, cin), int32
- *                     accumulation, then per output channel
- *                     y = fl(fl(float(acc) * deq[o]) + bias[o]) and leaky 0.01
- *                     on conv0 sites; fp32 NHWC out. Cin % 32 == 0.
+ *                     an implicit GEMM: x (B,H,W,Cin) NHWC, either the fp32
+ *                     residual stream, requantized as it is loaded,
+ *                     q = clamp(rint(x * inv_x), -127, 127), or int8 already
+ *                     (a conv1 site fed by its conv0); zero padding 1; the
+ *                     weights K-major, (Npad, 9*Cin) int8, columns (dy, dx,
+ *                     cin), rows past Cout zero; int32 sums, then per output
+ *                     channel y = fl(fl(float(acc) * deq[o]) + bias[o]),
+ *                     leaky 0.01 on conv0 sites, stored fp32 or requantized
+ *                     for the next site (clamp(rint(y * out_inv_x), +-127))
+ *                     and stored int8. Cin % 32 == 0, any Cout, B, H, W.
+ *   isr_matmul        (M,K) x (K,N) -> (M,N), int8 -> int32 (exact) or
+ *                     bf16 -> fp32, from A and B^T (isr_transpose makes it,
+ *                     any N);
+ *                     any M and N, K % 32 (int8) / % 16 (bf16).
  *
- * Bound on an H100 SXM (data sheet: 1,979 TOP/s dense int8, 989 TFLOP/s
- * dense bf16, 3.35 TB/s):
+ * Bound of one 128 -> 128 site at b256 t24 (147,456 pixels) on an H100 SXM
+ * (data sheet: 1,979 TOP/s dense int8, 3.35 TB/s): 2 * 1152 * 128 * 147,456
+ * = 4.35e10 int8 operations, 22.0 us; bytes, each input read once and each
+ * output written once:
  *
- *   shape                          operations             bytes                 bound
- *   one 128->128 site, b256 t24    2*147456*1152*128      75.5 MB fp32 in +     45 us (bytes)
- *                                  = 4.35e10 -> 22 us     75.5 MB fp32 out
- *                                                         = 151 MB -> 45 us
- *   the probe's 4096^3 int8 GEMM   1.37e11 -> 69 us       ~100 MB -> 30 us      69 us (operations)
+ *   variant         used by                 bytes       bound
+ *   fp32 -> fp32    trunk_conv               151.0 MB    45.1 us (bytes)
+ *   fp32 -> int8    the 14 conv0 sites        94.4 MB    28.2 us (bytes)
+ *   int8 -> fp32    the 14 conv1 sites        94.4 MB    28.2 us (bytes)
  *
- * So the serving site is bound by bytes: it reads and writes the fp32
- * stream. (Fed int8 it would move 94 MB, 28 us.) The real saving is beyond
- * one kernel: requantizing in the previous site's epilogue (int8 out
- * instead of fp32) would cut the site's bytes by about 3x.
+ * So the site is bound by bytes, and the int8 hand-off between conv0 and
+ * conv1 (conv0 requantizes in its epilogue with conv1's scale: the same
+ * function as requantizing conv0's fp32 output at conv1's load) cuts them.
+ * The 4096^3 GEMM is bound by operations: 69 us in int8, 139 us in bf16.
  *
- * Design (simple and right first). One block computes a 128 x 128 output
- * tile with 256 threads (8 warps as 4 along M x 2 along N, 32 x 64 each);
- * the K loop steps 32 bytes of K at a time (32 int8 or 16 bf16 values), so
- * one mma.sync per (16 x 8) fragment and step: m16n8k32 .s8.s8.s32, or
- * m16n8k16 .bf16.bf16.f32. Both operands sit in shared memory K-major
- * (32 bytes of K per row plus 16 bytes of skew, free of bank conflicts), so
- * the fragment loads are the same 32-bit loads for both types. The GEMM
- * copies A with cp.async (16 bytes a thread, zero-filled outside the
- * matrix); the conv loads 16 fp32 values a thread into registers (zeros
- * outside the image: that is its padding) and stores them requantized to
- * 16 int8 bytes. B (K, N) row-major is transposed on
- * the way in, through registers: each thread reads 4 bytes of 4 (int8) or
- * 8 bytes of 2 (bf16) K rows and writes them as 4 K-major words. Two stages
- * in shared memory: the next step's copies are in flight while this step
- * computes; one barrier per step.
+ * What held the first version (mma.sync, 0.281 ms per site) back, and what
+ * this design does about it:
+ *   1. Its fp32 input was read about 9 times (once per tap, requantized each
+ *      time). Here a producer warpgroup loads each rectangle's halo patch
+ *      once, requantizes it once and keeps it int8 in shared memory: each
+ *      input element crosses from L2 about 1.35 times.
+ *   2. The whole weight matrix was read from L2 once per 128 pixels and
+ *      transposed through registers every K step. Here the wrapper lays the
+ *      weights out K-major once, and a persistent block copies all of them
+ *      (147,456 bytes at Cin 128) into shared memory once.
+ *   3. mma.sync with 32-bit fragment loads, two stages and one barrier per
+ *      32 bytes of K. Here wgmma m64n128k32 .s32.s8.s8 reads both operands
+ *      from shared memory; a tile's 36 wgmmas run with one wait.
  *
- * What it leaves on the table: wgmma (the full tensor-core rate) and TMA;
- * a deeper pipeline; the conv re-reads its 3x3 halo and the whole weight
- * matrix once per 128-pixel block (from L2); the fp32 epilogue output, which
- * dominates the site's bytes, instead of requantizing to int8 for the next
- * site inside the epilogue.
+ * Design of the conv (one persistent block per SM, 512 threads):
+ *   - A block owns output rectangles of 24 x 8 pixels (three 64-row tiles,
+ *     8 image rows of 8 pixels each) times 128 output channels, and walks
+ *     them gridDim.x apart. Three consumer warpgroups, one per tile, and
+ *     one producer warpgroup. Cin above 128 runs in K chunks of <= 128
+ *     channels, whose weights are copied per chunk (correct, not fast).
+ *   - The producer loads the 26 x 10 halo patch of the next rectangle: fp32
+ *     through registers (four 64-byte chunks in flight per thread),
+ *     requantized with __float2int_rn and clamped, stored int8; or int8
+ *     copied straight in with cp.async. The patch holds 16-channel chunks
+ *     of all pixels one after the other (chunk stride 261 x 16 bytes, odd,
+ *     so the producer's 16-byte stores are free of bank conflicts). Two
+ *     patch buffers: the producer fills one while the consumers multiply
+ *     the other. Named barriers pair the producer with each consumer
+ *     warpgroup on its own, so the consumers drift apart and one's
+ *     epilogue overlaps another's wgmmas (0.068 against 0.073 ms in
+ *     lockstep, int8 -> fp32).
+ *   - The A operand comes straight from shared memory: tap (dy, dx) of tile
+ *     m is the patch at pixel (8m + dy) * 10 + dx, 8 consecutive pixels per
+ *     core matrix (128 contiguous bytes), image rows 160 bytes apart. One
+ *     tap per loop iteration, its K steps unrolled with the descriptor
+ *     offsets as immediates (unrolled across all taps, ptxas precomputes
+ *     every descriptor and spills).
+ *   - The epilogue works on the 64 int32 accumulators in registers with
+ *     deq and bias from shared memory, __fadd_rn(__fmul_rn(...)) so no FMA
+ *     fuses it, then 8-byte (fp32) or 2-byte (int8) stores; whole N tiles
+ *     take straight-line code.
+ *   Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py): 0.096 ms
+ *   fp32 -> fp32, 0.095 fp32 -> int8, 0.068 int8 -> fp32. Left on the
+ *   table: the fp32 producer (without the epilogue an fp32-input site takes
+ *   0.057 ms, an int8-input one 0.030); the epilogue's stores, which do not
+ *   overlap the producer's loads well; TMA for the patch (no room beside
+ *   resident weights for an fp32 staging buffer).
+ *
+ * Design of the GEMM: 128 x 256 block tiles; two consumer warpgroups issue
+ * wgmma m64n256 (k32 s8 or k16 bf16) from a ring of four stages of 128
+ * bytes of K, which one producer thread fills by TMA (128-byte swizzle,
+ * zeros past M, N and K) under mbarriers. Both operands are K-major, so B
+ * is transposed once per call (isr_transpose), inside the call's time.
  */
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+#include <utility>
+
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int BM = 128;          // output rows (pixels) per block
-constexpr int BN = 128;          // output columns (channels) per block
-constexpr int KB = 32;           // bytes of K per step
-constexpr int LDS = KB + 16;     // shared row stride in bytes (skewed)
-constexpr int THREADS = 256;
-constexpr int WM = 32, WN = 64;  // warp tile
-constexpr int FM = WM / 16, FN = WN / 8;
+using namespace hopper;
 
-enum Mode { kMatmul, kConv };  // kConv: fp32 A, requantized on load
+// wgmma's accumulator operands: 8 (ISR_OP8) or 128 (ISR_OP128) registers
+// d[i] with constraint C, and the register list %0 .. %127 of the latter.
+#define ISR_OP8(C, i)                                                                   \
+  C(d[i]), C(d[i + 1]), C(d[i + 2]), C(d[i + 3]), C(d[i + 4]), C(d[i + 5]), C(d[i + 6]), \
+      C(d[i + 7])
+#define ISR_OP128(C)                                                                    \
+  ISR_OP8(C, 0), ISR_OP8(C, 8), ISR_OP8(C, 16), ISR_OP8(C, 24), ISR_OP8(C, 32),           \
+      ISR_OP8(C, 40), ISR_OP8(C, 48), ISR_OP8(C, 56), ISR_OP8(C, 64), ISR_OP8(C, 72),     \
+      ISR_OP8(C, 80), ISR_OP8(C, 88), ISR_OP8(C, 96), ISR_OP8(C, 104), ISR_OP8(C, 112),   \
+      ISR_OP8(C, 120)
+#define ISR_REGS128 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+  "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, " \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, " \
+  "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, " \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, " \
+  "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, " \
+  "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, " \
+  "%120, %121, %122, %123, %124, %125, %126, %127"
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;  // 0: zero-fill, nothing read
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(n));
+// ------------------------------------------------------------------ conv --
+
+constexpr int TILES = 3;                   // 64-row tiles = consumer warpgroups
+constexpr int RW = 8, RH = 8 * TILES;      // output rectangle: 24 rows x 8 columns
+constexpr int PW = RW + 2;                 // halo patch: (RH + 2) x PW pixels
+constexpr int PPIX = (RH + 2) * PW;        // 260
+constexpr int CSTRIDE = PPIX + 1;          // 16-byte units between channel chunks
+constexpr int NT = 128;                    // output channels per block (wgmma N)
+constexpr int MAX_CC = 128;                // input channels per K chunk
+constexpr int CONSUMERS = 128 * TILES;
+constexpr int CONV_THREADS = CONSUMERS + 128;  // + one producer warpgroup
+constexpr int UNROLL = 4;                  // 16-channel chunks in flight per producer thread
+// Named barriers. kFull + TILES * b + m: patch buffer b is full, between
+// the producer and consumer warpgroup m (256 threads), so that the
+// consumer warpgroups drift apart and one's epilogue overlaps another's
+// wgmmas; kEmpty + b: every consumer is done with buffer b (all threads);
+// kWFull + m, kWEmpty: the same for the weights.
+constexpr int kFull = 1, kEmpty = kFull + 2 * TILES, kWFull = kEmpty + 2,
+              kWEmpty = kWFull + TILES;
+constexpr int FULL_THREADS = 256;
+static_assert(kWEmpty < 16, "16 named barriers");
+
+__host__ __device__ constexpr int patch_bytes(int cc) { return cc / 16 * CSTRIDE * 16; }
+__host__ __device__ constexpr int weight_bytes(int cc) { return 9 * cc * NT; }
+__host__ __device__ constexpr int conv_smem_bytes(int cc) {
+  return weight_bytes(cc) + 2 * patch_bytes(cc) + 2 * NT * 4;  // + deq, bias
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-template <typename T>
-struct Types;
-
-template <>
-struct Types<int8_t> {
-  using Acc = int;
-  static constexpr int ROWS = 4;  // K rows one thread transposes
-  __device__ static void mma(int* c, const uint32_t* a, const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
-        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
+struct ConvArgs {
+  const void* x;       // (B,H,W,Cin) fp32 or int8
+  const int8_t* wk;    // (Npad, 9*Cin) int8, K-major
+  const float* deq;    // (Cout,)
+  const float* bias;   // (Cout,)
+  void* out;           // (B,H,W,Cout) fp32 or int8
+  int H, W, Cin, Cout;
+  int cc, nch;         // K chunk: channels, chunks (cc * nch == Cin)
+  int rects_w, rects_h, rects;
+  int leaky;
+  float slope, inv_x, out_inv_x;
 };
 
-template <>
-struct Types<__nv_bfloat16> {
-  using Acc = float;
-  static constexpr int ROWS = 2;
-  __device__ static void mma(float* c, const uint32_t* a, const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-};
-
-// B staging: one thread moves ROWS K rows x 4 columns per step, 16 bytes
-// held as four 32-bit words. Loaded row by row (w[i] = row i for int8;
-// w[2i], w[2i+1] = columns 0-1 and 2-3 of row i for bf16), then transposed
-// with byte permutes so that word j holds column j's ROWS K values.
-template <typename T>
-__device__ __forceinline__ void load_b(uint32_t (&w)[4], const T* __restrict__ B, int N,
-                                       long long k, int n, bool vec) {
-  constexpr int ROWS = Types<T>::ROWS;
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const T* row = B + (k + i) * N;
-    if constexpr (sizeof(T) == 1) {
-      if (vec && n + 3 < N) {
-        w[i] = __ldg(reinterpret_cast<const uint32_t*>(row + n));
-      } else {
-        const uint8_t* r = reinterpret_cast<const uint8_t*>(row);
-        uint32_t v = 0;
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (n + j < N) v |= (uint32_t)r[n + j] << (8 * j);
-        w[i] = v;
-      }
-    } else {
-      if (vec && n + 3 < N) {
-        const uint2 v = __ldg(reinterpret_cast<const uint2*>(row + n));
-        w[2 * i] = v.x;
-        w[2 * i + 1] = v.y;
-      } else {
-        const uint16_t* r = reinterpret_cast<const uint16_t*>(row);
-        uint32_t v[2] = {0u, 0u};
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (n + j < N) v[j / 2] |= (uint32_t)r[n + j] << (16 * (j % 2));
-        w[2 * i] = v[0];
-        w[2 * i + 1] = v[1];
-      }
-    }
-  }
+// D (64 x 128 int32, registers) (+)= A (64 x 32 int8) * B (32 x 128 int8),
+// both from shared memory, K-major, at descriptors a + AO and b + BO (16-byte
+// units, added inside the asm so that ptxas cannot hoist 2 x 36 descriptors
+// into registers); scale_d == 0 overwrites D.
+#define ISR_WGMMA_S8                                                                         \
+  "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "                                       \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "        \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "         \
+  "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "         \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+template <int AO, int BO>
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 da, db;\nsetp.ne.b32 p, %66, 0;\n"
+      "add.s64 da, %64, %67;\nadd.s64 db, %65, %68;\n" ISR_WGMMA_S8 "da, db, p;\n}\n"
+      : ISR_OP8("+r", 0), ISR_OP8("+r", 8), ISR_OP8("+r", 16), ISR_OP8("+r", 24),
+        ISR_OP8("+r", 32), ISR_OP8("+r", 40), ISR_OP8("+r", 48), ISR_OP8("+r", 56)
+      : "l"(a), "l"(b), "r"(scale_d), "n"(AO), "n"(BO));
 }
 
-template <typename T>
-__device__ __forceinline__ void store_b(const uint32_t (&w)[4], unsigned char* Bs, int col,
-                                        int kbyte) {
-  uint32_t c[4];
-  if constexpr (sizeof(T) == 1) {  // 4x4 byte transpose
-    const uint32_t lo01 = __byte_perm(w[0], w[1], 0x5140), hi01 = __byte_perm(w[0], w[1], 0x7362);
-    const uint32_t lo23 = __byte_perm(w[2], w[3], 0x5140), hi23 = __byte_perm(w[2], w[3], 0x7362);
-    c[0] = __byte_perm(lo01, lo23, 0x5410);
-    c[1] = __byte_perm(lo01, lo23, 0x7632);
-    c[2] = __byte_perm(hi01, hi23, 0x5410);
-    c[3] = __byte_perm(hi01, hi23, 0x7632);
-  } else {  // 2x4 transpose of 16-bit values
-    c[0] = __byte_perm(w[0], w[2], 0x5410);
-    c[1] = __byte_perm(w[0], w[2], 0x7632);
-    c[2] = __byte_perm(w[1], w[3], 0x5410);
-    c[3] = __byte_perm(w[1], w[3], 0x7632);
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    *reinterpret_cast<uint32_t*>(Bs + (col + j) * LDS + kbyte) = c[j];
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  wgmma_s8<0, 0>(d, a, b, scale_d);
 }
+#undef ISR_WGMMA_S8
 
-__device__ __forceinline__ float leaky(float v, float slope) {
-  return v > 0.f ? v : __fmul_rn(slope, v);
+// The KS wgmmas of one tap, unrolled: K step I reads two 16-byte channel
+// chunks of the patch (CSTRIDE apart) and 32 K rows of the weights (whose
+// 16-byte chunk kc sits at kc * NT * 16 bytes).
+template <int... I>
+__device__ __forceinline__ void tap_wgmmas(int (&d)[64], uint64_t a, uint64_t b, int scale_d,
+                                           std::integer_sequence<int, I...>) {
+  (wgmma_s8<2 * I * CSTRIDE, 2 * I * NT>(d, a, b, I == 0 ? scale_d : 1), ...);
 }
 
 // Four fp32 values -> four int8 in one word: clamp(rint(v * inv_x), +-127),
@@ -194,222 +218,560 @@ __device__ __forceinline__ uint32_t requant4(float4 v, float inv_x) {
   return out;
 }
 
-template <typename T, int MODE>
-__global__ void __launch_bounds__(THREADS)
-gemm_kernel(const void* __restrict__ Av, const T* __restrict__ B, void* __restrict__ out,
-            const float* __restrict__ deq, const float* __restrict__ bias, long long M,
-            int N, int K, int H, int W, int Cin, int apply_leaky, float slope,
-            float inv_x, int vecB) {
-  using Acc = typename Types<T>::Acc;
-  const T* A = static_cast<const T*>(Av);
-  constexpr int ELEM = sizeof(T);
-  constexpr int KE = KB / ELEM;                 // K elements per step
-  constexpr int ROWS = Types<T>::ROWS;
-  static_assert(KE / ROWS == 8 && BN == 4 * 4 * (THREADS / 32),
-                "one B block per thread and step");
-  __shared__ __align__(128) unsigned char As[2][BM * LDS];
-  __shared__ __align__(128) unsigned char Bs[2][BN * LDS];
+__device__ __forceinline__ int requant1(float v, float inv_x) {
+  return min(max(__float2int_rn(__fmul_rn(v, inv_x)), -127), 127);
+}
 
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int wm = warp % 4, wn = warp / 4;
-  const int g = lane / 4, t = lane % 4;
+// KS: wgmma K steps per tap (cc / 32) as a constant, so that the 9 * KS
+// wgmmas of a tile are unrolled and issued back to back; 0: taken from
+// p.cc at run time (other widths; ptxas then waits between the wgmmas).
+template <bool IN_F32, bool OUT_F32, int KS>
+__global__ void __launch_bounds__(CONV_THREADS, 1)
+conv3x3_int8_kernel(const __grid_constant__ ConvArgs p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t w_s = smem_addr(smem);
+  const int pbytes = patch_bytes(p.cc), wbytes = weight_bytes(p.cc);
+  float* s_deq = reinterpret_cast<float*>(smem + wbytes + 2 * pbytes);
+  float* s_bias = s_deq + NT;
+  // The warpgroup index through a shuffle, so that ptxas knows it is
+  // warp-uniform and keeps the wgmma descriptors in uniform registers.
+  const int tid = threadIdx.x, wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int n0 = blockIdx.y * NT;
+  const int mine = (p.rects - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int items = mine * p.nch;  // (rectangle, K chunk) pairs, chunk fastest
+  const long long K = 9LL * p.Cin;
 
-  // A: this thread copies 16-byte chunk `achunk` of row `arow`, every step.
-  const int arow = tid / 2, achunk = tid % 2;
-  const long long am = m0 + arow;
-  const bool arow_ok = am < M;
-  int ah = 0, aw = 0;
-  long long apix = 0;  // conv: pixel index of (b, 0, 0)
-  if constexpr (MODE == kConv) {
-    const long long HW = (long long)H * W;
-    if (arow_ok) {
-      const long long b = am / HW, rem = am - b * HW;
-      ah = (int)(rem / W);
-      aw = (int)(rem % W);
-      apix = b * HW;
-    }
-  }
-  // B: this thread transposes K rows bk .. bk+ROWS-1 of columns bc .. bc+3;
-  // a warp covers 16 columns, its 8 K groups on neighbouring lanes, which
-  // keeps the K-major stores to 2-way bank conflicts.
-  const int bk = (lane % 8) * ROWS, bc = (warp * 4 + lane / 8) * 4;
-
-  // The A chunk of step ks: its source offset in elements and whether it
-  // lies inside the matrix (or, for the conv, inside the image).
-  auto a_src = [&](int ks, long long& off) {
-    const long long k0 = (long long)ks * KE;
-    if constexpr (MODE == kMatmul) {
-      off = am * K + k0 + achunk * (16 / ELEM);
-      return arow_ok;
-    } else {
-      const int tap = (int)(k0 / Cin), c0 = (int)(k0 % Cin);
-      const int hs = ah + tap / 3 - 1, ws = aw + tap % 3 - 1;
-      off = (apix + (long long)hs * W + ws) * Cin + c0 + achunk * 16;
-      return arow_ok && hs >= 0 && hs < H && ws >= 0 && ws < W;
-    }
-  };
-  auto issue_a = [&](int stage, int ks) {  // matmul: straight copy
-    long long off = 0;
-    const bool ok = a_src(ks, off);
-    cp_async16(&As[stage][arow * LDS + achunk * 16], ok ? A + off : A, ok);
-    cp_async_commit();
-  };
-  // kConv: 16 fp32 values per chunk go through registers and are
-  // requantized to 16 int8 values on the way into shared memory.
-  const float* Af = static_cast<const float*>(Av);
-  float4 areg[4];
-  auto load_a = [&](int ks) {
-    long long off = 0;
-    const bool ok = a_src(ks, off);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      areg[i] = ok ? __ldg(reinterpret_cast<const float4*>(Af + off) + i)
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
-  };
-  auto store_a = [&](int stage) {
-    uint32_t q[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) q[i] = requant4(areg[i], inv_x);
-    *reinterpret_cast<uint4*>(&As[stage][arow * LDS + achunk * 16]) =
-        make_uint4(q[0], q[1], q[2], q[3]);
+  // Rectangle r: image pixel index of (b, 0, 0) and the output origin.
+  auto origin = [&](int r, long long& img, int& h0, int& w0) {
+    w0 = (r % p.rects_w) * RW;
+    r /= p.rects_w;
+    h0 = (r % p.rects_h) * RH;
+    img = (long long)(r / p.rects_h) * p.H * p.W;
   };
 
-  Acc acc[FM][FN][4];
+  if (wg == TILES) {  // ---------------------------------------- producer
+    const int pt = tid - CONSUMERS;
+    const int cpp = p.cc / 16, total = PPIX * cpp;
+    for (int s = 0; s < items; ++s) {
+      const int r = blockIdx.x + (s / p.nch) * gridDim.x, ch = s % p.nch;
+      const int c0 = ch * p.cc;  // first input channel of the chunk
+      if (s == 0 || p.nch > 1) {
+        // Weights of the chunk: 16-byte chunk (kc, n) at (kc * NT + n) * 16,
+        // K row k = tap * cc + c of the chunk.
+        if (s > 0) bar_sync(kWEmpty, CONV_THREADS);
+        for (int i = pt; i < 9 * cpp * NT; i += 128) {
+          const int n = i % NT, kc = i / NT;
+          const int tap = kc / cpp, c = (kc % cpp) * 16;
+          cp_async16(w_s + i * 16, p.wk + (n0 + n) * K + tap * p.Cin + c0 + c, true);
+        }
+        if (s == 0) {  // this tile's deq and bias, zero past Cout
+          const int n = n0 + pt;
+          s_deq[pt] = n < p.Cout ? p.deq[n] : 0.f;
+          s_bias[pt] = n < p.Cout ? p.bias[n] : 0.f;
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
+        fence_proxy_async();
+        for (int m = 0; m < TILES; ++m) bar_arrive(kWFull + m, FULL_THREADS);
+      }
+      const int b = s & 1;
+      if (s >= 2) bar_sync(kEmpty + b, CONV_THREADS);
+      long long img;
+      int h0, w0;
+      origin(r, img, h0, w0);
+      unsigned char* patch = smem + wbytes + b * pbytes;
+      // Chunk i: pixel i / cpp of the patch, channels c0 + 16 (i % cpp) + 0..15,
+      // zeros outside the image (the conv's padding).
+      if constexpr (IN_F32) {
+        const float* x = static_cast<const float*>(p.x);
+        for (int i0 = pt; i0 < total; i0 += 128 * UNROLL) {
+          float4 v[UNROLL][4];
 #pragma unroll
-  for (int i = 0; i < FM; ++i)
+          for (int u = 0; u < UNROLL; ++u) {
+            const int i = i0 + u * 128, pix = i / cpp, c = i - pix * cpp;
+            const int hs = h0 - 1 + pix / PW, ws = w0 - 1 + pix % PW;
+            const bool ok = i < total && hs >= 0 && hs < p.H && ws >= 0 && ws < p.W;
+            const float4* src = reinterpret_cast<const float4*>(
+                x + (img + (long long)hs * p.W + ws) * p.Cin + c0 + 16 * c);
 #pragma unroll
-    for (int j = 0; j < FN; ++j)
+            for (int k = 0; k < 4; ++k)
+              v[u][k] = ok ? __ldg(src + k) : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = Acc(0);
-
-  const int steps = K / KE;
-  uint32_t breg[4];
-  if constexpr (MODE == kConv) {
-    load_a(0);
-    store_a(0);
-  } else {
-    issue_a(0, 0);
-  }
-  load_b(breg, B, N, bk, n0 + bc, vecB);
-  store_b<T>(breg, Bs[0], bc, bk * ELEM);
-
-  for (int ks = 0; ks < steps; ++ks) {
-    const int cur = ks & 1, nxt = cur ^ 1;
-    cp_async_wait_all();
-    __syncthreads();  // step ks's tiles are in; everyone is done with `nxt`
-    const bool more = ks + 1 < steps;
-    if (more) {
-      if constexpr (MODE == kConv) load_a(ks + 1);
-      else issue_a(nxt, ks + 1);
-      load_b(breg, B, N, (long long)(ks + 1) * KE + bk, n0 + bc, vecB);
+          for (int u = 0; u < UNROLL; ++u) {
+            const int i = i0 + u * 128;
+            if (i >= total) break;
+            const int pix = i / cpp, c = i - pix * cpp;
+            *reinterpret_cast<uint4*>(patch + (c * CSTRIDE + pix) * 16) =
+                make_uint4(requant4(v[u][0], p.inv_x), requant4(v[u][1], p.inv_x),
+                           requant4(v[u][2], p.inv_x), requant4(v[u][3], p.inv_x));
+          }
+        }
+      } else {
+        const int8_t* x = static_cast<const int8_t*>(p.x);
+        const uint32_t patch_s = smem_addr(patch);
+        for (int i = pt; i < total; i += 128) {
+          const int pix = i / cpp, c = i - pix * cpp;
+          const int hs = h0 - 1 + pix / PW, ws = w0 - 1 + pix % PW;
+          const bool ok = hs >= 0 && hs < p.H && ws >= 0 && ws < p.W;
+          const int8_t* src =
+              ok ? x + (img + (long long)hs * p.W + ws) * p.Cin + c0 + 16 * c : x;
+          cp_async16(patch_s + (c * CSTRIDE + pix) * 16, src, ok);
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
+      }
+      fence_proxy_async();
+      for (int m = 0; m < TILES; ++m) bar_arrive(kFull + TILES * b + m, FULL_THREADS);
     }
-    const unsigned char* a_s = As[cur];
-    const unsigned char* b_s = Bs[cur];
-    uint32_t af[FM][4], bfr[FN][2];
-#pragma unroll
-    for (int i = 0; i < FM; ++i) {
-      const unsigned char* p = a_s + (wm * WM + i * 16 + g) * LDS + t * 4;
-      af[i][0] = *reinterpret_cast<const uint32_t*>(p);
-      af[i][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS);
-      af[i][2] = *reinterpret_cast<const uint32_t*>(p + 16);
-      af[i][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS + 16);
-    }
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      const unsigned char* p = b_s + (wn * WN + j * 8 + g) * LDS + t * 4;
-      bfr[j][0] = *reinterpret_cast<const uint32_t*>(p);
-      bfr[j][1] = *reinterpret_cast<const uint32_t*>(p + 16);
-    }
-#pragma unroll
-    for (int i = 0; i < FM; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j) Types<T>::mma(acc[i][j], af[i], bfr[j]);
-    if (more) {
-      store_b<T>(breg, Bs[nxt], bc, bk * ELEM);
-      if constexpr (MODE == kConv) store_a(nxt);
-    }
+    return;
   }
 
-  // Epilogue straight from the accumulators: element e of fragment (i, j)
-  // is row g (+8 for e >= 2), column 2t + (e & 1).
+  // -------------------------------------------------------------- consumers
+  const int warp = (tid / 32) % 4, lane = tid % 32;
+  const int ksteps = KS > 0 ? KS : p.cc / 32;
+  int acc[64];
 #pragma unroll
-  for (int i = 0; i < FM; ++i) {
+  for (int i = 0; i < 64; ++i) acc[i] = 0;
+
+  for (int s = 0; s < items; ++s) {
+    const int r = blockIdx.x + (s / p.nch) * gridDim.x, ch = s % p.nch;
+    const int b = s & 1;
+    if (s == 0 || p.nch > 1) bar_sync(kWFull + wg, FULL_THREADS);
+    bar_sync(kFull + TILES * b + wg, FULL_THREADS);
+    const uint32_t patch = w_s + wbytes + b * pbytes;
+    // Tile wg is image rows 8 wg .. 8 wg + 7 of the rectangle: at tap
+    // (dy, dx) its row group i reads patch pixels (8 wg + i + dy) * PW +
+    // dx + 0..7, one core matrix per 16 channels, CSTRIDE apart along K.
+    const uint64_t a0 = smem_desc(patch + 8 * wg * PW * 16, CSTRIDE * 16, PW * 16);
+    const uint64_t b0 = smem_desc(w_s, NT * 16, 128);
+    // One tap per iteration, its K steps unrolled with the descriptor
+    // offsets as immediates: unrolling all 9 taps makes ptxas compute every
+    // descriptor up front, more than the uniform registers hold.
+#pragma unroll 1
+    for (int tap = 0; tap < 9; ++tap) {
+      const uint64_t at = a0 + (tap / 3) * PW + tap % 3, bt = b0 + tap * 2 * ksteps * NT;
+      const int scale_d = (ch | tap) != 0;
+      wgmma_fence();
+      if constexpr (KS > 0) {
+        tap_wgmmas(acc, at, bt, scale_d, std::make_integer_sequence<int, KS>());
+      } else {
+        for (int ks = 0; ks < ksteps; ++ks)
+          wgmma_s8(acc, at + 2 * ks * CSTRIDE, bt + 2 * ks * NT, scale_d | ks);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    if (s + 2 < items) bar_arrive(kEmpty + b, CONV_THREADS);
+    if (p.nch > 1 && s + 1 < items) bar_arrive(kWEmpty, CONV_THREADS);
+    if (ch != p.nch - 1) continue;
+
+    // Epilogue from the accumulators: element 4j + 2h + e is tile row
+    // 16 warp + lane / 4 + 8h (image row 8 wg + 2 warp + h of the rectangle,
+    // column lane / 4), output channel n0 + 8j + 2 (lane % 4) + e.
+    long long img;
+    int h0, w0;
+    origin(r, img, h0, w0);
+    const int ow = w0 + lane / 4, nl = 2 * (lane % 4);
+    // Whole tiles (the serving case) take straight-line code: no test per
+    // column, one 8-byte (fp32) or 2-byte (int8) store per column pair.
+    const bool whole = n0 + NT <= p.Cout && p.Cout % 2 == 0;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const long long m = m0 + wm * WM + i * 16 + g + half * 8;
-      if (m >= M) continue;
+    for (int h = 0; h < 2; ++h) {
+      const int oh = h0 + 8 * wg + 2 * warp + h;
+      if (oh >= p.H || ow >= p.W) continue;
+      const long long o = (img + (long long)oh * p.W + ow) * p.Cout + n0;
+      auto y2 = [&](int j) {
+        const float2 dq = *reinterpret_cast<const float2*>(s_deq + 8 * j + nl);
+        const float2 bs = *reinterpret_cast<const float2*>(s_bias + 8 * j + nl);
+        float2 y = make_float2(
+            __fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h]), dq.x), bs.x),
+            __fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), dq.y), bs.y));
+        if (p.leaky) {
+          y.x = y.x > 0.f ? y.x : __fmul_rn(p.slope, y.x);
+          y.y = y.y > 0.f ? y.y : __fmul_rn(p.slope, y.y);
+        }
+        return y;
+      };
+      if (whole) {
+        if constexpr (OUT_F32) {
+          float* dst = static_cast<float*>(p.out) + o + nl;
 #pragma unroll
-      for (int j = 0; j < FN; ++j) {
-        const int n = n0 + wn * WN + j * 8 + t * 2;
-        if (n >= N) continue;
-        const bool pair = n + 1 < N;
-        const Acc a0 = acc[i][j][half * 2], a1 = acc[i][j][half * 2 + 1];
-        if constexpr (MODE == kConv) {
-          float y[2] = {0.f, 0.f};
+          for (int j = 0; j < 16; ++j) *reinterpret_cast<float2*>(dst + 8 * j) = y2(j);
+        } else {
+          int8_t* dst = static_cast<int8_t*>(p.out) + o + nl;
 #pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            const float2 y = y2(j);
+            const int q0 = requant1(y.x, p.out_inv_x), q1 = requant1(y.y, p.out_inv_x);
+            *reinterpret_cast<uint16_t*>(dst + 8 * j) =
+                (uint16_t)((q0 & 0xff) | ((q1 & 0xff) << 8));
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int n = 8 * j + nl;
+          const float2 y = y2(j);
           for (int e = 0; e < 2; ++e) {
-            if (e == 1 && !pair) break;
-            const float v = __int2float_rn(e ? a1 : a0);
-            y[e] = __fadd_rn(__fmul_rn(v, deq[n + e]), bias[n + e]);
-            if (apply_leaky) y[e] = leaky(y[e], slope);
+            if (n0 + n + e >= p.Cout) break;
+            const float v = e ? y.y : y.x;
+            if constexpr (OUT_F32)
+              static_cast<float*>(p.out)[o + n + e] = v;
+            else
+              static_cast<int8_t*>(p.out)[o + n + e] = (int8_t)requant1(v, p.out_inv_x);
           }
-          float* o = static_cast<float*>(out) + m * N + n;
-          if (pair && N % 2 == 0) {
-            *reinterpret_cast<float2*>(o) = make_float2(y[0], y[1]);
-          } else {
-            o[0] = y[0];
-            if (pair) o[1] = y[1];
-          }
-        } else {  // int32 or fp32, the accumulator's type
-          Acc* o = static_cast<Acc*>(out) + m * N + n;
-          o[0] = a0;
-          if (pair) o[1] = a1;
         }
       }
     }
   }
 }
 
-template <typename T, int MODE>
-int launch(const void* a, const void* b, void* out, const float* deq, const float* bias,
-           long long M, int N, int K, int H, int W, int Cin, int apply_leaky, float slope,
-           float inv_x, void* stream) {
-  const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN));
-  gemm_kernel<T, MODE><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<const T*>(b), out, deq, bias, M, N, K, H, W, Cin, apply_leaky, slope,
-      inv_x, N % 4 == 0);
+template <bool IN_F32, bool OUT_F32>
+cudaError_t launch_conv(const ConvArgs& p, int grid_x, int ntiles, cudaStream_t stream) {
+  auto kernel = p.cc == MAX_CC ? conv3x3_int8_kernel<IN_F32, OUT_F32, MAX_CC / 32>
+                               : conv3x3_int8_kernel<IN_F32, OUT_F32, 0>;
+  const int bytes = conv_smem_bytes(p.cc);
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3(grid_x, ntiles), CONV_THREADS, bytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------------ GEMM --
+
+// Block tile GM x GN, two consumer warpgroups of 64 rows each issuing
+// wgmma m64n256, and a producer warpgroup whose one thread feeds a ring of
+// GSTAGES stages by TMA (128 bytes of K per stage, 128-byte swizzle).
+constexpr int GM = 128, GN = 256, GKB = 128, GSTAGES = 4;
+constexpr int GA_BYTES = GM * GKB, GB_BYTES = GN * GKB, GSTAGE_BYTES = GA_BYTES + GB_BYTES;
+constexpr int GTHREADS = 384;
+constexpr int GSMEM = GSTAGES * GSTAGE_BYTES + 1024 + 2 * GSTAGES * 8;  // + alignment, mbarriers
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int k, int row,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(k), "r"(row), "r"(bar)
+      : "memory");
+}
+
+// Descriptor of a K-major tile written by TMA with the 128-byte swizzle:
+// rows of 128 bytes, 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return smem_desc(addr, 16, 1024) | (1ull << 62);
+}
+
+// D (64 x 256, registers) (+)= A (64 x 32 bytes of K) * B (32 bytes of K x
+// 256), both K-major in shared memory: .s8 k32 -> int32, .bf16 k16 -> fp32.
+template <typename T>
+struct Gmma;
+
+template <>
+struct Gmma<int8_t> {
+  using Acc = int;
+  __device__ static void run(int (&d)[128], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {" ISR_REGS128 "}, "
+        "%128, %129, p;\n}\n"
+        : ISR_OP128("+r")
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+template <>
+struct Gmma<__nv_bfloat16> {
+  using Acc = float;
+  __device__ static void run(float (&d)[128], uint64_t a, uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {" ISR_REGS128 "}, "
+        "%128, %129, p, 1, 1, 0, 0;\n}\n"  // both operands K-major: no transpose
+        : ISR_OP128("+f")
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
+// C (M, N) = A (M, K) x B, from A and Bt = B^T (N, K), both row-major (K
+// contiguous), through the tensor maps tmA (box 128 bytes x GM rows) and tmB
+// (128 bytes x GN rows); TMA fills zeros past M, N and K.
+template <typename T>
+__global__ void __launch_bounds__(GTHREADS, 1)
+gemm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUtensorMap tmB,
+            void* __restrict__ out, int M, int N, int K) {
+  using Acc = typename Gmma<T>::Acc;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t s0 = (smem_addr(smem) + 1023) & ~1023u;  // swizzled tiles: 1024-aligned
+  const uint32_t full = s0 + GSTAGES * GSTAGE_BYTES, empty = full + GSTAGES * 8;
+  const int tid = threadIdx.x, lane = tid % 32, warp = (tid / 32) % 4;
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int m0 = blockIdx.y * GM, n0 = blockIdx.x * GN;
+  const int kstep = GKB / sizeof(T);  // K elements per stage
+  const int ktiles = (K + kstep - 1) / kstep;
+  if (tid == 0) {
+    for (int s = 0; s < GSTAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2);  // one thread of each consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // producer: one thread issues every TMA load
+    if (tid == 256) {
+      for (int kt = 0; kt < ktiles; ++kt) {
+        const int s = kt % GSTAGES;
+        if (kt >= GSTAGES) mbar_wait(empty + 8 * s, (kt / GSTAGES - 1) & 1);
+        mbar_expect_tx(full + 8 * s, GSTAGE_BYTES);
+        const uint32_t st = s0 + s * GSTAGE_BYTES;
+        tma_load(st, &tmA, kt * kstep, m0, full + 8 * s);
+        tma_load(st + GA_BYTES, &tmB, kt * kstep, n0, full + 8 * s);
+      }
+    }
+    return;
+  }
+
+  Acc acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = Acc(0);
+  for (int kt = 0; kt < ktiles; ++kt) {
+    const int s = kt % GSTAGES;
+    mbar_wait(full + 8 * s, (kt / GSTAGES) & 1);
+    const uint32_t st = s0 + s * GSTAGE_BYTES;
+    const uint64_t ad = sw128_desc(st + wg * 64 * GKB), bd = sw128_desc(st + GA_BYTES);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < GKB / 32; ++ks)  // 32 bytes of K per wgmma, inside the swizzle row
+      Gmma<T>::run(acc, ad + 2 * ks, bd + 2 * ks, kt > 0 || ks > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // the wgmmas of tile kt - 1 are done: release its stage
+    if (kt > 0 && tid % 128 == 0) mbar_arrive(empty + 8 * ((kt - 1) % GSTAGES));
+  }
+  wgmma_wait<0>();
+
+  // Epilogue: element 4j + 2h + e is row 64 wg + 16 warp + lane / 4 + 8h,
+  // column 8j + 2 (lane % 4) + e.
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int m = m0 + 64 * wg + 16 * warp + lane / 4 + 8 * h;
+    if (m >= M) continue;
+    Acc* o = static_cast<Acc*>(out) + (long long)m * N;
+#pragma unroll
+    for (int j = 0; j < GN / 8; ++j) {
+      const int n = n0 + 8 * j + 2 * (lane % 4);
+      const Acc v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (n + 1 < N && N % 2 == 0) {
+        if constexpr (std::is_same<Acc, float>::value)
+          *reinterpret_cast<float2*>(o + n) = make_float2(v0, v1);
+        else
+          *reinterpret_cast<int2*>(o + n) = make_int2(v0, v1);
+      } else {
+        if (n < N) o[n] = v0;
+        if (n + 1 < N) o[n + 1] = v1;
+      }
+    }
+  }
+}
+
+// A 2-D tensor map over a row-major (rows, K) matrix of `esize`-byte
+// elements: boxes of 128 bytes of K x box_rows rows, 128-byte swizzle.
+CUresult tensor_map(CUtensorMap* map, const void* ptr, int rows, int K, int esize,
+                    int box_rows) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled",
+                                         reinterpret_cast<void**>(&encode), 12000,
+                                         cudaEnableDefault, &q) != cudaSuccess)
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode),
+                                cudaEnableDefault, &q) != cudaSuccess)
+#endif
+      return CUDA_ERROR_NOT_FOUND;
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)K * esize};
+  const cuuint32_t box[2] = {(cuuint32_t)(GKB / esize), (cuuint32_t)box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return encode(map, esize == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                2, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// Bt = B^T for the GEMM: B (R, C) row-major of ES-byte elements, R * ES a
+// multiple of 16 (K's step), any C. A block moves a tile of 64 rows x 64
+// bytes through shared memory with 16-byte stores, and 16-byte loads where
+// the input rows are 16-byte multiples (byte loads, masked at the row's
+// end, where they are not: ragged N).
+template <int ES>
+__global__ void __launch_bounds__(256) transpose_kernel(const uint8_t* __restrict__ in,
+                                                        uint8_t* __restrict__ out, int R,
+                                                        int C) {
+  __shared__ uint8_t tile[64][64 + 16];
+  const int t = threadIdx.x;
+  const long long r0 = (long long)blockIdx.y * 64, cb0 = (long long)blockIdx.x * 64;
+  const long long rb = (long long)C * ES;  // bytes per input row
+  {
+    const int row = t / 4, q = t % 4;
+    const long long cb = cb0 + 16 * q;
+    if (r0 + row < R && cb < rb) {
+      const uint8_t* src = in + (r0 + row) * rb + cb;
+      if (rb % 16 == 0) {
+        *reinterpret_cast<uint4*>(&tile[row][16 * q]) = *reinterpret_cast<const uint4*>(src);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          if (cb + j < rb) tile[row][16 * q + j] = src[j];
+      }
+    }
+  }
+  __syncthreads();
+  // Output row oc (input column cb0 / ES + oc), its 16-byte chunk q: input
+  // rows r0 + q * 16 / ES + 0 .. 16 / ES - 1.
+  const int oc = t / (4 * ES), q = t % (4 * ES), per = 16 / ES;
+  const long long c = cb0 / ES + oc, r = r0 + (long long)q * per;
+  if (c >= C || r >= R) return;
+  uint8_t v[16];
+#pragma unroll
+  for (int e = 0; e < per; ++e)
+#pragma unroll
+    for (int b = 0; b < ES; ++b) v[e * ES + b] = tile[q * per + e][oc * ES + b];
+  *reinterpret_cast<uint4*>(out + (c * R + r) * ES) = *reinterpret_cast<const uint4*>(v);
+}
+
+template <typename T>
+int launch_gemm(const void* a, const void* bt, void* out, int M, int N, int K, void* stream) {
+  CUtensorMap tmA, tmB;
+  if (tensor_map(&tmA, a, M, K, sizeof(T), GM) != CUDA_SUCCESS ||
+      tensor_map(&tmB, bt, N, K, sizeof(T), GN) != CUDA_SUCCESS)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = gemm_kernel<T>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GSMEM);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)((N + GN - 1) / GN), (unsigned)((M + GM - 1) / GM));
+  kernel<<<grid, GTHREADS, GSMEM, static_cast<cudaStream_t>(stream)>>>(tmA, tmB, out, M, N, K);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// (M,K) x (K,N) row-major on `stream`. dtype 0: int8 -> int32 out; 1: bf16
-// -> fp32 out. K % 32 (int8) or K % 16 (bf16), K > 0; rows 16-byte aligned.
-// Returns the launch's cudaError_t (0 on success).
-extern "C" int isr_matmul(const void* a, const void* b, void* out, long long M, int N,
+// (M,K) x (K,N) on `stream`, from A (M,K) and Bt = B^T (N,K), both
+// row-major and 16-byte aligned. dtype 0: int8 -> int32 out; 1: bf16 ->
+// fp32 out. K % 32 (int8) or K % 16 (bf16), K > 0. Returns a cudaError_t (0
+// on success).
+extern "C" int isr_matmul(const void* a, const void* bt, void* out, long long M, int N,
                           int K, int dtype, void* stream) {
-  if (dtype == 0)
-    return launch<int8_t, kMatmul>(a, b, out, nullptr, nullptr, M, N, K, 0, 0, 0, 0, 0.f,
-                                   0.f, stream);
-  return launch<__nv_bfloat16, kMatmul>(a, b, out, nullptr, nullptr, M, N, K, 0, 0, 0, 0,
-                                        0.f, 0.f, stream);
+  if (M > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return launch_gemm<int8_t>(a, bt, out, (int)M, N, K, stream);
+  return launch_gemm<__nv_bfloat16>(a, bt, out, (int)M, N, K, stream);
 }
 
-// Implicit-GEMM 3x3 conv, zero padding 1: x (B,H,W,Cin) fp32, requantized
-// on load with inv_x, w_q (9*Cin, Cout) int8, deq/bias (Cout,) fp32, out
-// (B,H,W,Cout) fp32. Cin % 32 == 0.
-extern "C" int isr_conv3x3_int8(const void* x, const void* w_q, const void* deq,
-                                const void* bias, void* out, int B, int H, int W,
-                                int Cin, int Cout, int apply_leaky, float slope,
-                                float inv_x, void* stream) {
-  const long long M = (long long)B * H * W;
-  return launch<int8_t, kConv>(x, w_q, out, static_cast<const float*>(deq),
-                               static_cast<const float*>(bias), M, Cout, 9 * Cin, H, W,
-                               Cin, apply_leaky, slope, inv_x, stream);
+// out (C, R) = in (R, C)^T on `stream`, elements of esize (1 or 2) bytes;
+// R * esize a multiple of 16, any C, both 16-byte aligned.
+extern "C" int isr_transpose(const void* in, void* out, int R, int C, int esize,
+                             void* stream) {
+  if ((long long)R * esize % 16 || (esize != 1 && esize != 2))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)(((long long)C * esize + 63) / 64), (unsigned)((R + 63) / 64));
+  auto kernel = esize == 1 ? transpose_kernel<1> : transpose_kernel<2>;
+  kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out), R, C);
+  return (int)cudaGetLastError();
 }
+
+// Implicit-GEMM 3x3 conv, zero padding 1, on `stream`: x (B,H,W,Cin) fp32
+// (in_f32, requantized on load with inv_x) or int8; w_k (Npad, 9*Cin) int8
+// K-major (ops/kernels/matmul.py:weights_k_major), Npad = 128 * ntiles >=
+// Cout; deq/bias (Cout,) fp32; out (B,H,W,Cout) fp32 (out_f32) or int8
+// (requantized with out_inv_x). The launch plan (conv_plan in the wrapper):
+// K chunks of cc channels (cc % 32 == 0, cc <= 128, Cin % cc == 0) and
+// grid_x persistent blocks per 128 output channels (at most one per
+// rectangle); the RH x RW rectangles that cover each image are counted
+// here. Returns a cudaError_t (0 on success).
+extern "C" int isr_conv3x3_int8(const void* x, const void* w_k, const void* deq,
+                                const void* bias, void* out, int B, int H, int W, int Cin,
+                                int Cout, int in_f32, int out_f32, int leaky, float slope,
+                                float inv_x, float out_inv_x, int cc, int grid_x,
+                                void* stream) {
+  if (B < 1 || H < 1 || W < 1 || Cin < 32 || Cin % 32 || Cout < 1 || cc < 32 || cc % 32 ||
+      cc > MAX_CC || Cin % cc || grid_x < 1)
+    return (int)cudaErrorInvalidValue;
+  const int rects_h = (H + RH - 1) / RH, rects_w = (W + RW - 1) / RW;
+  ConvArgs p;
+  p.x = x;
+  p.wk = static_cast<const int8_t*>(w_k);
+  p.deq = static_cast<const float*>(deq);
+  p.bias = static_cast<const float*>(bias);
+  p.out = out;
+  p.H = H;
+  p.W = W;
+  p.Cin = Cin;
+  p.Cout = Cout;
+  p.cc = cc;
+  p.nch = Cin / cc;
+  p.rects_w = rects_w;
+  p.rects_h = rects_h;
+  p.rects = B * rects_h * rects_w;
+  p.leaky = leaky;
+  p.slope = slope;
+  p.inv_x = inv_x;
+  p.out_inv_x = out_inv_x;
+  const int ntiles = (Cout + NT - 1) / NT;
+  grid_x = grid_x < p.rects ? grid_x : p.rects;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (in_f32)
+    e = out_f32 ? launch_conv<true, true>(p, grid_x, ntiles, st)
+                : launch_conv<true, false>(p, grid_x, ntiles, st);
+  else
+    e = out_f32 ? launch_conv<false, true>(p, grid_x, ntiles, st)
+                : launch_conv<false, false>(p, grid_x, ntiles, st);
+  return (int)e;
+}
+
+// Dynamic shared memory of the conv kernel for K chunks of cc channels, and
+// of the GEMM.
+extern "C" int isr_conv3x3_int8_smem_bytes(int cc) { return conv_smem_bytes(cc); }
+
+// The conv's tiling, for the wrapper's launch plan: {RH, RW, NT, MAX_CC}.
+extern "C" void isr_conv3x3_int8_tiling(int* out) {
+  out[0] = RH;
+  out[1] = RW;
+  out[2] = NT;
+  out[3] = MAX_CC;
+}
+extern "C" int isr_matmul_smem_bytes() { return GSMEM; }
 
 extern "C" const char* isr_matmul_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

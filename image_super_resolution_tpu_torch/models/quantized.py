@@ -10,8 +10,11 @@ Scheme (symmetric PTQ):
   ``ops/kernels/matmul.py``'s ``conv3x3_int8`` (the hand-written kernel on
   the card), dequantized in its epilogue (``acc * deq + bias``, leaky on
   conv0 sites); the residual stream between them stays fp32, and each
-  site's input is requantized afresh (``clip(round(h / s_x), +-127)``,
-  inside the kernel's operand load on the card);
+  site's input is requantized afresh (``clip(round(h * inv_x), +-127)``,
+  inv_x = 1 / s_x in fp32, inside the kernel's operand load on the card),
+  except a conv1 site's: its conv0 requantizes its own output with conv1's
+  ``inv_x`` in the epilogue and hands it over in int8 (the same function:
+  nothing else reads conv0's output);
 - head, tail and the refinement tail stay bf16.
 
 ``fast_forward`` is ``models/fast.py``'s forward written as a function of a
@@ -31,7 +34,7 @@ from ..core.device import resolve_device
 from ..data.transforms import normalize, tanh_to_uint8
 from ..ops.activations import apply_act
 from ..ops.conv import conv_bias_nhwc
-from ..ops.kernels.matmul import conv3x3_int8
+from ..ops.kernels.matmul import conv3x3_int8, weights_k_major
 from ..ops.pixel_shuffle import pixel_shuffle
 from .fast import _LEAKY, downshuffle_front, scale_residual
 
@@ -197,21 +200,29 @@ def quantize_fast_params(params: Dict[str, Any], act_scales: Dict[str, float],
     return q
 
 
-def quant_site(p: Dict[str, Any], h: torch.Tensor, leaky: bool) -> torch.Tensor:
+def quant_site(p: Dict[str, Any], h: torch.Tensor, leaky: bool,
+               out_inv_x: Optional[float] = None) -> torch.Tensor:
     """One int8 trunk site: the fp32 input requantized with the site's
-    scale (inside the kernel on the card), the int8 conv and its
-    dequantizing epilogue."""
+    scale (inside the kernel on the card), or an int8 input as it is; the
+    int8 conv and its dequantizing epilogue; fp32 out, or int8 requantized
+    with ``out_inv_x`` (the next site's scale)."""
     return conv3x3_int8(h, p["w_q"], p["deq"], p["bias"], leaky=leaky,
-                        inv_x=p["inv_x"])
+                        inv_x=None if h.dtype == torch.int8 else p["inv_x"],
+                        out_inv_x=out_inv_x, w_k=p.get("w_k"))
 
 
 def int8_forward(qparams: Dict[str, Any], x: torch.Tensor, depth: int,
                  add_rate: float, scale: int, downshuffle: int = 1,
                  refine_blocks: int = 0) -> torch.Tensor:
-    """Serving forward with the trunk convs in int8 (int32 sums)."""
+    """Serving forward with the trunk convs in int8 (int32 sums). A conv0
+    site hands its output to its conv1 in int8, requantized with conv1's
+    scale in conv0's epilogue."""
 
     def quant(site, h):
-        return quant_site(qparams[site], h, leaky=site.endswith("conv0"))
+        if site.endswith("conv0"):
+            nxt = qparams[site[:-1] + "1"]["inv_x"]
+            return quant_site(qparams[site], h, leaky=True, out_inv_x=nxt)
+        return quant_site(qparams[site], h, leaky=False)
 
     return fast_forward(qparams, x, depth, add_rate, scale, quant=quant,
                         downshuffle=downshuffle, refine_blocks=refine_blocks)
@@ -230,12 +241,17 @@ class Int8DeployedFast:
     """uint8 NHWC -> uint8 NHWC int8-trunk server with ``DeployedModel``'s
     call surface, so ``TiledUpscaler`` takes it unchanged. Build it with
     :func:`quantize_deployed`. ``params`` (the int8 dict) is committed to
-    ``device`` once, here."""
+    ``device`` once, here; on the card each site also gets ``w_k``, the
+    kernel's K-major copy of ``w_q``, laid out here once."""
 
     def __init__(self, spec, params: Dict[str, Any], device="cuda"):
         self.spec = spec
         self.device = resolve_device(device)
         self.params = _to_device(params, self.device)
+        if self.device.type == "cuda":
+            for site in trunk_sites(spec.depth):
+                p = self.params[site]  # a copy: _to_device builds new dicts
+                p["w_k"] = weights_k_major(p["w_q"])
         self._mean = tuple(float(v) for v in spec.mean)
         self._std = tuple(float(v) for v in spec.std)
 

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface (no PyTorch headers), so
 ``nvcc`` builds it in seconds into ``build/kernels/lib<name>-<hash>.so`` at
 the root of the checkout (listed in ``.gitignore``). The hash covers the
-source and the flags, so an edited source is rebuilt.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt.
 """
 
 from __future__ import annotations
@@ -35,8 +36,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

@@ -1,23 +1,30 @@
-"""The int8/bf16 GEMM kernel (``csrc/matmul.cu``), the int8 3x3 conv built on
-it, and their plain versions.
+"""K2 (``csrc/matmul.cu``, wgmma): the int8 3x3 conv site, the int8/bf16
+GEMM, and their plain versions.
 
 Replaces the JAX package's Pallas kernel ``pallas_matmul`` (body
 ``_mm_kernel``, ``scripts/bench_int8_pallas.py``): a tiled GEMM whose K
 loop accumulates in a scratch tile, int8 -> int32 or bf16 -> fp32. Two
-entry points share the kernel's tile core:
+entry points:
 
+- ``conv3x3_int8(x, w_q, deq, bias, leaky, inv_x, out_inv_x, w_k)``: the
+  trunk site of ``models/quantized.py``'s ``int8_forward`` as an implicit
+  GEMM, NHWC, zero padding 1. ``x`` is the fp32 stream with its scale
+  ``inv_x`` (requantized as the kernel loads it, ``requantize``) or int8
+  with ``inv_x=None``. ``w_q`` is the (9*Cin, Cout) matmul form (rows
+  (dy, dx, cin), as the JAX package holds it); the kernel reads its K-major
+  copy ``w_k = weights_k_major(w_q)``, which callers lay out once and pass
+  in (required on the card). int32 sums, then ``float(acc) * deq + bias`` in fp32, each op rounded,
+  leaky_relu 0.01 when ``leaky``; fp32 out, or, with ``out_inv_x``, int8
+  requantized with that scale (a conv0 site handing off to its conv1).
+  Cin % 32 on the card; any Cout, B, H, W.
 - ``matmul(a, b)``: (M, K) x (K, N), any M and N; K % 32 for int8 and
-  K % 16 for bf16 on the card. The int8 result is exact.
-- ``conv3x3_int8(x, w_q, deq, bias, leaky, inv_x)``: the trunk site of
-  ``models/quantized.py``'s ``int8_forward`` as an implicit GEMM: x, the
-  fp32 stream (B, H, W, Cin) NHWC, requantized with its scale ``inv_x`` as
-  the kernel loads it (``requantize``), zero padding 1, ``w_q`` in the
-  (9*Cin, Cout) matmul form (rows (dy, dx, cin), as
-  ``scatter_params_to_matmul`` lays out K1's kernels), int32 sums, then
-  ``float(acc) * deq + bias`` in fp32, each op rounded, and leaky_relu 0.01
-  when ``leaky``. fp32 NHWC out. Cin % 32 on the card.
+  K % 16 for bf16 on the card. The int8 result is exact. The kernel reads
+  both operands K-major, so each call first transposes B (a small kernel
+  of the same library, any N).
 
-The design and its bound are described at the top of the ``.cu`` file.
+The design and its bound are described at the top of the ``.cu`` file;
+``conv_plan`` is the conv's launch plan, computed here and passed to the
+kernel as integers.
 """
 
 from __future__ import annotations
@@ -31,6 +38,11 @@ import torch.nn.functional as F
 from ..activations import apply_act
 
 LEAKY_SLOPE = 0.01  # the fast trunk's activation (models/fast.py)
+# The conv kernel's tiling (csrc/matmul.cu: RH, RW, NT, MAX_CC; _library()
+# refuses a build whose tiling differs).
+RECT_H, RECT_W = 24, 8
+N_TILE = 128
+MAX_CHUNK = 128
 # bf16 GEMM, kernel vs plain version: both multiply exactly (bf16 x bf16 is
 # exact in fp32) and sum in fp32 against float64; the kernel's fp32 sum over
 # K terms of size |a||b| errs by at most about K * 2^-24 of that sum's
@@ -62,14 +74,47 @@ def requantize(h: torch.Tensor, inv_x: float) -> torch.Tensor:
     return torch.round(h.float() * inv_x).clamp_(-127, 127).to(torch.int8)
 
 
-def conv3x3_int8_reference(x, w_q, deq, bias, leaky: bool,
-                           inv_x: float | None = None) -> torch.Tensor:
-    """Plain version of the int8 conv site: requantize an fp32 ``x``, exact
-    sums, then the kernel's fp32 epilogue in the same order (``acc * deq``,
-    ``+ bias``, leaky)."""
+def conv3x3_int8_reference(x, w_q, deq, bias, leaky: bool, inv_x: float | None = None,
+                           out_inv_x: float | None = None) -> torch.Tensor:
+    """Plain version of the int8 conv site: requantize an fp32 ``x`` (int8
+    ``x`` is taken as it is), exact sums, then the kernel's fp32 epilogue in
+    the same order (``acc * deq``, ``+ bias``, leaky), requantized with
+    ``out_inv_x`` when it is given."""
     x8 = x if inv_x is None else requantize(x, inv_x)
     y = conv3x3_int8_accumulators(x8, w_q).float() * deq + bias
-    return apply_act(y, ("leaky_relu", LEAKY_SLOPE)) if leaky else y
+    if leaky:
+        y = apply_act(y, ("leaky_relu", LEAKY_SLOPE))
+    return y if out_inv_x is None else requantize(y, out_inv_x)
+
+
+def weights_k_major(w_q: torch.Tensor) -> torch.Tensor:
+    """(9*Cin, Cout) int8 -> the kernel's K-major (Npad, 9*Cin) copy: row o
+    holds output channel o's 9*Cin weights, Npad = Cout rounded up to the
+    kernel's N_TILE, the extra rows zero (wgmma's int8 B operand must be
+    K-major; its transpose bit exists only for 16-bit types)."""
+    k, cout = w_q.shape
+    out = torch.zeros((-(-cout // N_TILE) * N_TILE, k), dtype=w_q.dtype, device=w_q.device)
+    out[:cout] = w_q.t()
+    return out
+
+
+def conv_plan(b: int, h: int, w: int, cin: int, cout: int, sms: int) -> dict:
+    """The conv kernel's launch plan: K chunks of ``cc`` input channels (all
+    of Cin up to MAX_CHUNK, whose weights then stay in shared memory; else
+    the largest multiple of 32 up to MAX_CHUNK that divides Cin), RECT_H x
+    RECT_W output rectangles per image, ``n_tiles`` blocks of N_TILE output
+    channels, and ``grid_x`` persistent blocks per N tile (one per SM in
+    all, at most one per rectangle), each walking rectangles grid_x apart."""
+    if cin <= 0 or cin % 32:
+        raise ValueError(f"the kernel needs Cin a positive multiple of 32, got {cin}")
+    cc = cin if cin <= MAX_CHUNK else max(c for c in range(32, MAX_CHUNK + 1, 32)
+                                          if cin % c == 0)
+    rects_h, rects_w = -(-h // RECT_H), -(-w // RECT_W)
+    rects = b * rects_h * rects_w
+    n_tiles = -(-cout // N_TILE)
+    return {"cc": cc, "chunks": cin // cc, "rects_h": rects_h, "rects_w": rects_w,
+            "rects": rects, "n_tiles": n_tiles,
+            "grid_x": max(1, min(rects, sms // n_tiles))}
 
 
 @functools.lru_cache(maxsize=None)
@@ -80,12 +125,33 @@ def _library() -> ctypes.CDLL:
     lib.isr_matmul.argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.isr_matmul.restype = ctypes.c_int
-    lib.isr_conv3x3_int8.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
-    lib.isr_conv3x3_int8.restype = ctypes.c_int
+    tiling = bind_conv(lib)
+    if tiling != (RECT_H, RECT_W, N_TILE, MAX_CHUNK):
+        raise RuntimeError(f"the conv kernel's tiling (RH, RW, NT, MAX_CC) = {tiling} is "
+                           f"not the wrapper's {(RECT_H, RECT_W, N_TILE, MAX_CHUNK)}")
+    lib.isr_conv3x3_int8_smem_bytes.argtypes = [ctypes.c_int]
+    lib.isr_conv3x3_int8_smem_bytes.restype = ctypes.c_int
+    lib.isr_matmul_smem_bytes.argtypes = []
+    lib.isr_matmul_smem_bytes.restype = ctypes.c_int
+    lib.isr_transpose.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.isr_transpose.restype = ctypes.c_int
     lib.isr_matmul_error_string.argtypes = [ctypes.c_int]
     lib.isr_matmul_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def bind_conv(lib: ctypes.CDLL) -> tuple:
+    """Declare ``isr_conv3x3_int8``'s C signature on a library built from
+    ``csrc/matmul.cu`` (or a variant of it) and return the tiling it was
+    built with, (RH, RW, NT, MAX_CC)."""
+    lib.isr_conv3x3_int8.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
+        ctypes.c_float] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.isr_conv3x3_int8.restype = ctypes.c_int
+    lib.isr_conv3x3_int8_tiling.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.isr_conv3x3_int8_tiling.restype = None
+    tiling = (ctypes.c_int * 4)()
+    lib.isr_conv3x3_int8_tiling(tiling)
+    return tuple(tiling)
 
 
 def _check_operands(*tensors) -> None:
@@ -128,24 +194,42 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return out
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = _library().isr_matmul(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+        # wgmma reads both operands K-major (its transpose bit exists only for
+        # 16-bit types): one transposed copy of B per call, part of its time
+        bt = torch.empty((n, k), dtype=b.dtype, device=b.device)
+        _raise_on(_library().isr_transpose(b.data_ptr(), bt.data_ptr(), k, n,
+                                           b.element_size(), stream), "transpose")
+        err = _library().isr_matmul(a.data_ptr(), bt.data_ptr(), out.data_ptr(),
                                     m, n, k, 0 if int8 else 1, stream)
     _raise_on(err, "matmul")
     matmul.launches += 1
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def conv3x3_int8(x: torch.Tensor, w_q: torch.Tensor, deq: torch.Tensor,
-                 bias: torch.Tensor, leaky: bool, inv_x: float) -> torch.Tensor:
-    """One int8 trunk site, NHWC: fp32 x with its scale ``inv_x``
-    (requantized on load); fp32 out. CPU tensors: the plain version. CUDA
-    tensors: the hand-written kernel on the current stream, or an error."""
+                 bias: torch.Tensor, leaky: bool, inv_x: float | None = None,
+                 out_inv_x: float | None = None,
+                 w_k: torch.Tensor | None = None) -> torch.Tensor:
+    """One int8 trunk site, NHWC: fp32 ``x`` with its scale ``inv_x``
+    (requantized on load) or int8 ``x`` with ``inv_x=None``; fp32 out, or
+    int8 requantized with ``out_inv_x``. ``w_k``: ``weights_k_major(w_q)``,
+    laid out once by the caller; the card needs it, the CPU reads ``w_q``.
+    CPU tensors: the plain version. CUDA tensors: the hand-written kernel on
+    the current stream, or an error."""
+    if (x.dtype == torch.int8) != (inv_x is None):
+        raise TypeError("x must be fp32 with its inv_x, or int8 with inv_x=None; got "
+                        f"{x.dtype} with inv_x={inv_x}")
     if x.device.type == "cpu":
-        return conv3x3_int8_reference(x, w_q, deq, bias, leaky, inv_x)
+        return conv3x3_int8_reference(x, w_q, deq, bias, leaky, inv_x, out_inv_x)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    if x.dtype != torch.float32 or w_q.dtype != torch.int8:
-        raise TypeError(f"x must be fp32 and w_q int8, got {x.dtype}, {w_q.dtype}")
+    if x.dtype not in (torch.float32, torch.int8) or w_q.dtype != torch.int8:
+        raise TypeError(f"x must be fp32 or int8 and w_q int8, got {x.dtype}, {w_q.dtype}")
     if deq.dtype != torch.float32 or bias.dtype != torch.float32:
         raise TypeError("deq and bias must be fp32")
     if x.dim() != 4:
@@ -158,20 +242,41 @@ def conv3x3_int8(x: torch.Tensor, w_q: torch.Tensor, deq: torch.Tensor,
     cout = w_q.shape[1]
     if deq.numel() != cout or bias.numel() != cout:
         raise ValueError(f"deq and bias must hold {cout} values")
-    _check_operands(x, w_q, deq, bias)
-    out = torch.empty((b, h, w, cout), dtype=torch.float32, device=x.device)
+    npad = -(-cout // N_TILE) * N_TILE
+    if w_k is None:
+        raise ValueError(f"the kernel needs w_k = weights_k_major(w_q), ({npad}, {9 * cin}) "
+                         f"int8, laid out once by the caller")
+    if w_k.dtype != torch.int8 or tuple(w_k.shape) != (npad, 9 * cin):
+        raise ValueError(f"w_k must be int8 ({npad}, {9 * cin}), got {w_k.dtype} "
+                         f"{tuple(w_k.shape)}")
+    _check_operands(x, w_q, w_k, deq, bias)
+    out = torch.empty((b, h, w, cout), device=x.device,
+                      dtype=torch.float32 if out_inv_x is None else torch.int8)
     if out.numel() == 0:
         return out
+    plan = conv_plan(b, h, w, cin, cout, _sm_count(x.device.index or 0))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _library().isr_conv3x3_int8(
-            x.data_ptr(), w_q.data_ptr(), deq.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), b, h, w, cin, cout, int(bool(leaky)), LEAKY_SLOPE,
-            float(inv_x), stream)
+            x.data_ptr(), w_k.data_ptr(), deq.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            b, h, w, cin, cout, int(x.dtype == torch.float32), int(out_inv_x is None),
+            int(bool(leaky)), LEAKY_SLOPE, float(inv_x or 0.0), float(out_inv_x or 0.0),
+            plan["cc"], plan["grid_x"], stream)
     _raise_on(err, "conv3x3_int8")
     conv3x3_int8.launches += 1
+    variant = conv_variant(x.dtype, out.dtype)
+    conv3x3_int8.launches_by_variant[variant] = \
+        conv3x3_int8.launches_by_variant.get(variant, 0) + 1
     return out
+
+
+def conv_variant(in_dtype: torch.dtype, out_dtype: torch.dtype) -> str:
+    """The conv site's variant by its input and output dtypes, e.g.
+    ``"fp32 -> int8"`` (a conv0 site handing off to its conv1)."""
+    names = {torch.float32: "fp32", torch.int8: "int8"}
+    return f"{names[in_dtype]} -> {names[out_dtype]}"
 
 
 matmul.launches = 0
 conv3x3_int8.launches = 0
+conv3x3_int8.launches_by_variant = {}  # conv_variant(...) -> launches

@@ -102,10 +102,11 @@ from image_super_resolution_tpu_torch.ops.kernels import matmul as k2  # noqa: E
 
 
 @pytest.mark.parametrize("m,k,n", [(128, 32, 128), (1, 64, 1), (300, 1152, 130),
-                                   (1024, 2048, 1000)])
+                                   (1024, 2048, 1000), (64, 96, 1040)])
 def test_matmul_int8_exact_on_card(card, m, k, n):
-    """int8 -> int32 equals the integer product exactly, for ragged M and N
-    (masked edge tiles; N % 4 != 0 takes the scalar B loads)."""
+    """int8 -> int32 equals the integer product exactly, for ragged M, N and
+    K against the 128 x 256 x 128 tiles (TMA fills zeros past the edges;
+    N % 16 != 0 takes the transpose kernel's masked byte loads)."""
     rng = np.random.default_rng(m + k + n)
     a = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8)).to(card)
     b = torch.from_numpy(rng.integers(-127, 128, (k, n), dtype=np.int8)).to(card)
@@ -130,28 +131,42 @@ def test_matmul_bf16_on_card(card, m, k, n):
 
 
 @pytest.mark.parametrize("b,h,w,cin,cout", [(2, 24, 24, 128, 128), (3, 17, 29, 128, 128),
-                                            (1, 1, 1, 32, 8), (1, 5, 3, 64, 130)])
+                                            (1, 1, 1, 32, 8), (1, 5, 3, 64, 130),
+                                            (2, 48, 48, 128, 128), (1, 93, 93, 128, 128),
+                                            (1, 9, 20, 160, 40)])
 @pytest.mark.parametrize("leaky", [True, False])
-@pytest.mark.parametrize("x_kind", ["int8_values", "stream"])
-def test_conv3x3_int8_exact_on_card(card, b, h, w, cin, cout, leaky, x_kind):
+@pytest.mark.parametrize("x_kind", ["int8_values", "stream", "int8"])
+@pytest.mark.parametrize("out", ["fp32", "int8"])
+def test_conv3x3_int8_exact_on_card(card, b, h, w, cin, cout, leaky, x_kind, out):
     """The int8 conv site equals its plain version bit for bit: the same
-    requantization of its fp32 input, exact int32 sums and the same fp32
-    epilogue, each op rounded once. Inputs: every int8 value as fp32 with
-    scale 1, and the fp32 stream with ties and values past +-127 steps."""
+    requantization of an fp32 input, exact int32 sums, the same fp32
+    epilogue, each op rounded once, and for int8 outputs the same
+    requantization with out_inv_x. Inputs: every int8 value as fp32 with
+    scale 1, the fp32 stream with ties and values past +-127 steps, and
+    int8 itself. Shapes: the serving tile, denoise_fast's 48x48 and a
+    ragged CLI tile, ragged and tiny images, Cout not a multiple of 128,
+    and Cin 160 (K chunks of 32 channels)."""
     rng = np.random.default_rng(b * h * w + cout)
+    x8 = torch.from_numpy(rng.integers(-127, 128, (b, h, w, cin), dtype=np.int8))
     if x_kind == "stream":
-        x8 = torch.from_numpy(rng.standard_normal((b, h, w, cin), np.float32) * 40)
-        x8[..., :4] = torch.tensor([0.5, -2.5, 300.0, -1e6]) / 0.25
-        x8, inv_x = x8.to(card), 0.25
+        x = torch.from_numpy(rng.standard_normal((b, h, w, cin), np.float32) * 40)
+        x[..., :4] = torch.tensor([0.5, -2.5, 300.0, -1e6]) / 0.25
+        x, inv_x = x.to(card), 0.25
+    elif x_kind == "int8_values":
+        x, inv_x = x8.to(card).float(), 1.0
     else:
-        x8 = torch.from_numpy(rng.integers(-127, 128, (b, h, w, cin), dtype=np.int8))
-        x8, inv_x = x8.to(card).float(), 1.0
+        x, inv_x = x8.to(card), None
+    out_inv_x = 1.0 if out == "int8" else None
     w_q = torch.from_numpy(rng.integers(-127, 128, (9 * cin, cout), dtype=np.int8)).to(card)
     deq = torch.from_numpy(rng.uniform(1e-4, 1e-3, cout).astype(np.float32)).to(card)
     bias = torch.from_numpy(rng.uniform(-1, 1, cout).astype(np.float32)).to(card)
-    got = k2.conv3x3_int8(x8, w_q, deq, bias, leaky, inv_x)
-    want = k2.conv3x3_int8_reference(x8, w_q, deq, bias, leaky, inv_x)
+    before = k2.conv3x3_int8.launches
+    got = k2.conv3x3_int8(x, w_q, deq, bias, leaky, inv_x, out_inv_x,
+                          w_k=k2.weights_k_major(w_q))
+    want = k2.conv3x3_int8_reference(x, w_q, deq, bias, leaky, inv_x, out_inv_x)
     torch.cuda.synchronize()
+    assert k2.conv3x3_int8.launches == before + 1
+    assert got.dtype == want.dtype == (torch.int8 if out == "int8" else torch.float32)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
@@ -164,26 +179,54 @@ def test_k2_rejects_what_it_does_not_take(card):
     x = torch.zeros(1, 4, 4, 16, device=card)
     w_q, zero = torch.zeros(144, 16, dtype=torch.int8, device=card), torch.zeros(16, device=card)
     with pytest.raises(ValueError, match="multiple of 32"):
-        k2.conv3x3_int8(x, w_q, zero, zero, True, inv_x=0.5)
-    with pytest.raises(TypeError, match="fp32"):  # the stream is fp32, never int8
-        k2.conv3x3_int8(x.to(torch.int8), w_q, zero, zero, True, inv_x=0.5)
+        k2.conv3x3_int8(x, w_q, zero, zero, True, inv_x=0.5, w_k=w_q)
+    x8 = torch.zeros(1, 4, 4, 32, dtype=torch.int8, device=card)
+    w_q, zero = torch.zeros(288, 8, dtype=torch.int8, device=card), torch.zeros(8, device=card)
+    with pytest.raises(TypeError, match="inv_x"):  # int8 x is taken as it is: no scale
+        k2.conv3x3_int8(x8, w_q, zero, zero, True, inv_x=0.5)
+    with pytest.raises(ValueError, match="w_k"):  # the K-major copy must be padded to 128
+        k2.conv3x3_int8(x8, w_q, zero, zero, True, w_k=w_q.t().contiguous())
+    with pytest.raises(ValueError, match="w_k"):  # laid out by the caller, never per call
+        k2.conv3x3_int8(x8, w_q, zero, zero, True)
 
 
-def test_int8_fast_on_card_launches_per_site(card):
+@pytest.mark.parametrize("depth", [2, 14])
+def test_int8_fast_on_card_launches_per_site(card, depth):
     """fast x4 int8 on the card: every trunk site goes through the kernel
-    (2 * depth + 1 launches per forward), and the uint8 output stays within
-    INT8_CARD_MAX_LSB of the port's int8 CPU path on the same quantized
-    params."""
+    (2 * depth + 1 launches per forward: 29 at the served depth 14), each
+    conv0 handing its conv1 an int8 tensor, with the K-major weights laid
+    out once, and the wrapper counting each variant's launches; the uint8
+    output stays within INT8_CARD_MAX_LSB of the port's int8 CPU path on the
+    same quantized params."""
+    from image_super_resolution_tpu_torch.models import quantized as q
     from image_super_resolution_tpu_torch.models.quantized import (
         INT8_CARD_MAX_LSB, Int8DeployedFast, quantize_deployed)
 
-    spec = DeploySpec(family="fast", depth=2, width=128, scale=4)
+    spec = DeploySpec(family="fast", depth=depth, width=128, scale=4)
     params = init_fused_params(spec, seed=4)
     x = np.random.default_rng(4).integers(0, 256, (2, 24, 20, 3), dtype=np.uint8)
     quant = quantize_deployed(DeployedModel(spec, params, device="cuda"), [x])
-    before = k2.conv3x3_int8.launches
-    got = quant(x)
+    assert all(quant.params[s]["w_k"].shape == (128, 9 * 128) for s in q.trunk_sites(depth))
+    dtypes = []
+    orig = q.quant_site
+
+    def spy(p, h, leaky, out_inv_x=None):
+        y = orig(p, h, leaky, out_inv_x)
+        dtypes.append((h.dtype, y.dtype))
+        return y
+
+    q.quant_site = spy
+    try:
+        before = k2.conv3x3_int8.launches
+        k2.conv3x3_int8.launches_by_variant.clear()
+        got = quant(x)
+    finally:
+        q.quant_site = orig
     assert k2.conv3x3_int8.launches - before == 2 * spec.depth + 1
+    assert k2.conv3x3_int8.launches_by_variant == {
+        "fp32 -> int8": depth, "int8 -> fp32": depth, "fp32 -> fp32": 1}
+    f32, i8 = torch.float32, torch.int8
+    assert dtypes == [(f32, i8), (i8, f32)] * depth + [(f32, f32)]
     cpu = Int8DeployedFast(spec, quant.params, device="cpu")
     diff = (got.cpu().int() - cpu(x).int()).abs()
     assert got.shape == (2, 96, 80, 3)

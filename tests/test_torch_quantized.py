@@ -163,6 +163,46 @@ def test_int8_deployed_against_jax_and_bf16(name):
     assert diff.mean() < 1.0 and diff.max() <= 8
 
 
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_int8_handoff_equals_requantizing_at_each_site(name):
+    """int8_forward hands each conv0's output to its conv1 in int8,
+    requantized in conv0's epilogue with conv1's scale. That is the same
+    function as the route without the hand-off (every site fp32 out, conv1
+    requantizing at its load), bit for bit: nothing else reads conv0's
+    output. (The route with the hand-off is also the one held against the
+    JAX int8_forward in test_int8_deployed_against_jax_and_bf16.)"""
+    from image_super_resolution_tpu_torch.ops.kernels.matmul import conv3x3_int8_reference
+
+    deployed, _, spec = _case(name, seed=2)
+    x = _u8((2, 11, 9, 3), 3)
+    qp = q.quantize_deployed(deployed, [x]).params
+    xn = normalize(torch.from_numpy(x))
+    kw = dict(downshuffle=spec.downshuffle or 1, refine_blocks=spec.refine_blocks or 0)
+
+    def fp32_sites(site, h):
+        p = qp[site]
+        return conv3x3_int8_reference(h, p["w_q"], p["deq"], p["bias"],
+                                      site.endswith("conv0"), p["inv_x"])
+
+    got = q.int8_forward(qp, xn, DEPTH, spec.add_rate, spec.output_scale, **kw)
+    want = q.fast_forward(qp, xn, DEPTH, spec.add_rate, spec.output_scale,
+                          quant=fp32_sites, **kw)
+    assert torch.equal(got, want)
+    # the hand-off really is int8: conv1 sites see int8 inputs
+    seen, orig = [], q.quant_site
+
+    def spy(p, h, leaky, out_inv_x=None):
+        seen.append(h.dtype)
+        return orig(p, h, leaky, out_inv_x)
+
+    q.quant_site = spy
+    try:
+        q.int8_forward(qp, xn, DEPTH, spec.add_rate, spec.output_scale, **kw)
+    finally:
+        q.quant_site = orig
+    assert seen == [torch.float32, torch.int8] * DEPTH + [torch.float32]
+
+
 def test_int8_through_tiled_engine(fast_x4):
     """Int8DeployedFast has DeployedModel's call surface, so TiledUpscaler
     takes it; tiled int8 tracks tiled bf16 within the JAX package's bound
