@@ -43,10 +43,26 @@ Phases, each of which raises on failure:
 8. the ``rs`` CLI on a folder of two PNGs (512x384 and odd-sized), with the
    ``sr`` artifact and then ``--int8`` with the ``fast`` artifact, each
    timed as one run: artifact load, calibration, both images and the host
-   PNG codec.
+   PNG codec;
+9. training at full width through ``cli.train.main`` on 64 smooth 192x192
+   PNGs at the CLI defaults (batch 16, patch 96), one epoch each: (a)
+   ``--resnet`` sr x2 d16 w64 with BN -- stopped at its first checkpoint,
+   then resumed with ``--resume --epochs 2``, which must continue at epoch
+   1 with the optimizer restored -- (b) ``--resnet --family fast --scale
+   4``, (c) ``--train_denoise``; every loss finite, no substituted patch.
+   Each run's step is then timed outside the CLI (CUDA events), broken down
+   into its parts, profiled for the idle share and measured for peak
+   memory. Three pixel steps at depth 2 in fp32 are held against the CPU's,
+   the optimizer and EMA on the same gradients.
+   Then each checkpoint is exported through ``build_deployed`` and served
+   on the card: sr x2 through K1 (48 launches per forward counted), fast
+   int8 through K2 (29 per forward, counted by variant), denoise in bf16;
+   two tiles of each are held against the port's CPU path.
 
-It prints one JSON line of per-kernel numbers, the ``nvidia-smi`` line,
-and last ``{"ok": true, "device": {...}}``. Without CUDA, or outside a
+It prints one JSON line of per-kernel numbers (each kernel's launches
+summed over the counted runs of phases 5/6 and 9, and given by path) and
+the training timings, the ``nvidia-smi`` line, and last ``{"ok": true,
+"device": {...}}``. Without CUDA, or outside a
 checkout, it exits non-zero and prints no result.
 """
 
@@ -634,8 +650,8 @@ def _breakdown(title: str, run, iters: int, install):
     around the stages that ``install`` marks (the rest of the request --
     input copy, normalize, residual adds, shuffles, uint8 -- is the request
     less their sum), then device time by kernel name under
-    ``torch.profiler`` and the device's idle share over that window
-    (1 - kernel time / wall)."""
+    ``torch.profiler`` and the device's idle share (1 - kernel time / the
+    unprofiled request time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -672,9 +688,11 @@ def _breakdown(title: str, run, iters: int, install):
         if dev_us and str(getattr(evt, "device_type", "")).endswith("CUDA"):
             kernels[evt.key] = kernels.get(evt.key, 0.0) + dev_us / 1e3 / iters
     busy = sum(kernels.values())
-    idle = f"{1 - busy / wall:.1%}" if busy else "not measured (no device events)"
-    _log(f"[breakdown] {title}: profiler: device kernel time {busy:.4f} ms of "
-         f"{wall:.4f} ms wall per request; idle share {idle}")
+    idle = (f"{1 - busy / request_ms:.1%} of the {request_ms:.4f} ms request (CUDA events, "
+            f"unprofiled; {1 - busy / wall:.1%} of the {wall:.4f} ms host wall under the "
+            f"profiler)" if busy else "not measured (no device events)")
+    _log(f"[breakdown] {title}: profiler: device kernel time {busy:.4f} ms per request; "
+         f"idle share {idle}")
     for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]:
         _log(f"[breakdown] {title}: kernel {ms:9.4f} ms  {ms / max(busy, 1e-9):6.1%}  "
              f"{name[:100]}")
@@ -879,6 +897,418 @@ def phase_cli(work: Path, sr_isr: Path, fast_isr: Path, card: str):
              f"{kernel.launches}, {secs:.2f} s wall")
 
 
+# ------------------------------------------------------------------ phase 9 --
+
+# The training runs of the main path, each through cli.train.main at the
+# CLI defaults (batch 16, patch 96) for one epoch: (key, title, flags).
+TRAIN_RUNS = (
+    ("a", "sr x2 d16 w64 BN (--resnet)", ["--resnet", "--family", "sr", "--scale", "2"]),
+    ("b", "fast x4 d14 w128 (--resnet)", ["--resnet", "--family", "fast", "--scale", "4"]),
+    ("c", "Denoiser d16 w64 BN (--train_denoise)", ["--train_denoise"]),
+)
+TRAIN_IMAGES, TRAIN_SIZE = 64, 192
+# Three pixel steps at depth 2 in fp32 (TF32 off), card against CPU: each
+# loss within 1e-5 relative; every gradient element within 1e-3 of the
+# model's largest gradient (cuDNN and the CPU sum in other orders, and a
+# weight gradient sums thousands of terms that cancel: measured 2.1e-4 on an
+# H100; a tensor's own largest is no scale, since BN makes some gradients,
+# such as a BN bias whose shift the next BN removes, nearly zero but for
+# border terms); BN running statistics and their EMA within 1e-5. The
+# optimizers then take the same gradients (the CPU's), so the params and
+# their EMA agree to fp32 rounding: within 1e-6 of max(1, |param|), where a
+# no-op or a wrong Adam is off by about lr = 1e-3.
+STEP_LOSS_RTOL, STEP_GRAD_RTOL, STEP_STATS_ATOL = 1e-5, 1e-3, 1e-5
+STEP_PARAM_RTOL = 1e-6
+
+
+class _Preempted(Exception):
+    """Raised after the first checkpoint of run (a): the run stops there, as
+    a preempted job would, leaving a mid-run checkpoint with its optimizer."""
+
+
+def _train_images(folder: Path, seed: int) -> Path:
+    """TRAIN_IMAGES smooth RGB PNGs (sums of random low-frequency waves)
+    and their manifest."""
+    import numpy as np
+
+    from image_super_resolution_tpu_torch.utils.png import write_png
+
+    rng = np.random.default_rng(seed)
+    folder.mkdir(parents=True)
+    yy, xx = np.mgrid[0:TRAIN_SIZE, 0:TRAIN_SIZE] / TRAIN_SIZE
+    paths = []
+    for i in range(TRAIN_IMAGES):
+        img = np.zeros((TRAIN_SIZE, TRAIN_SIZE, 3))
+        for _ in range(4):
+            fy, fx, phase = rng.uniform(1, 12), rng.uniform(1, 12), rng.uniform(0, 6.3, 3)
+            img += np.sin(2 * np.pi * (fy * yy + fx * xx)[..., None] + phase) * rng.uniform(10, 40)
+        path = folder / f"{i:03d}.png"
+        write_png(path, np.clip(img + 128, 0, 255).astype(np.uint8))
+        paths.append(str(path))
+    manifest = folder / "train.json"
+    manifest.write_text(json.dumps(paths))
+    return manifest
+
+
+def _train_argv(flags, manifest: Path, work: Path, device: str, *more):
+    return [*flags, "--train_json", str(manifest), "--work_dir", str(work),
+            "--no_tensorboard", "--device", device, *more]
+
+
+def _check_history(title: str, history, card: str) -> None:
+    """Every epoch: finite losses and no substituted patch."""
+    import math
+
+    for h in history:
+        _log(f"[train] {title} on {card}: epoch {h['epoch']} mean loss {h['mean_loss']:.5f}, "
+             f"{h['patches_per_sec']:.1f} patches/s (CLI, host clock), "
+             f"{h['substituted']} substituted patches")
+        if not all(math.isfinite(v) for v in h["losses"]):
+            raise AssertionError(f"{title}: non-finite loss {h['losses']}")
+        if h["substituted"]:
+            raise AssertionError(f"{title}: {h['substituted']} patches were substituted")
+
+
+def _forward_flop(model, x) -> int:
+    """Conv FLOP of one forward: 2 * output elements * (Cin/groups) * k * k
+    of every ConvBlock, read from hooks during one no-grad forward."""
+    import torch
+
+    from image_super_resolution_tpu_torch.ops.conv import ConvBlock
+
+    total = [0]
+
+    def hook(mod, _inp, out):
+        w = mod.conv.weight
+        total[0] += 2 * out.numel() * w.shape[1] * w.shape[2] * w.shape[3]
+
+    handles = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, ConvBlock)]
+    try:
+        with torch.no_grad():
+            model.eval()
+            model(x)
+    finally:
+        model.train()
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def _time_training(key: str, title: str, argv, kind: str, card: str) -> dict:
+    """The run's step outside the counted CLI run, on one device batch from
+    its loader: ms per step by CUDA events after warm-up, patches/s, peak
+    memory, the step's parts by CUDA events (batch prep, forward + loss,
+    backward, clip + Adam, BN commit + EMA), the device's idle share and
+    top kernels by torch.profiler, and the bound (3x the forward's conv
+    FLOP at the bf16 peak). The idle share is 1 - the profiler's kernel
+    time / the unprofiled step time."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from image_super_resolution_tpu_torch.cli import train as cli_train
+
+    run = cli_train.Run(cli_train.build_parser().parse_args(argv))
+    u8 = torch.from_numpy(np.ascontiguousarray(next(iter(run.loader)))).to(run.device)
+    fn, st = run.step_fn, run.state
+    prep = (lambda: fn.batch_fn(u8, run.gen)) if run.gen is not None else (lambda: fn.batch_fn(u8))
+    for _ in range(3):
+        run.step(u8)
+    run.sync()
+    torch.cuda.reset_peak_memory_stats()
+    n = 10
+    step_ms = _cuda_ms(lambda: run.step(u8), warmup=0, iters=n)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    bs = u8.shape[0]
+
+    parts = {k: 0.0 for k in ("batch prep", "forward + loss", "backward", "clip + Adam",
+                              "BN commit + EMA")}
+    for _ in range(5):
+        ev = [_event()]
+        hr, lr = prep()
+        ev.append(_event())
+        loss = fn.loss_fn(st.model(lr), hr)
+        ev.append(_event())
+        loss.backward()
+        ev.append(_event())
+        st.clip_and_adam()
+        ev.append(_event())
+        st.commit_and_ema()
+        ev.append(_event())
+        run.sync()
+        for name, a, b in zip(parts, ev, ev[1:]):
+            parts[name] += a.elapsed_time(b) / 5
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            run.step(u8)
+        run.sync()
+        wall = (time.perf_counter() - t0) * 1e3 / 5
+    kernels = {}
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "self_cuda_time_total", 0)
+        if dev_us and str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            kernels[evt.key] = kernels.get(evt.key, 0.0) + dev_us / 1e3 / 5
+    busy = sum(kernels.values())
+    idle = 1 - busy / step_ms if busy else None
+
+    flop = 3 * _forward_flop(st.model, prep()[1])
+    peak_name, peak_bf16, _, _ = _peaks(kind)
+    bound_ms = flop / peak_bf16 * 1e3
+    _log(f"[train] {title} b{bs} patch {u8.shape[1]} on {card}: step {step_ms:.4f} ms (CUDA "
+         f"events, mean of {n} after 3 warm-up), {bs / step_ms * 1e3:.1f} patches/s; peak "
+         f"memory {peak_gib:.3f} GiB; bound {bound_ms:.4f} ms ({flop:.4g} FLOP = 3x the "
+         f"forward's convs at {peak_bf16:.4g} FLOP/s, {peak_name}), {bound_ms / step_ms:.1%} "
+         f"of bound; {sum(p.numel() for p in st.params):,} params")
+    for name, ms in parts.items():
+        _log(f"[breakdown] train {key} on {card}: part {name:18s} {ms:9.4f} ms  "
+             f"{ms / step_ms:6.1%}")
+    _log(f"[breakdown] train {key} on {card}: profiler: device kernel time {busy:.4f} ms per "
+         f"step; idle share " + (f"{idle:.1%} of the {step_ms:.4f} ms step (CUDA events, "
+         f"unprofiled; {1 - busy / wall:.1%} of the {wall:.4f} ms host wall under the "
+         f"profiler, which adds its own time)" if busy else "not measured (no device events)"))
+    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
+        _log(f"[breakdown] train {key}: kernel {ms:9.4f} ms  {ms / max(busy, 1e-9):6.1%}  "
+             f"{name[:90]}")
+    return {"step_ms": step_ms, "patches_per_sec": bs / step_ms * 1e3, "idle": idle,
+            "peak_gib": peak_gib, "bound_ms": bound_ms, "parts": parts, "wall_ms": wall}
+
+
+def _serve_trained(work: Path, card: str, device: str) -> dict:
+    """Each run's final checkpoint through build_deployed on the card (bf16,
+    EMA weights, BN folded; depth and width read from the checkpoint), K1
+    and K2 counted per forward, two tiles held against the port's CPU path
+    on the same checkpoint."""
+    import numpy as np
+    import torch
+
+    from image_super_resolution_tpu_torch.models.deploy import (
+        BF16_MAX_LSB, BF16_X2_MAX_LSB, DENOISE_BF16_MAX_LSB, FAST_BF16_MAX_LSB, DeploySpec,
+        build_deployed, infer_family_dims)
+    from image_super_resolution_tpu_torch.models.quantized import (
+        INT8_CARD_MAX_LSB, Int8DeployedFast, quantize_deployed)
+    from image_super_resolution_tpu_torch.ops.kernels.fused_rdb import scatter_rdb
+    from image_super_resolution_tpu_torch.ops.kernels.matmul import conv3x3_int8
+    from image_super_resolution_tpu_torch.train.checkpoint import load_checkpoint
+    from image_super_resolution_tpu_torch.utils.image_io import read_image_rgb
+
+    paths = json.loads((work / "data" / "train.json").read_text())
+    x = np.stack([read_image_rgb(p)[8:56, 16:64] for p in paths[:16]])  # b16 48x48
+    ckpts = {key: load_checkpoint(next((work / key).glob("*.ckpt"))) for key, _, _ in TRAIN_RUNS}
+    n, counts = 3, {}
+
+    def spec_of(key, family, **kw):
+        depth, width = infer_family_dims(ckpts[key]["params"], family)
+        return DeploySpec(family=family, depth=depth, width=width, **kw)
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    spec = spec_of("a", "sr", scale=2)
+    sr, _ = build_deployed(ckpts["a"], spec, dtype=torch.bfloat16, device=device)
+    scatter_rdb.launches = 0
+    for _ in range(n):
+        out = sr(x)
+    sync()
+    counts["fused_rdb"] = scatter_rdb.launches
+    if counts["fused_rdb"] != 3 * spec.depth * n:
+        raise AssertionError(f"trained sr launched fused_rdb {scatter_rdb.launches} times in "
+                             f"{n} forwards, want {3 * spec.depth} per forward")
+    if out.dtype != torch.uint8 or tuple(out.shape) != (len(x), 96, 96, 3):
+        raise AssertionError(f"trained sr wrote {out.dtype} {tuple(out.shape)}")
+    cpu16 = build_deployed(ckpts["a"], spec, dtype=torch.bfloat16, device="cpu")[0](x[:2])
+    cpu32 = build_deployed(ckpts["a"], spec, dtype=torch.float32, device="cpu")[0](x[:2])
+    w16, s16 = _lsb(out[:2].cpu(), cpu16)
+    w32, s32 = _lsb(out[:2].cpu(), cpu32)
+    _log(f"[serve] trained sr x2 d{spec.depth} (checkpoint of run a, EMA, BN folded) bf16 b{len(x)} t48 on "
+         f"{card}: fused_rdb launches {counts['fused_rdb']} ({3 * spec.depth} per forward, "
+         f"{n} forwards); 2 tiles: card vs CPU bf16 max {w16} LSB (bound {BF16_MAX_LSB}), "
+         f"{s16:.4f} differ; card vs CPU fp32 max {w32} LSB (bound {BF16_X2_MAX_LSB}), "
+         f"{s32:.4f} differ")
+    if w16 > BF16_MAX_LSB or w32 > BF16_X2_MAX_LSB:
+        raise AssertionError("trained sr card output is outside its bound")
+
+    spec = spec_of("b", "fast", scale=4)
+    fast, _ = build_deployed(ckpts["b"], spec, dtype=torch.bfloat16, device=device)
+    x24 = np.ascontiguousarray(x[:, :24, :24])
+    out16 = fast(x24)
+    quant = quantize_deployed(fast, [x24])
+    conv3x3_int8.launches = 0
+    conv3x3_int8.launches_by_variant.clear()
+    for _ in range(n):
+        out8 = quant(x24)
+    sync()
+    counts["conv3x3_int8"] = conv3x3_int8.launches
+    by_variant = dict(conv3x3_int8.launches_by_variant)
+    want = {"fp32 -> int8": spec.depth * n, "int8 -> fp32": spec.depth * n, "fp32 -> fp32": n}
+    if by_variant != want:
+        raise AssertionError(f"trained fast int8 launched conv3x3_int8 {by_variant} in {n} "
+                             f"forwards, want {want}")
+    w16, s16 = _lsb(out16[:2].cpu(), build_deployed(ckpts["b"], spec, dtype=torch.float32,
+                                                    device="cpu")[0](x24[:2]))
+    w8, s8 = _lsb(out8[:2].cpu(), Int8DeployedFast(spec, quant.params, device="cpu")(x24[:2]))
+    _log(f"[serve] trained fast x4 d{spec.depth} (checkpoint of run b) b{len(x)} t24 on {card}: int8 "
+         f"conv3x3_int8 launches {counts['conv3x3_int8']} by variant {by_variant} ({n} "
+         f"forwards, {2 * spec.depth + 1} per forward); 2 tiles: card int8 vs CPU int8 max {w8} LSB (bound "
+         f"{INT8_CARD_MAX_LSB}), {s8:.4f} differ; card bf16 vs CPU fp32 max {w16} LSB (bound "
+         f"{FAST_BF16_MAX_LSB}), {s16:.4f} differ")
+    if w8 > INT8_CARD_MAX_LSB or w16 > FAST_BF16_MAX_LSB:
+        raise AssertionError("trained fast card output is outside its bound")
+
+    spec = spec_of("c", "denoise")
+    den, _ = build_deployed(ckpts["c"], spec, dtype=torch.bfloat16, device=device)
+    outd = den(x)
+    if outd.dtype != torch.uint8 or tuple(outd.shape) != x.shape:
+        raise AssertionError(f"trained denoise wrote {outd.dtype} {tuple(outd.shape)}")
+    wd, sd = _lsb(outd[:2].cpu(), build_deployed(ckpts["c"], spec, dtype=torch.float32,
+                                                 device="cpu")[0](x[:2]))
+    _log(f"[serve] trained denoise d{spec.depth} w{spec.width} (checkpoint of run c) bf16 b{len(x)} t48 on {card}: "
+         f"2 tiles card vs CPU fp32 max {wd} LSB (bound {DENOISE_BF16_MAX_LSB}), {sd:.4f} "
+         f"differ; no hand-written kernel on this path (cuDNN)")
+    if wd > DENOISE_BF16_MAX_LSB:
+        raise AssertionError("trained denoise card output is outside its bound")
+    counts["conv3x3_int8 by variant"] = {k: {"launches": v, "launches_per_forward": v // n}
+                                         for k, v in by_variant.items()}
+    return counts
+
+
+def _step_card_vs_cpu(card: str, device: str) -> None:
+    """Three pixel steps of the BN generator at depth 2, width 64, x2, in
+    fp32 with TF32 off, on the card and on the CPU from the same seed. Each
+    step's loss and gradients are held against the CPU's; then the card's
+    gradients are replaced by the CPU's, so that its optimizer (clip, the
+    fused Adam, BN commit, EMA) works on what the CPU's does, which the CPU
+    tests hold against optax, and the params and EMA are held tightly."""
+    import numpy as np
+    import torch
+
+    from image_super_resolution_tpu_torch.models.generator import SRGenerator
+    from image_super_resolution_tpu_torch.ops.initializers import init_weights
+    from image_super_resolution_tpu_torch.train.state import TrainState
+    from image_super_resolution_tpu_torch.train.steps import make_pixel_train_step
+
+    lr, n_steps = 1e-3, 3
+    rng = np.random.default_rng(SEED + 7)
+    step = make_pixel_train_step(2)
+    states = [TrainState(init_weights(SRGenerator(depth=2, width=64, scale=2, fused=False,
+                                                  param_dtype=torch.float32, device=dev), SEED),
+                         lr=lr, total_steps=10, ema_tau=10) for dev in (device, "cpu")]
+    card_st, cpu_st = states
+    init = {k: t.detach().clone() for k, t in cpu_st.model.named_parameters()}
+    loss_rel, grad_worst, grad_name = 0.0, 0.0, ""
+    for _ in range(n_steps):
+        u8 = torch.from_numpy(rng.integers(0, 256, (4, 48, 48, 3), dtype=np.uint8))
+        losses = []
+        for st in states:
+            hr, x = step.batch_fn(u8.to(st.params[0].device))
+            loss = step.loss_fn(st.model(x), hr)
+            loss.backward()
+            losses.append(float(loss.detach()))
+        loss_rel = max(loss_rel, abs(losses[0] - losses[1]) / abs(losses[1]))
+        scale = max(float(p.grad.abs().max()) for p in cpu_st.params)
+        for (name, p_card), p_cpu in zip(card_st.model.named_parameters(), cpu_st.params):
+            d = float((p_card.grad.cpu() - p_cpu.grad).abs().max()) / scale
+            if d > grad_worst:
+                grad_worst, grad_name = d, name
+            p_card.grad.copy_(p_cpu.grad)  # the optimizers take the same gradients
+        for st in states:
+            st.clip_and_adam()
+            st.commit_and_ema()
+
+    def worst(card_sd, cpu_sd, stats: bool):
+        """Max abs diff (BN statistics) or max diff / max(1, |want|)."""
+        return max(float(((card_sd[k].cpu() - want).abs()
+                          / (1.0 if stats else want.abs().clamp_min(1.0))).max())
+                   for k, want in cpu_sd.items() if ("running" in k) == stats)
+
+    sd_card, sd_cpu = card_st.model.state_dict(), cpu_st.model.state_dict()
+    ema_card, ema_cpu = card_st.ema.state_dict(), cpu_st.ema.state_dict()
+    params, stats = worst(sd_card, sd_cpu, False), worst(sd_card, sd_cpu, True)
+    ema_params, ema_stats = worst(ema_card, ema_cpu, False), worst(ema_card, ema_cpu, True)
+    moved = max(float((sd_cpu[k] - t).abs().max()) for k, t in init.items())
+    _log(f"[train] {n_steps} pixel steps, BN generator x2 d2 w64 fp32 (TF32 off) on {card} vs "
+         f"CPU: loss max {loss_rel:.2e} relative (bound {STEP_LOSS_RTOL}); gradients max diff "
+         f"{grad_worst:.2e} of the largest gradient ({grad_name}; bound {STEP_GRAD_RTOL}); on "
+         f"the same gradients: params max diff {params:.3g} and EMA params {ema_params:.3g} of "
+         f"max(1, |param|) (bound {STEP_PARAM_RTOL}; Adam moved a param by up to {moved:.3g}); "
+         f"BN running stats max diff {stats:.3g}, their EMA {ema_stats:.3g} (bound "
+         f"{STEP_STATS_ATOL})")
+    if not (loss_rel <= STEP_LOSS_RTOL and grad_worst <= STEP_GRAD_RTOL
+            and max(params, ema_params) <= STEP_PARAM_RTOL
+            and max(stats, ema_stats) <= STEP_STATS_ATOL):
+        raise AssertionError("the pixel steps on the card disagree with the CPU steps")
+
+
+def phase_train(work: Path, kind: str, card: str, device: str = "cuda") -> dict:
+    """Train (a), (b), (c) through cli.train.main on the card, run (a) once
+    more with --resume --epochs 2 after stopping it at its first checkpoint,
+    time each run's step, then export and serve each checkpoint through
+    build_deployed with the kernels counted. Returns the kernels' launch
+    counts on the serve leg. (``device`` is "cuda"; "cpu" only rehearses
+    the phase's control flow at a reduced size.)"""
+    import torch
+
+    from image_super_resolution_tpu_torch.cli import train as cli_train
+
+    t0 = time.perf_counter()
+    manifest = _train_images(work / "data", SEED + 8)
+    _log(f"[train] {TRAIN_IMAGES} smooth PNGs {TRAIN_SIZE}x{TRAIN_SIZE} written in "
+         f"{time.perf_counter() - t0:.2f} s")
+    timings = {}
+    for key, title, flags in TRAIN_RUNS:
+        argv = _train_argv(flags, manifest, work / key, device)
+        if key == "a":
+            orig = cli_train.save_checkpoint
+
+            def save_then_stop(*args, **kw):
+                orig(*args, **kw)
+                raise _Preempted
+
+            cli_train.save_checkpoint = save_then_stop
+            try:
+                cli_train.main(argv + ["--epochs", "2"])
+            except _Preempted:
+                pass
+            finally:
+                cli_train.save_checkpoint = orig
+            ckpt = next((work / key).glob("*.ckpt"))
+            from image_super_resolution_tpu_torch.train.checkpoint import load_checkpoint
+
+            first = load_checkpoint(ckpt)
+            if "opt_state" not in first or first["meta"]["epoch"] != 0:
+                raise AssertionError("run (a) left no mid-run checkpoint with its optimizer")
+            steps = first["meta"]["step"]
+            t1 = time.perf_counter()
+            history = cli_train.main(argv + ["--epochs", "2", "--resume"])
+            secs = time.perf_counter() - t1
+            final = load_checkpoint(ckpt)
+            if [h["epoch"] for h in history] != [1] or final["meta"]["step"] != 2 * steps:
+                raise AssertionError(f"--resume ran epochs {[h['epoch'] for h in history]} "
+                                     f"to step {final['meta']['step']}: want epoch 1 with "
+                                     f"the optimizer restored (step {steps} -> {2 * steps})")
+            _log(f"[train] {title}: stopped after epoch 0 (step {steps}, optimizer saved), "
+                 f"--resume --epochs 2 continued at epoch 1 with the optimizer restored to "
+                 f"step {final['meta']['step']} in {secs:.2f} s")
+        else:
+            t1 = time.perf_counter()
+            history = cli_train.main(argv + ["--epochs", "1"])
+            _log(f"[train] {title}: cli.train.main --epochs 1 in "
+                 f"{time.perf_counter() - t1:.2f} s")
+        _check_history(title, history, card)
+        timings[key] = _time_training(key, title, _train_argv(
+            flags, manifest, work / "time", device, "--epochs", "1"), kind, card)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    _step_card_vs_cpu(card, device)
+    counts = _serve_trained(work, card, device)
+    counts["timings"] = timings
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -901,13 +1331,24 @@ def main() -> int:
     k1 = phase_k1(kind, card, logs["fused_rdb"])
     k2 = phase_k2(kind, card, logs["matmul"])
     with tempfile.TemporaryDirectory() as tmp:
-        sr_isr, k1["launches"] = phase_sr(Path(tmp), card)
-        fast_isr, k2["launches"], by_variant = phase_fast(Path(tmp), card)
+        sr_isr, k1_serve = phase_sr(Path(tmp), card)
+        fast_isr, k2_serve, by_variant = phase_fast(Path(tmp), card)
         for name, counts in by_variant.items():
             k2["variants"][name].update(counts)
         phase_denoise(card)
         phase_cli(Path(tmp), sr_isr, fast_isr, card)
-    print(json.dumps({"kernels": [k1, k2]}))
+        trained = phase_train(Path(tmp) / "train", kind, card)
+    # launches: every counted main-path run, by path
+    k1["launches_by_path"] = {"serve sr x4 (phase 5)": k1_serve,
+                              "train -> checkpoint -> serve sr x2 (phase 9)":
+                              trained["fused_rdb"]}
+    k2["launches_by_path"] = {"serve fast x4 int8 (phase 6)": k2_serve,
+                              "train -> checkpoint -> serve fast x4 int8 (phase 9)":
+                              trained["conv3x3_int8"]}
+    k2["variants_train_serve"] = trained["conv3x3_int8 by variant"]
+    for k in (k1, k2):
+        k["launches"] = sum(k["launches_by_path"].values())
+    print(json.dumps({"kernels": [k1, k2], "training": trained["timings"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

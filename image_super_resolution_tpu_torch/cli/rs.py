@@ -21,6 +21,7 @@ from pathlib import Path
 import numpy as np
 
 from ..utils.general import IMG_FORMATS, VID_FORMATS
+from ..utils.image_io import read_image_rgb as _read_image_rgb
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -121,10 +122,7 @@ def run(
     out_path = Path(save_dir)
     _refuse_unported(src_path, spatial_devices, data_devices, spatial_grid,
                      tp_devices, int8, int8_percentile, profile_dir)
-    try:
-        deployed = load_artifact(model, device=device)
-    except NotImplementedError as e:
-        raise SystemExit(str(e)) from None
+    deployed = load_artifact(model, device=device)
     if int8:
         from ..models.quantized import quantize_deployed
 
@@ -254,26 +252,6 @@ def _int8_calib_batches(src_path: Path, window: int) -> list:
         c = max(1, min(c, *img.shape[:2]))
         crops = _grid_crops(img, c, 2, 4)
     return [np.stack(crops)]
-
-
-def _read_image_rgb(path: Path) -> np.ndarray:
-    """OpenCV, else Pillow, else the package's own PNG reader
-    (``utils/png.py``), which exists only for hosts that have neither
-    library and reads PNG alone."""
-    try:
-        import cv2
-    except ImportError:
-        cv2 = None
-    img = None if cv2 is None else cv2.imread(str(path), cv2.IMREAD_COLOR)
-    if img is not None:
-        return img[..., ::-1].copy()
-    try:
-        from PIL import Image
-    except ImportError:
-        from ..utils.png import read_png
-
-        return read_png(path)
-    return np.asarray(Image.open(path).convert("RGB"))
 
 
 def _write_png(out: Path, result_rgb: np.ndarray) -> Path:

@@ -7,7 +7,13 @@ of the JAX package's ``models/deploy.py``).
   transforms run once, at construction. The fast families (``fast``,
   ``denoise_fast``) serve their own graph (``models/fast.py``), whose
   training graph is already the serving graph; their int8 form is
-  ``models/quantized.py``.
+  ``models/quantized.py``. The x1 denoisers (``denoise``,
+  ``denoise_legacy``, ``models/denoiser.py``) serve their BN-folded graph.
+  Every family but the optimized ``sr`` commits its params in the compute
+  dtype.
+- ``build_deployed`` turns a training checkpoint into a ``DeployedModel``:
+  EMA weights preferred, BN folded (``ops/fuse.py``), mean/std from the
+  checkpoint's meta.
 - ``save_artifact``/``load_artifact`` read and write the ``.isr`` file that
   the JAX package writes, with ``msgpack`` alone: ``{"spec": json,
   "params": fp16 tree, "format_version": 1}``, each array a msgpack ext
@@ -22,22 +28,21 @@ from dataclasses import asdict, dataclass
 from pathlib import Path
 from typing import Any, Dict, Mapping, Tuple
 
-import msgpack
 import numpy as np
 import torch
 
 from ..core.device import resolve_device
 from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD, normalize, tanh_to_uint8
 from ..interop.from_jax import params_from_jax, params_to_jax
+from ..ops.fuse import fuse_conv_bn
+from ..utils.serialization import (map_tree, msgpack_restore, msgpack_serialize,
+                                   to_fp16, to_fp32)
+from .denoiser import Denoiser, LegacyDenoiser
 from .fast import FastSRGenerator
 from .generator import SRGenerator
 from .optimized import OptimizedSRGenerator, optimize_generator_params
 
-_PORTED = ("sr", "fast", "denoise_fast")
-_LATER_SLICE = {
-    "denoise": "slice 3 (the remaining serving families)",
-    "denoise_legacy": "slice 3 (the remaining serving families)",
-}
+FAMILIES = ("sr", "fast", "denoise", "denoise_fast", "denoise_legacy")
 
 # Largest uint8 difference allowed between a bf16 and an fp32 run of one
 # sr x4 artifact at full depth 16. Measured on the CPU: 3
@@ -46,9 +51,18 @@ _LATER_SLICE = {
 # output to bf16, where the port follows the Pallas kernel's fp32 sums
 # inside each RDB) the measured difference at depth 1 is 1.
 BF16_MAX_LSB = 4
+# The same for sr at x2, depth 16: measured on the CPU at most 7 with random
+# weights and inputs, where the JAX package's bf16 graph drifts from its
+# fp32 one by the same 7 (tests/test_torch_deploy.py); one more for the
+# card.
+BF16_X2_MAX_LSB = 8
 # The same for a fast x4 artifact at full depth 14, width 128: measured on
 # the CPU at most 2 (tests/test_torch_fast.py), one more for the card.
 FAST_BF16_MAX_LSB = 3
+# The same for a denoise artifact at full depth 16, width 64: measured on
+# the CPU at most 1 over four weight seeds (tests/test_torch_denoiser.py),
+# one more for the card.
+DENOISE_BF16_MAX_LSB = 2
 
 
 def family_defaults(family: str, rs_deep=None, width=None) -> Tuple[int, int]:
@@ -103,14 +117,9 @@ def infer_refine(params) -> Tuple[int, int]:
     return blocks, width
 
 
-def _require_ported(family: str) -> None:
-    if family in _LATER_SLICE:
-        raise NotImplementedError(
-            f"family {family!r} is not ported yet: it comes with "
-            f"{_LATER_SLICE[family]}"
-        )
-    if family not in _PORTED:
-        raise ValueError(f"unknown model family {family!r}")
+def _check_family(family: str) -> None:
+    if family not in FAMILIES:
+        raise ValueError(f"unknown model family {family!r}; one of {FAMILIES}")
 
 
 @dataclass(frozen=True)
@@ -131,7 +140,15 @@ class DeploySpec:
     refine_width: int = 32
 
     def build_model(self, dtype=torch.float32, device="cuda"):
-        _require_ported(self.family)
+        """The fused (BN-folded) serving graph of this family."""
+        _check_family(self.family)
+        if self.family == "denoise":
+            return Denoiser(depth=self.depth, width=self.width, fused=True,
+                            dtype=dtype, device=device)
+        if self.family == "denoise_legacy":
+            return LegacyDenoiser(depth=self.depth, width=self.width,
+                                  hidden=self.hidden or 32, fused=True, dtype=dtype,
+                                  device=device)
         if self.family in ("fast", "denoise_fast"):
             return FastSRGenerator(
                 depth=self.depth, add_rate=self.add_rate, scale=self.output_scale,
@@ -154,14 +171,14 @@ class DeployedModel:
     ``optimize=True`` (the default) builds the optimized graph for ``sr``
     at x2/x4 (``tail_fold`` 0 = auto: 2 for x4, 1 for x2). Artifacts store
     the standard fused layout; the transform happens here, once. On the card
-    the scatter-form RDBs need ``dtype=torch.bfloat16``. The fast families
+    the scatter-form RDBs need ``dtype=torch.bfloat16``. The other families
     have no rewrite; their params are committed in ``dtype`` once, here.
     """
 
     def __init__(self, spec: DeploySpec, fused_params: Mapping[str, Any],
                  dtype=torch.bfloat16, device="cuda", optimize: bool = True,
                  tail_fold: int = 0):
-        _require_ported(spec.family)
+        _check_family(spec.family)
         self.spec = spec
         self.dtype = dtype
         self.device = resolve_device(device)
@@ -191,55 +208,22 @@ class DeployedModel:
 
 # ------------------------------------------------------------ persistence --
 
-def _pack(obj):
-    if isinstance(obj, np.ndarray):
-        return msgpack.ExtType(1, msgpack.packb(
-            (obj.shape, obj.dtype.name, obj.tobytes("C")), use_bin_type=True))
-    raise TypeError(f"cannot serialize {type(obj).__name__}")
-
-
-def _unpack(code: int, data: bytes):
-    if code in (1, 3):  # ndarray, numpy scalar (stored as a 0-d array)
-        shape, dtype_name, buf = msgpack.unpackb(data, raw=True)
-        arr = np.frombuffer(buf, dtype=np.dtype(dtype_name.decode())).reshape(shape)
-        return arr[()] if code == 3 else arr
-    raise ValueError(f"unsupported msgpack ext type {code} in artifact")
-
-
-def _map_tree(fn, tree):
-    """Apply ``fn`` to every leaf; dict keys come out sorted, as a JAX
-    tree_map orders them."""
-    if isinstance(tree, Mapping):
-        return {k: _map_tree(fn, tree[k]) for k in sorted(tree)}
-    return fn(tree)
-
-
-def _to_fp16(x):
-    x = np.asarray(x)
-    return x.astype(np.float16) if np.issubdtype(x.dtype, np.floating) else x
-
-
-def _to_fp32(x):
-    x = np.asarray(x)
-    return x.astype(np.float32) if x.dtype == np.float16 else x
-
-
 def save_artifact(path: str | Path, spec: DeploySpec,
                   fused_params: Mapping[str, Any]) -> None:
     """Write ``fused_params`` (flax tree of numpy arrays) as an ``.isr``."""
     payload = {  # keys in sorted order, as flax writes them
         "format_version": 1,
-        "params": _map_tree(_to_fp16, fused_params),
+        "params": map_tree(to_fp16, fused_params),
         "spec": json.dumps(asdict(spec)),
     }
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_bytes(msgpack.packb(payload, default=_pack, strict_types=True))
+    path.write_bytes(msgpack_serialize(payload))
 
 
 def read_artifact(path: str | Path) -> Tuple[DeploySpec, Dict[str, Any]]:
     """(spec, params tree as stored: fp16 numpy arrays)."""
-    payload = msgpack.unpackb(Path(path).read_bytes(), ext_hook=_unpack, raw=False)
+    payload = msgpack_restore(Path(path).read_bytes())
     spec_dict = json.loads(payload["spec"])
     spec_dict["mean"] = tuple(spec_dict["mean"])
     spec_dict["std"] = tuple(spec_dict["std"])
@@ -249,7 +233,7 @@ def read_artifact(path: str | Path) -> Tuple[DeploySpec, Dict[str, Any]]:
 def load_artifact(path: str | Path, dtype=torch.bfloat16,
                   device="cuda") -> DeployedModel:
     spec, params = read_artifact(path)
-    return DeployedModel(spec, _map_tree(_to_fp32, params), dtype, device)
+    return DeployedModel(spec, map_tree(to_fp32, params), dtype, device)
 
 
 def init_fused_params(spec: DeploySpec, seed: int = 0) -> Dict[str, Any]:
@@ -265,3 +249,21 @@ def init_fused_params(spec: DeploySpec, seed: int = 0) -> Dict[str, Any]:
         sd[key] = torch.from_numpy(
             rng.uniform(-bound, bound, tuple(t.shape)).astype(np.float32))
     return params_to_jax(sd)
+
+
+def build_deployed(ckpt: Mapping[str, Any], spec: DeploySpec, dtype=torch.bfloat16,
+                   device="cuda") -> Tuple[DeployedModel, Dict[str, Any]]:
+    """Training checkpoint (``train/checkpoint.load_checkpoint``) -> fused
+    ``DeployedModel`` and the fused params tree, as the reference export
+    does it: EMA weights preferred, the dataset mean/std of the checkpoint's
+    meta baked in, BN folded. A checkpoint without EMA falls back to its
+    raw params and raw batch_stats together."""
+    use = bool(ckpt.get("ema_params"))
+    params = ckpt["ema_params"] if use else ckpt["params"]
+    stats = (ckpt.get("ema_batch_stats") if use else ckpt.get("batch_stats")) or {}
+    fused = fuse_conv_bn(params, stats)
+    meta = ckpt.get("meta", {})
+    if meta.get("mean") and meta.get("std"):
+        spec = DeploySpec(**{**asdict(spec), "mean": tuple(meta["mean"]),
+                             "std": tuple(meta["std"])})
+    return DeployedModel(spec, fused, dtype, device), fused

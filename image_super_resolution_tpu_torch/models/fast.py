@@ -11,6 +11,11 @@ at output scale. The tail is either born-folded (3x3 conv to
 projection, one shuffle, narrow residual blocks at output resolution and a
 3-channel tanh conv.
 
+The graph is BN-free, so it trains as it serves: with ``param_dtype``
+fp32 master weights and, with ``remat``, each block's activations
+recomputed in backward (the trunk's and the refinement tail's), as the JAX
+package's ``nn.remat``.
+
 Module names follow the flax names (``head``, ``block{i}/conv{0,1}``,
 ``trunk_conv``, ``refine_proj``, ``refine{i}``, ``tail``), so an ``.isr``
 tree loads without renaming.
@@ -22,9 +27,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.activations import dtype_scalar
+from ..ops.blocks import scale_residual
 from ..ops.conv import ConvBlock
 from ..ops.pixel_shuffle import pixel_shuffle, pixel_unshuffle
+from .generator import run_block
 
 _LEAKY = ("leaky_relu", 0.01)
 
@@ -41,20 +47,14 @@ def downshuffle_front(x: torch.Tensor, f: int) -> torch.Tensor:
     return pixel_unshuffle(x, f)
 
 
-def scale_residual(h: torch.Tensor, add_rate: float) -> torch.Tensor:
-    """``h * jnp.asarray(add_rate, h.dtype)``: the rate rounded to h's
-    dtype first (bf16(0.2) in bf16), unlike ``h * 0.2``."""
-    return h * dtype_scalar(add_rate, h.dtype)
-
-
 class FastResBlock(nn.Module):
     """conv3x3 -> leaky -> conv3x3, residual-scaled: x + add_rate * h."""
 
     def __init__(self, features: int, add_rate: float = 0.2,
-                 dtype=torch.float32, device="cuda"):
+                 dtype=torch.float32, param_dtype=None, device="cuda"):
         super().__init__()
         self.add_rate = add_rate
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.conv0 = ConvBlock(features, features, 3, act=_LEAKY, **kw)
         self.conv1 = ConvBlock(features, features, 3, act=None, **kw)
 
@@ -65,7 +65,8 @@ class FastResBlock(nn.Module):
 class FastSRGenerator(nn.Module):
     def __init__(self, depth: int = 14, add_rate: float = 0.2, scale: int = 4,
                  width: int = 128, downshuffle: int = 1, refine_blocks: int = 0,
-                 refine_width: int = 32, dtype=torch.float32, device="cuda"):
+                 refine_width: int = 32, remat: bool = False, dtype=torch.float32,
+                 param_dtype=None, device="cuda"):
         super().__init__()
         if scale not in (1, 2, 4, 8):
             raise ValueError(f"scale must be in (1, 2, 4, 8), got {scale}")
@@ -79,8 +80,9 @@ class FastSRGenerator(nn.Module):
         self.scale = scale
         self.downshuffle = downshuffle
         self.refine_blocks = refine_blocks
+        self.remat = remat
         self.dtype = dtype
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         f, r = downshuffle, scale * downshuffle
         self.head = ConvBlock(3 * f * f, width, 3, act=_LEAKY, **kw)
         for i in range(depth):
@@ -102,14 +104,14 @@ class FastSRGenerator(nn.Module):
         x = self.head(downshuffle_front(x.to(self.dtype), self.downshuffle))
         h = x
         for i in range(self.depth):
-            h = getattr(self, f"block{i}")(h)
+            h = run_block(getattr(self, f"block{i}"), h, self.remat)
         x = x + self.trunk_conv(h)
         if self.refine_blocks:
             x = self.refine_proj(x)
             if r > 1:
                 x = pixel_shuffle(x, r)
             for i in range(self.refine_blocks):
-                x = getattr(self, f"refine{i}")(x)
+                x = run_block(getattr(self, f"refine{i}"), x, self.remat)
             x = self.tail(x)
         else:  # tanh before the one shuffle: elementwise ops commute with it
             x = self.tail(x)

@@ -1,7 +1,8 @@
 """Declarative activation specs: ``None``, a name, or ``(name, param)``.
 
 Counterpart of the JAX package's ``ops/activations.py``. The learnable
-``prelu`` arrives with the families that use it.
+``prelu`` is a module (``PReLU``), applied by ``ConvBlock`` when its spec
+names it.
 """
 
 from __future__ import annotations
@@ -11,6 +12,9 @@ from typing import Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch import nn
+
+from ..core.device import resolve_device
 
 ActSpec = Union[None, str, Tuple[str, float]]
 
@@ -50,10 +54,29 @@ def apply_act(x: torch.Tensor, act: ActSpec) -> torch.Tensor:
     if name == "leaky_relu":
         # jax.nn.leaky_relu: where(x >= 0, x, slope * x), slope in x's dtype
         return F.leaky_relu(x, dtype_scalar(0.01 if param is None else param, x.dtype))
-    if name == "prelu":
-        raise NotImplementedError(
-            "PReLU is ported with the denoise families (slice 3)"
-        )
     if name in _PLAIN:
         return _PLAIN[name](x)
+    # "prelu" is learnable: ConvBlock applies it as a PReLU module
     raise ValueError(f"unknown activation spec: {act!r}")
+
+
+def is_prelu(act: ActSpec) -> bool:
+    """True when the spec names the learnable PReLU (handled as a module)."""
+    return act == "prelu" or (isinstance(act, tuple) and act[0] == "prelu")
+
+
+class PReLU(nn.Module):
+    """Learnable leaky slope: where(x >= 0, x, alpha * x), torch
+    ``nn.PReLU``'s init 0.25 and an fp32 ``alpha`` (flax ``prelu/alpha``).
+    ``channels`` 1 is one shared slope; ``channels`` n one slope per output
+    channel (the last axis of the NHWC input)."""
+
+    def __init__(self, channels: int = 1, init_value: float = 0.25,
+                 device="cuda"):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.full(
+            (channels,), init_value, dtype=torch.float32,
+            device=resolve_device(device)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, self.alpha.to(x.dtype) * x)

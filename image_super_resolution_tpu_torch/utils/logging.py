@@ -1,0 +1,36 @@
+"""Metrics logging: JSONL always, TensorBoard when importable (counterpart of
+the JAX package's ``utils/logging.py``, same tags and file names)."""
+
+from __future__ import annotations
+
+import json
+import time
+from pathlib import Path
+
+
+class MetricsLogger:
+    def __init__(self, work_dir: str | Path, run_name: str = "run",
+                 use_tensorboard: bool = True):
+        self.work_dir = Path(work_dir)
+        self.work_dir.mkdir(parents=True, exist_ok=True)
+        self._jsonl = open(self.work_dir / f"{run_name}_metrics.jsonl", "a")
+        self._tb = None
+        if use_tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:  # tensorboard is not installed
+                pass
+            else:
+                self._tb = SummaryWriter(self.work_dir.as_posix(), comment=run_name,
+                                         flush_secs=30, max_queue=200)
+
+    def scalar(self, tag: str, value: float, step: int) -> None:
+        self._jsonl.write(json.dumps({"t": time.time(), "tag": tag, "value": float(value),
+                                      "step": int(step)}) + "\n")
+        if self._tb is not None:
+            self._tb.add_scalar(tag, float(value), step)
+
+    def close(self) -> None:
+        self._jsonl.close()
+        if self._tb is not None:
+            self._tb.close()

@@ -231,3 +231,121 @@ def test_int8_fast_on_card_launches_per_site(card, depth):
     diff = (got.cpu().int() - cpu(x).int()).abs()
     assert got.shape == (2, 96, 80, 3)
     assert diff.max().item() <= INT8_CARD_MAX_LSB
+
+
+# ----------------------------------------------------- training, slice 5 --
+
+def _pixel_state(device, seed=0):
+    from image_super_resolution_tpu_torch.models.generator import SRGenerator
+    from image_super_resolution_tpu_torch.ops.initializers import init_weights
+    from image_super_resolution_tpu_torch.train.state import TrainState
+
+    model = init_weights(SRGenerator(depth=2, width=64, scale=2, fused=False,
+                                     param_dtype=torch.float32, device=device), seed)
+    return TrainState(model, lr=1e-3, total_steps=10, ema_tau=10)
+
+
+def test_bn_pixel_step_on_card_matches_cpu(card):
+    """Three pixel steps of the BN generator (x2, depth 2, width 64) in fp32
+    with TF32 off, on the card and on the CPU from the same seed. Each loss
+    within 1e-5 relative, each gradient element within 1e-3 of the model's
+    largest gradient (cuDNN and the CPU sum in other orders, thousands of
+    cancelling terms per weight gradient: 2.1e-4 measured by chip_smoke.py
+    on another seed; BN makes some gradients nearly zero but for border
+    terms, so a tensor's own largest is no scale). Then the card's
+    gradients are replaced by the CPU's, so that the card's optimizer (clip,
+    the fused Adam, BN commit, EMA) works on what the CPU's does, which
+    test_torch_train.py holds against optax: params and EMA params within
+    1e-6 of max(1, |param|) (a no-op or wrong Adam is off by about lr),
+    BN running statistics and their EMA within 1e-5."""
+    from image_super_resolution_tpu_torch.train.steps import make_pixel_train_step
+
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    step = make_pixel_train_step(2)
+    rng = np.random.default_rng(0)
+    card_st, cpu_st = _pixel_state(card), _pixel_state("cpu")
+    try:
+        for _ in range(3):
+            u8 = torch.from_numpy(rng.integers(0, 256, (4, 48, 48, 3), dtype=np.uint8))
+            losses = []
+            for st, dev in ((card_st, card), (cpu_st, "cpu")):
+                hr, x = step.batch_fn(u8.to(dev))
+                loss = step.loss_fn(st.model(x), hr)
+                loss.backward()
+                losses.append(loss.item())
+            assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1])
+            scale = max(p.grad.abs().max().item() for p in cpu_st.params)
+            for (name, p_card), p_cpu in zip(card_st.model.named_parameters(), cpu_st.params):
+                assert (p_card.grad.cpu() - p_cpu.grad).abs().max().item() <= 1e-3 * scale, name
+                p_card.grad.copy_(p_cpu.grad)
+            for st in (card_st, cpu_st):
+                st.clip_and_adam()
+                st.commit_and_ema()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    for got, want in ((card_st.model.state_dict(), cpu_st.model.state_dict()),
+                      (card_st.ema.state_dict(), cpu_st.ema.state_dict())):
+        for name, w in want.items():
+            diff = (got[name].cpu() - w).abs()
+            if "running" in name:
+                assert diff.max().item() <= 1e-5, name
+            else:
+                assert (diff / w.abs().clamp_min(1.0)).max().item() <= 1e-6, name
+
+
+@pytest.mark.parametrize("family", ["denoise", "denoise_legacy"])
+def test_denoise_families_on_card_within_bound(card, family):
+    """The x1 denoisers in bf16 on the card against the port's fp32 CPU
+    path: within DENOISE_BF16_MAX_LSB (at full width, depth 16 / 8)."""
+    from image_super_resolution_tpu_torch.models.deploy import DENOISE_BF16_MAX_LSB
+
+    spec = DeploySpec(family=family, depth=16 if family == "denoise" else 8, width=64)
+    params = init_fused_params(spec, seed=5)
+    x = np.random.default_rng(5).integers(0, 256, (2, 48, 40, 3), dtype=np.uint8)
+    got = DeployedModel(spec, params, dtype=torch.bfloat16, device="cuda")(x)
+    want = DeployedModel(spec, params, dtype=torch.float32, device="cpu")(x)
+    assert got.shape == (2, 48, 40, 3)
+    assert (got.cpu().int() - want.int()).abs().max().item() <= DENOISE_BF16_MAX_LSB
+
+
+def test_build_deployed_launches_k1_and_k2(card, tmp_path):
+    """A checkpoint written by training serves through the kernels:
+    build_deployed of the BN generator launches K1 three times per RRDB,
+    and of the fast generator, quantized, K2 at each of its 2 * depth + 1
+    trunk sites, by variant."""
+    from image_super_resolution_tpu_torch.models.deploy import build_deployed
+    from image_super_resolution_tpu_torch.models.fast import FastSRGenerator
+    from image_super_resolution_tpu_torch.models.quantized import quantize_deployed
+    from image_super_resolution_tpu_torch.ops.initializers import init_weights
+    from image_super_resolution_tpu_torch.train.checkpoint import (
+        load_checkpoint, save_checkpoint)
+    from image_super_resolution_tpu_torch.train.state import TrainState
+    from image_super_resolution_tpu_torch.train.steps import make_pixel_train_step
+
+    x = np.random.default_rng(6).integers(0, 256, (2, 24, 24, 3), dtype=np.uint8)
+    u8 = torch.from_numpy(np.random.default_rng(7).integers(0, 256, (4, 96, 96, 3),
+                                                            dtype=np.uint8)).to(card)
+    sr = _pixel_state(card)
+    make_pixel_train_step(2)(sr, u8)
+    save_checkpoint(tmp_path / "sr.ckpt", sr, 0, (0.4, 0.5, 0.6), (0.2, 0.2, 0.2))
+    model, _ = build_deployed(load_checkpoint(tmp_path / "sr.ckpt"),
+                              DeploySpec(family="sr", depth=2, width=64, scale=2))
+    before = k1.scatter_rdb.launches
+    assert model(x).shape == (2, 48, 48, 3)
+    assert k1.scatter_rdb.launches - before == 3 * 2
+
+    fast = TrainState(init_weights(FastSRGenerator(depth=2, width=128, scale=4,
+                                                   param_dtype=torch.float32,
+                                                   device=card), 1), total_steps=2)
+    make_pixel_train_step(4)(fast, u8)
+    save_checkpoint(tmp_path / "fast.ckpt", fast, 0, (0.4, 0.5, 0.6), (0.2, 0.2, 0.2))
+    model, _ = build_deployed(load_checkpoint(tmp_path / "fast.ckpt"),
+                              DeploySpec(family="fast", depth=2, width=128, scale=4))
+    quant = quantize_deployed(model, [x])
+    before = k2.conv3x3_int8.launches
+    k2.conv3x3_int8.launches_by_variant.clear()
+    assert quant(x).shape == (2, 96, 96, 3)
+    assert k2.conv3x3_int8.launches - before == 5
+    assert k2.conv3x3_int8.launches_by_variant == {
+        "fp32 -> int8": 2, "int8 -> fp32": 2, "fp32 -> fp32": 1}

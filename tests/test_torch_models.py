@@ -30,7 +30,8 @@ from image_super_resolution_tpu_torch.models.optimized import (
     ScatterRRDB,
     optimize_generator_params,
 )
-from image_super_resolution_tpu_torch.ops.blocks import RDB, RRDB, Upsampler
+from image_super_resolution_tpu_torch.models.denoiser import Denoiser, LegacyDenoiser
+from image_super_resolution_tpu_torch.ops.blocks import RDB, RRDB, ResidualBlock, Upsampler
 from image_super_resolution_tpu_torch.ops.conv import ConvBlock
 from image_super_resolution_tpu_torch.ops.fold_tail import (
     fold_tail_params,
@@ -171,9 +172,18 @@ def test_init_fused_params_has_the_jax_tree_layout(enchant):
     lambda: FastResBlock(8),
     lambda: DeploySpec(family="denoise_fast", depth=1, width=8,
                        downshuffle=2).build_model(),
+    lambda: SRGenerator(depth=1, fused=False),
+    lambda: ConvBlock(3, 8, 3, use_bn=True, param_dtype=torch.float32),
+    lambda: ConvBlock(3, 8, 3, act="prelu"),
+    lambda: ResidualBlock(8, 8),
+    lambda: Denoiser(depth=2, width=8, fused=False),
+    lambda: LegacyDenoiser(depth=2, width=8),
+    lambda: DeploySpec(family="denoise", depth=2, width=8).build_model(),
 ], ids=["SRGenerator", "OptimizedSRGenerator", "ScatterRRDB", "ScatterRDB",
         "RRDB", "RDB", "Upsampler", "ConvBlock", "build_model", "FastSRGenerator",
-        "FastResBlock", "build_model_denoise_fast"])
+        "FastResBlock", "build_model_denoise_fast", "SRGenerator_bn", "ConvBlock_bn",
+        "ConvBlock_prelu", "ResidualBlock", "Denoiser", "LegacyDenoiser",
+        "build_model_denoise"])
 def test_modules_default_to_cuda(build, monkeypatch):
     """Every module is built on the card unless the caller passes
     device="cpu": with no CUDA it raises, never dropping to the CPU."""
@@ -183,9 +193,14 @@ def test_modules_default_to_cuda(build, monkeypatch):
 
 
 def test_unported_configurations_raise():
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        SRGenerator(fused=False)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        DeploySpec(family="denoise_legacy").build_model()
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        DeploySpec(family="denoise").build_model()
+    """What slices 1-2 refused now builds: the BN training generator and the
+    x1 denoise families' serving graphs; an unknown family still raises."""
+    bn = SRGenerator(depth=1, width=8, fused=False, device="cpu")
+    assert bn.rrdb0.rdb0.conv0.bn is not None and bn.rrdb0.rdb0.conv0.conv.bias is None
+    assert bn.head.bn is None and bn.tail.bn is None
+    for family in ("denoise", "denoise_legacy"):
+        model = DeploySpec(family=family, depth=2, width=8).build_model(device="cpu")
+        with torch.no_grad():
+            assert model(torch.zeros(1, 6, 6, 3)).shape == (1, 6, 6, 3)
+    with pytest.raises(ValueError, match="unknown model family"):
+        DeploySpec(family="gan").build_model(device="cpu")

@@ -12,12 +12,13 @@ from image_super_resolution_tpu.data.transforms import (
     tanh_to_uint8 as jax_tanh_to_uint8,
 )
 from image_super_resolution_tpu.ops.activations import apply_act as jax_apply_act
+from image_super_resolution_tpu.ops.activations import is_prelu as jax_is_prelu
 from image_super_resolution_tpu.ops.pixel_shuffle import (
     pixel_shuffle as jax_pixel_shuffle,
     pixel_unshuffle as jax_pixel_unshuffle,
 )
 from image_super_resolution_tpu_torch.data.transforms import normalize, tanh_to_uint8
-from image_super_resolution_tpu_torch.ops.activations import apply_act
+from image_super_resolution_tpu_torch.ops.activations import apply_act, is_prelu
 from image_super_resolution_tpu_torch.ops.pixel_shuffle import (
     pixel_shuffle,
     pixel_unshuffle,
@@ -77,10 +78,17 @@ def test_apply_act_matches_jax(act):
 
 
 def test_apply_act_rejects_unknown_and_unported():
+    """An unknown name raises; "prelu" is learnable, so as in the JAX
+    package it is no plain activation (ConvBlock applies it as a module)."""
     with pytest.raises(ValueError):
         apply_act(torch.zeros(1), "swish2")
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        apply_act(torch.zeros(1), "prelu")
+    for spec in ("prelu", ("prelu", 4)):
+        with pytest.raises(ValueError):
+            apply_act(torch.zeros(1), spec)
+        with pytest.raises(ValueError):
+            jax_apply_act(jnp.zeros(1), spec)
+        assert is_prelu(spec) and jax_is_prelu(spec)
+    assert not is_prelu(("leaky_relu", 0.2)) and not jax_is_prelu(("leaky_relu", 0.2))
 
 
 @pytest.mark.parametrize("shape", [(23, 17, 3), (40, 64, 3), (9, 11)])
