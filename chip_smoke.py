@@ -44,20 +44,26 @@ Phases, each of which raises on failure:
    ``sr`` artifact and then ``--int8`` with the ``fast`` artifact, each
    timed as one run: artifact load, calibration, both images and the host
    PNG codec;
-9. training at full width through ``cli.train.main`` on 64 smooth 192x192
-   PNGs at the CLI defaults (batch 16, patch 96), one epoch each: (a)
-   ``--resnet`` sr x2 d16 w64 with BN -- stopped at its first checkpoint,
-   then resumed with ``--resume --epochs 2``, which must continue at epoch
-   1 with the optimizer restored -- (b) ``--resnet --family fast --scale
-   4``, (c) ``--train_denoise``; every loss finite, no substituted patch.
-   Each run's step is then timed outside the CLI (CUDA events), broken down
-   into its parts, profiled for the idle share and measured for peak
-   memory. Three pixel steps at depth 2 in fp32 are held against the CPU's,
-   the optimizer and EMA on the same gradients.
-   Then each checkpoint is exported through ``build_deployed`` and served
-   on the card: sr x2 through K1 (48 launches per forward counted), fast
-   int8 through K2 (29 per forward, counted by variant), denoise in bf16;
-   two tiles of each are held against the port's CPU path.
+9. the user's path at full width: 64 smooth 192x192 PNGs and their
+   manifest written by ``cli.create_json``, then training through
+   ``cli.train.main`` at the CLI defaults (batch 16, patch 96), one epoch
+   each: (a) ``--resnet`` sr x2 d16 w64 with BN, (b) ``--resnet --family
+   fast --scale 4``, (c) ``--train_denoise``, (d) the GAN phase in (a)'s
+   work dir (G warm-started from (a), every leaf matched; D 3-64-8-1024;
+   VGG19 (5, 4) on random features; ``--eval_every 1``). (a) and (d) are
+   stopped at their first checkpoint and resumed with ``--resume --epochs
+   2``, which must continue at epoch 1 with the optimizer restored (and
+   D's). Every loss finite, no substituted patch. Each run's step is then
+   timed outside the CLI (CUDA events), broken down into its parts,
+   profiled for the idle share and measured for peak memory. Three pixel
+   steps and three GAN steps at depth 2 in fp32 are held against the
+   CPU's, the optimizers and EMA on the same gradients. Then (a)-(c) are
+   exported through ``build_deployed`` and served on the card: sr x2
+   through K1 (48 launches per forward counted), fast int8 through K2 (29
+   per forward, counted by variant), denoise in bf16; two tiles of each are
+   held against the port's CPU path. (d) is exported by ``cli.export.main``
+   and served from the ``.isr`` through ``load_artifact`` (48 K1 launches
+   per forward, two tiles against the CPU) and ``rs``.
 
 It prints one JSON line of per-kernel numbers (each kernel's launches
 summed over the counted runs of phases 5/6 and 9, and given by path) and
@@ -901,11 +907,17 @@ def phase_cli(work: Path, sr_isr: Path, fast_isr: Path, card: str):
 
 # The training runs of the main path, each through cli.train.main at the
 # CLI defaults (batch 16, patch 96) for one epoch: (key, title, flags).
+# Run (d), the GAN phase, trains in run (a)'s --work_dir, so that its
+# generator warm-starts from (a)'s pixel checkpoint.
 TRAIN_RUNS = (
     ("a", "sr x2 d16 w64 BN (--resnet)", ["--resnet", "--family", "sr", "--scale", "2"]),
     ("b", "fast x4 d14 w128 (--resnet)", ["--resnet", "--family", "fast", "--scale", "4"]),
     ("c", "Denoiser d16 w64 BN (--train_denoise)", ["--train_denoise"]),
+    ("d", "sr x2 d16 w64 BN GAN (D 3-64-8-1024, VGG19 (5, 4) random features)",
+     ["--family", "sr", "--scale", "2"]),
 )
+TRAIN_DIRS = {"a": "a", "b": "b", "c": "c", "d": "a"}
+CKPT_GLOB = {"a": "res_*.ckpt", "b": "res_*.ckpt", "c": "denoise_*.ckpt", "d": "gen_*.ckpt"}
 TRAIN_IMAGES, TRAIN_SIZE = 64, 192
 # Three pixel steps at depth 2 in fp32 (TF32 off), card against CPU: each
 # loss within 1e-5 relative; every gradient element within 1e-3 of the
@@ -919,22 +931,51 @@ TRAIN_IMAGES, TRAIN_SIZE = 64, 192
 # no-op or a wrong Adam is off by about lr = 1e-3.
 STEP_LOSS_RTOL, STEP_GRAD_RTOL, STEP_STATS_ATOL = 1e-5, 1e-3, 1e-5
 STEP_PARAM_RTOL = 1e-6
+# The three GAN steps, card against CPU: the BCE losses sit on D's logits,
+# which sum 36 * 512 features through seven BNs: measured within 1.95e-5
+# relative on an H100 (bound GAN_LOSS_RTOL). Gradients are held as the
+# pixel steps' (each element within STEP_GRAD_RTOL of the model's largest),
+# but for at most GAN_FLIP_SHARE of a model's elements: a leaky ReLU's
+# slope changes at 0, and where a pre-activation lies within the two
+# devices' rounding of 0 they back-propagate through different slopes,
+# both right; with four images that moves a whole output channel's weight
+# gradient (measured: 225 elements of D's block1 kernel, one channel's 576,
+# off by up to 4.8e-3 of D's largest gradient; 9.5e-6 of D's elements).
+# Relative L2 errors are printed beside them.
+GAN_LOSS_RTOL, GAN_FLIP_SHARE = 1e-4, 1e-3
 
 
 class _Preempted(Exception):
-    """Raised after the first checkpoint of run (a): the run stops there, as
-    a preempted job would, leaving a mid-run checkpoint with its optimizer."""
+    """Raised after the first checkpoint of runs (a) and (d): the run stops
+    there, as a preempted job would, leaving a mid-run checkpoint with its
+    optimizer(s)."""
+
+
+class _Tee:
+    """stdout that also keeps what was written (for lines the CLI prints)."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
 
 
 def _train_images(folder: Path, seed: int) -> Path:
     """TRAIN_IMAGES smooth RGB PNGs (sums of random low-frequency waves)
-    and their manifest."""
+    under ``folder/png``, and their manifest written by the port's
+    ``cli.create_json``."""
     import numpy as np
 
+    from image_super_resolution_tpu_torch.cli import create_json
     from image_super_resolution_tpu_torch.utils.png import write_png
 
     rng = np.random.default_rng(seed)
-    folder.mkdir(parents=True)
+    (folder / "png").mkdir(parents=True)
     yy, xx = np.mgrid[0:TRAIN_SIZE, 0:TRAIN_SIZE] / TRAIN_SIZE
     paths = []
     for i in range(TRAIN_IMAGES):
@@ -942,11 +983,14 @@ def _train_images(folder: Path, seed: int) -> Path:
         for _ in range(4):
             fy, fx, phase = rng.uniform(1, 12), rng.uniform(1, 12), rng.uniform(0, 6.3, 3)
             img += np.sin(2 * np.pi * (fy * yy + fx * xx)[..., None] + phase) * rng.uniform(10, 40)
-        path = folder / f"{i:03d}.png"
+        path = folder / "png" / f"{i:03d}.png"
         write_png(path, np.clip(img + 128, 0, 255).astype(np.uint8))
-        paths.append(str(path))
-    manifest = folder / "train.json"
-    manifest.write_text(json.dumps(paths))
+        paths.append(path.as_posix())
+    manifest, _ = create_json.main(["--train_dirs", str(folder / "png"), "--shape", "96",
+                                    "--output", str(folder)])
+    if json.loads(manifest.read_text()) != paths:
+        raise AssertionError(f"create_json listed {manifest.read_text()[:200]}, want the "
+                             f"{TRAIN_IMAGES} PNGs written")
     return manifest
 
 
@@ -960,58 +1004,88 @@ def _check_history(title: str, history, card: str) -> None:
     import math
 
     for h in history:
+        metrics = {k: sum(v) / len(v) for k, v in h["metrics"].items()}
         _log(f"[train] {title} on {card}: epoch {h['epoch']} mean loss {h['mean_loss']:.5f}, "
              f"{h['patches_per_sec']:.1f} patches/s (CLI, host clock), "
-             f"{h['substituted']} substituted patches")
-        if not all(math.isfinite(v) for v in h["losses"]):
-            raise AssertionError(f"{title}: non-finite loss {h['losses']}")
+             f"{h['substituted']} substituted patches"
+             + ("; means " + ", ".join(f"{k} {v:.5f}" for k, v in metrics.items())
+                if len(metrics) > 1 else "")
+             + ("; eval " + ", ".join(f"{k} {v:.4f}" for k, v in h["eval"].items())
+                if "eval" in h else ""))
+        if not all(math.isfinite(v) for vs in h["metrics"].values() for v in vs):
+            raise AssertionError(f"{title}: non-finite loss {h['metrics']}")
         if h["substituted"]:
             raise AssertionError(f"{title}: {h['substituted']} patches were substituted")
 
 
 def _forward_flop(model, x) -> int:
-    """Conv FLOP of one forward: 2 * output elements * (Cin/groups) * k * k
-    of every ConvBlock, read from hooks during one no-grad forward."""
+    """Conv and dense FLOP of one forward: 2 * output elements * (Cin/groups)
+    * k * k of every ConvBlock, 2 * N * in * out of every DenseBlock, read
+    from hooks during one no-grad forward."""
     import torch
 
-    from image_super_resolution_tpu_torch.ops.conv import ConvBlock
+    from image_super_resolution_tpu_torch.ops.conv import ConvBlock, DenseBlock
 
     total = [0]
 
     def hook(mod, _inp, out):
+        if isinstance(mod, DenseBlock):
+            total[0] += 2 * out.numel() * mod.dense.weight.shape[1]
+            return
         w = mod.conv.weight
         total[0] += 2 * out.numel() * w.shape[1] * w.shape[2] * w.shape[3]
 
-    handles = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, ConvBlock)]
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, (ConvBlock, DenseBlock))]
+    training = model.training
     try:
         with torch.no_grad():
             model.eval()
             model(x)
     finally:
-        model.train()
+        model.train(training)
         for h in handles:
             h.remove()
     return total[0]
 
 
+def _vgg_flop(vgg, n: int, h: int, w: int) -> int:
+    """Conv FLOP of one TruncatedVGG19 forward on n x h x w: 2 * H * W *
+    Cin * Cout * 9 per conv at its resolution (the max-pools halve it)."""
+    total, k = 0, 0
+    for item in vgg.plan:
+        if item == "M":
+            h, w = h // 2, w // 2
+            continue
+        wt = getattr(vgg, f"conv{k}").weight
+        total += 2 * n * h * w * wt.shape[0] * wt.shape[1] * 9
+        k += 1
+    return total
+
+
 def _time_training(key: str, title: str, argv, kind: str, card: str) -> dict:
     """The run's step outside the counted CLI run, on one device batch from
     its loader: ms per step by CUDA events after warm-up, patches/s, peak
-    memory, the step's parts by CUDA events (batch prep, forward + loss,
-    backward, clip + Adam, BN commit + EMA), the device's idle share and
-    top kernels by torch.profiler, and the bound (3x the forward's conv
-    FLOP at the bf16 peak). The idle share is 1 - the profiler's kernel
-    time / the unprofiled step time."""
+    memory, the step's parts by CUDA events (pixel and denoise: batch prep,
+    forward + loss, backward, clip + Adam, BN commit + EMA; GAN: the parts
+    its step marks, ``train.steps.GAN_PARTS``), the device's idle share and
+    top kernels by torch.profiler, and the bound: the step's conv and dense
+    FLOP at the bf16 peak -- 3x the forward's (forward, input and weight
+    gradients); in the GAN phase 3 G + 8 D + 3 VGG forwards (D and VGG on
+    sr in G's loss: forward + input gradient; VGG on hr: forward; D's own
+    step: two forwards with their gradients, 3x each). The idle share is 1
+    - the profiler's kernel time / the unprofiled step time."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from image_super_resolution_tpu_torch.cli import train as cli_train
+    from image_super_resolution_tpu_torch.train.steps import GAN_PARTS
 
     run = cli_train.Run(cli_train.build_parser().parse_args(argv))
     u8 = torch.from_numpy(np.ascontiguousarray(next(iter(run.loader)))).to(run.device)
     fn, st = run.step_fn, run.state
-    prep = (lambda: fn.batch_fn(u8, run.gen)) if run.gen is not None else (lambda: fn.batch_fn(u8))
+    gan = run.phase == "gan"
     for _ in range(3):
         run.step(u8)
     run.sync()
@@ -1021,22 +1095,28 @@ def _time_training(key: str, title: str, argv, kind: str, card: str) -> dict:
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     bs = u8.shape[0]
 
-    parts = {k: 0.0 for k in ("batch prep", "forward + loss", "backward", "clip + Adam",
-                              "BN commit + EMA")}
+    names = GAN_PARTS if gan else ("batch prep", "forward + loss", "backward", "clip + Adam",
+                                   "BN commit + EMA")
+    parts = {k: 0.0 for k in names}
     for _ in range(5):
         ev = [_event()]
-        hr, lr = prep()
-        ev.append(_event())
-        loss = fn.loss_fn(st.model(lr), hr)
-        ev.append(_event())
-        loss.backward()
-        ev.append(_event())
-        st.clip_and_adam()
-        ev.append(_event())
-        st.commit_and_ema()
-        ev.append(_event())
+        if gan:
+            fn(st, run.d_state, u8, lambda part: ev.append(_event()))
+        else:
+            hr, lr = fn.batch_fn(u8, run.gen) if run.gen is not None else fn.batch_fn(u8)
+            ev.append(_event())
+            loss = fn.loss_fn(st.model(lr), hr)
+            ev.append(_event())
+            loss.backward()
+            ev.append(_event())
+            st.clip_and_adam()
+            ev.append(_event())
+            st.commit_and_ema()
+            ev.append(_event())
         run.sync()
-        for name, a, b in zip(parts, ev, ev[1:]):
+        if len(ev) != len(names) + 1:
+            raise AssertionError(f"{title}: {len(ev) - 1} parts marked, want {len(names)}")
+        for name, a, b in zip(names, ev, ev[1:]):
             parts[name] += a.elapsed_time(b) / 5
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1055,16 +1135,29 @@ def _time_training(key: str, title: str, argv, kind: str, card: str) -> dict:
     busy = sum(kernels.values())
     idle = 1 - busy / step_ms if busy else None
 
-    flop = 3 * _forward_flop(st.model, prep()[1])
+    hr, lr = fn.batch_fn(u8, run.gen) if run.gen is not None else fn.batch_fn(u8)
+    flop = 3 * _forward_flop(st.model, lr)
+    what = "3x the forward's convs"
+    if gan:
+        f_d = _forward_flop(run.d_state.model, hr)
+        f_v = _vgg_flop(fn.perceptual.vgg, *hr.shape[:3])
+        flop += 8 * f_d + 3 * f_v
+        what = (f"3x G's forward + 8x D's ({f_d:.4g} FLOP) + 3x VGG's ({f_v:.4g} FLOP), "
+                f"convs and dense")
     peak_name, peak_bf16, _, _ = _peaks(kind)
     bound_ms = flop / peak_bf16 * 1e3
+    n_params = sum(p.numel() for p in st.params)
+    if gan:
+        n_params = f"{n_params:,} G + {sum(p.numel() for p in run.d_state.params):,} D"
+    else:
+        n_params = f"{n_params:,}"
     _log(f"[train] {title} b{bs} patch {u8.shape[1]} on {card}: step {step_ms:.4f} ms (CUDA "
          f"events, mean of {n} after 3 warm-up), {bs / step_ms * 1e3:.1f} patches/s; peak "
-         f"memory {peak_gib:.3f} GiB; bound {bound_ms:.4f} ms ({flop:.4g} FLOP = 3x the "
-         f"forward's convs at {peak_bf16:.4g} FLOP/s, {peak_name}), {bound_ms / step_ms:.1%} "
-         f"of bound; {sum(p.numel() for p in st.params):,} params")
+         f"memory {peak_gib:.3f} GiB; bound {bound_ms:.4f} ms ({flop:.4g} FLOP = {what} at "
+         f"{peak_bf16:.4g} FLOP/s, {peak_name}), {bound_ms / step_ms:.1%} of bound; "
+         f"{n_params} params")
     for name, ms in parts.items():
-        _log(f"[breakdown] train {key} on {card}: part {name:18s} {ms:9.4f} ms  "
+        _log(f"[breakdown] train {key} on {card}: part {name:24s} {ms:9.4f} ms  "
              f"{ms / step_ms:6.1%}")
     _log(f"[breakdown] train {key} on {card}: profiler: device kernel time {busy:.4f} ms per "
          f"step; idle share " + (f"{idle:.1%} of the {step_ms:.4f} ms step (CUDA events, "
@@ -1095,9 +1188,9 @@ def _serve_trained(work: Path, card: str, device: str) -> dict:
     from image_super_resolution_tpu_torch.train.checkpoint import load_checkpoint
     from image_super_resolution_tpu_torch.utils.image_io import read_image_rgb
 
-    paths = json.loads((work / "data" / "train.json").read_text())
+    paths = json.loads((work / "data" / "train_images.json").read_text())
     x = np.stack([read_image_rgb(p)[8:56, 16:64] for p in paths[:16]])  # b16 48x48
-    ckpts = {key: load_checkpoint(next((work / key).glob("*.ckpt"))) for key, _, _ in TRAIN_RUNS}
+    ckpts = {key: load_checkpoint(_checkpoint(work, key)) for key in "abc"}
     n, counts = 3, {}
 
     def spec_of(key, family, **kw):
@@ -1176,6 +1269,84 @@ def _serve_trained(work: Path, card: str, device: str) -> dict:
     return counts
 
 
+def _checkpoint(work: Path, key: str) -> Path:
+    return next((work / TRAIN_DIRS[key]).glob(CKPT_GLOB[key]))
+
+
+def _serve_gan(work: Path, card: str, device: str) -> int:
+    """Run (d)'s final checkpoint through ``cli.export.main`` into an
+    ``.isr`` (EMA, BN folded, dims read from the checkpoint), then served
+    from that file: ``load_artifact`` in bf16 on the card, K1 counted (48
+    launches per forward of the x2 d16 generator), two tiles held against
+    the port's fp32 CPU path within BF16_X2_MAX_LSB; then ``rs`` on a PNG,
+    K1 counted per tile chunk. Returns K1's launches over the leg."""
+    import numpy as np
+    import torch
+
+    from image_super_resolution_tpu_torch.cli import export, rs
+    from image_super_resolution_tpu_torch.infer.tiling import plan_tiles
+    from image_super_resolution_tpu_torch.models.deploy import (
+        BF16_X2_MAX_LSB, infer_family_dims, load_artifact)
+    from image_super_resolution_tpu_torch.ops.kernels.fused_rdb import scatter_rdb
+    from image_super_resolution_tpu_torch.train.checkpoint import load_checkpoint
+    from image_super_resolution_tpu_torch.utils.image_io import read_image_rgb
+    from image_super_resolution_tpu_torch.utils.png import read_png, write_png
+
+    paths = json.loads((work / "data" / "train_images.json").read_text())
+    x = np.stack([read_image_rgb(p)[8:56, 16:64] for p in paths[:16]])  # b16 48x48
+    isr = work / "gan.isr"
+    ckpt = _checkpoint(work, "d")
+    depth, width = infer_family_dims(load_checkpoint(ckpt)["params"], "sr")
+    t0 = time.perf_counter()
+    spec = export.main(["--checkpoint", str(ckpt), "--out", str(isr), "--scale", "2",
+                        "--device", device])
+    secs = time.perf_counter() - t0
+    if (spec.family, spec.depth, spec.width, spec.scale) != ("sr", depth, width, 2):
+        raise AssertionError(f"export wrote {spec}, want sr x2 d{depth} w{width}")
+    n = 3
+    scatter_rdb.launches = 0
+    model = load_artifact(isr, device=device)
+    for _ in range(n):
+        out = model(x)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = scatter_rdb.launches
+    if launches != 3 * spec.depth * n:
+        raise AssertionError(f"the GAN-trained sr launched fused_rdb {launches} times in "
+                             f"{n} forwards, want {3 * spec.depth} per forward")
+    if out.dtype != torch.uint8 or tuple(out.shape) != (len(x), 96, 96, 3):
+        raise AssertionError(f"the GAN-trained sr wrote {out.dtype} {tuple(out.shape)}")
+    cpu32 = load_artifact(isr, dtype=torch.float32, device="cpu")(x[:2])
+    w32, s32 = _lsb(out[:2].cpu(), cpu32)
+    _log(f"[serve] GAN-trained sr x2 d{spec.depth} w{spec.width} (run d, cli.export.main in "
+         f"{secs:.2f} s -> .isr -> load_artifact) bf16 b{len(x)} t48 on {card}: fused_rdb "
+         f"launches {launches} ({3 * spec.depth} per forward, {n} forwards); 2 tiles card vs "
+         f"CPU fp32 max {w32} LSB (bound {BF16_X2_MAX_LSB}), {s32:.4f} differ")
+    if w32 > BF16_X2_MAX_LSB:
+        raise AssertionError("the GAN-trained sr card output is outside its bound")
+
+    src, dst = work / "gan_in.png", work / "gan_out.png"
+    img = read_image_rgb(paths[0])[:150, :130]
+    write_png(src, img)
+    window, overlap, batch = 96, 8, 8  # the CLI's defaults
+    tiles = plan_tiles(*img.shape[:2], min(window, max(img.shape[:2]) + 2 * overlap),
+                       overlap)[0]
+    chunks = -(-len(tiles) // batch)
+    before = scatter_rdb.launches
+    rs.main(["--model", str(isr), "--src", str(src), "--save_dir", str(dst),
+             "--device", device])
+    rs_launches = scatter_rdb.launches - before
+    got = read_png(dst)
+    if rs_launches != 3 * spec.depth * chunks or got.shape != (2 * img.shape[0],
+                                                               2 * img.shape[1], 3):
+        raise AssertionError(f"rs on the GAN artifact: {rs_launches} fused_rdb launches "
+                             f"(want {3 * spec.depth * chunks}), output {got.shape}")
+    _log(f"[serve] rs --model gan.isr on a {img.shape[0]}x{img.shape[1]} PNG on {card}: x2 "
+         f"output {got.shape}, "
+         f"fused_rdb launches {rs_launches} ({chunks} chunks of tiles)")
+    return launches + rs_launches
+
+
 def _step_card_vs_cpu(card: str, device: str) -> None:
     """Three pixel steps of the BN generator at depth 2, width 64, x2, in
     fp32 with TF32 off, on the card and on the CPU from the same seed. Each
@@ -1243,13 +1414,193 @@ def _step_card_vs_cpu(card: str, device: str) -> None:
         raise AssertionError("the pixel steps on the card disagree with the CPU steps")
 
 
+def _gan_card_vs_cpu(card: str, device: str) -> None:
+    """Three GAN steps in fp32 with TF32 off, card against CPU from the same
+    seeds: G as in the pixel steps (BN, x2, depth 2, width 64), the
+    full-width D, VGG19 up to its first max-pool (1, 2) on random features
+    with feature_norm, at the GAN phase's lr 1e-4. Each step's three losses
+    within GAN_LOSS_RTOL; G's and then D's gradients within STEP_GRAD_RTOL
+    of that model's largest gradient but for at most GAN_FLIP_SHARE of its
+    elements (see there), checked where the step marks them and
+    then replaced by the CPU's, so that both optimizers take the same
+    gradients; then G's params and EMA and D's params within
+    STEP_PARAM_RTOL, and the BN running statistics of both (D's folded from
+    its two forwards per step) and G's EMA of them within STEP_STATS_ATOL,
+    each of max(1, |value|). A max-pool routes each window's gradient to its
+    argmax, and at a near-tie the card and the CPU may pick different
+    pixels, both right (``scripts/torch_gan_card_probe.py``: 1.4e-2 of the
+    largest input gradient of VGG (5, 4) at one such pixel, its forward
+    within 2.4e-6 of float64), so the check stops before the pools; at lr
+    1e-3 the full-width D saturates within two steps and its BCE and
+    gradients shrink to rounding noise."""
+    import numpy as np
+    import torch
+
+    from image_super_resolution_tpu_torch.losses.perceptual import PerceptualLoss
+    from image_super_resolution_tpu_torch.models.discriminator import Discriminator
+    from image_super_resolution_tpu_torch.models.generator import SRGenerator
+    from image_super_resolution_tpu_torch.models.vgg import TruncatedVGG19, init_random_vgg
+    from image_super_resolution_tpu_torch.ops.initializers import init_weights
+    from image_super_resolution_tpu_torch.train.state import TrainState
+    from image_super_resolution_tpu_torch.train.steps import make_gan_train_step
+
+    def states(dev):
+        g = init_weights(SRGenerator(depth=2, width=64, scale=2, fused=False,
+                                     param_dtype=torch.float32, device=dev), SEED)
+        d = init_weights(Discriminator(dtype=torch.float32, device=dev), SEED + 1)
+        vgg = init_random_vgg(TruncatedVGG19(1, 2, dtype=torch.float32, device=dev))
+        return (TrainState(g, lr=1e-4, total_steps=10, ema_tau=10),
+                TrainState(d, lr=1e-4, total_steps=10, with_ema=False),
+                make_gan_train_step(2, PerceptualLoss(vgg, feature_norm=True)))
+
+    (card_g, card_d, card_step), (cpu_g, cpu_d, cpu_step) = states(device), states("cpu")
+    marked = {"G backward": (card_g, cpu_g), "D backward": (card_d, cpu_d)}
+    worst = {"loss": 0.0, "G backward": 0.0, "D backward": 0.0}  # loss; share off
+    cpu_grads = {}
+
+    def record(part):
+        if part in marked:
+            cpu_grads[part] = [p.grad.clone() for p in marked[part][1].params]
+
+    step_log = []
+
+    def check_and_replace(part):
+        if part in marked:
+            scale = max(float(g.abs().max()) for g in cpu_grads[part])
+            names = [k for k, _ in marked[part][0].model.named_parameters()]
+            diffs = [(p.grad.cpu() - g) for p, g in zip(marked[part][0].params, cpu_grads[part])]
+            errs = [float(d.abs().max()) / scale for d in diffs]
+            l2 = float(torch.sqrt(sum((d.double() ** 2).sum() for d in diffs))
+                       / torch.sqrt(sum((g.double() ** 2).sum() for g in cpu_grads[part])))
+            i = max(range(len(errs)), key=errs.__getitem__)
+            over = sum(int((d.abs() > STEP_GRAD_RTOL * scale).sum()) for d in diffs)
+            n = sum(g.numel() for g in cpu_grads[part])
+            step_log.append(f"{part[0]} grads: {over} of {n} elements off by more than "
+                            f"{STEP_GRAD_RTOL} of the largest, the worst {errs[i]:.2e} "
+                            f"({names[i]}); relative L2 {l2:.2e}")
+            worst[part] = max(worst[part], over / n)
+            for p, g in zip(marked[part][0].params, cpu_grads[part]):
+                p.grad.copy_(g)
+
+    rng = np.random.default_rng(SEED + 9)
+    for i in range(3):
+        u8 = torch.from_numpy(rng.integers(0, 256, (4, 48, 48, 3), dtype=np.uint8))
+        want = cpu_step(cpu_g, cpu_d, u8, record)
+        got = card_step(card_g, card_d, u8.to(device), check_and_replace)
+        for k, w in want.items():
+            worst["loss"] = max(worst["loss"], abs(float(got[k]) - float(w)) / abs(float(w)))
+        _log(f"[train] GAN step {i} on {card} vs CPU: losses "
+             + ", ".join(f"{k} {float(got[k]):.8g} / {float(w):.8g}" for k, w in want.items())
+             + "; " + "; ".join(step_log))
+        step_log.clear()
+
+    def gap(card_sd, cpu_sd, stats: bool):
+        return max(float(((card_sd[k].cpu() - want).abs() / want.abs().clamp_min(1.0)).max())
+                   for k, want in cpu_sd.items() if ("running" in k) == stats)
+
+    pairs = {"G": (card_g.model.state_dict(), cpu_g.model.state_dict()),
+             "G EMA": (card_g.ema.state_dict(), cpu_g.ema.state_dict()),
+             "D": (card_d.model.state_dict(), cpu_d.model.state_dict())}
+    params = {k: gap(*v, False) for k, v in pairs.items()}
+    stats = {k: gap(*v, True) for k, v in pairs.items()}
+    _log(f"[train] 3 GAN steps, G BN x2 d2 w64 + D 3-64-8-1024 + VGG19 (1, 2), lr 1e-4, fp32 "
+         f"(TF32 off) on {card} vs CPU: losses max {worst['loss']:.2e} relative (bound "
+         f"{GAN_LOSS_RTOL}); share of gradient elements off by more than {STEP_GRAD_RTOL} of "
+         f"the largest: G {worst['G backward']:.2e}, D {worst['D backward']:.2e} (bound "
+         f"{GAN_FLIP_SHARE}); "
+         f"on the same gradients: params max diff "
+         + ", ".join(f"{k} {v:.3g}" for k, v in params.items())
+         + f" of max(1, |param|) (bound {STEP_PARAM_RTOL}); BN running stats max diff "
+         + ", ".join(f"{k} {v:.3g}" for k, v in stats.items())
+         + f" of max(1, |stat|) (bound {STEP_STATS_ATOL})")
+    if not (worst["loss"] <= GAN_LOSS_RTOL
+            and max(worst["G backward"], worst["D backward"]) <= GAN_FLIP_SHARE
+            and max(params.values()) <= STEP_PARAM_RTOL
+            and max(stats.values()) <= STEP_STATS_ATOL):
+        raise AssertionError("the GAN steps on the card disagree with the CPU steps")
+
+
+def _stop_then_resume(key: str, title: str, argv, card: str):
+    """Run ``argv --epochs 2`` through cli.train.main, stopped after its
+    first checkpoint (epoch 0, with the optimizer(s)), then ``--resume``:
+    it must continue at epoch 1 with the optimizer restored (run (d): D's
+    too, and its warm start must have matched every leaf of run (a)).
+    Returns the resumed run's history."""
+    import contextlib
+    import re
+
+    from image_super_resolution_tpu_torch.cli import train as cli_train
+    from image_super_resolution_tpu_torch.train.checkpoint import load_checkpoint
+
+    orig_save, orig_resume_d = cli_train.save_checkpoint, cli_train.resume_discriminator
+
+    def save_then_stop(*args, **kw):
+        orig_save(*args, **kw)
+        raise _Preempted
+
+    tee = _Tee(sys.stdout)
+    cli_train.save_checkpoint = save_then_stop
+    try:
+        with contextlib.redirect_stdout(tee):
+            cli_train.main(argv + ["--epochs", "2"])
+    except _Preempted:
+        pass
+    finally:
+        cli_train.save_checkpoint = orig_save
+    if key == "d":
+        m = re.search(r"loaded pre-trained generator \((\d+)/(\d+) leaves\)", "".join(tee.text))
+        if not m or m.group(1) != m.group(2):
+            raise AssertionError(f"run (d) did not warm-start every leaf from run (a): "
+                                 f"{m.group(0) if m else 'no matched-leaves line'}")
+    ckpt = _checkpoint(Path(argv[argv.index("--work_dir") + 1]).parent, key)
+    first = load_checkpoint(ckpt)
+    want = {"opt_state"} | ({"d_opt_state", "d_params"} if key == "d" else set())
+    if not want <= set(first) or first["meta"]["epoch"] != 0:
+        raise AssertionError(f"run ({key}) left no mid-run checkpoint with its optimizer(s)")
+    steps = first["meta"]["step"]
+    restored = {}
+
+    def resume_d(d_state, ckpt):
+        out = orig_resume_d(d_state, ckpt)
+        restored["d"] = (d_state.step, len(d_state.optimizer.state), len(d_state.params))
+        return out
+
+    cli_train.resume_discriminator = resume_d
+    t1 = time.perf_counter()
+    try:
+        history = cli_train.main(argv + ["--epochs", "2", "--resume"])
+    finally:
+        cli_train.resume_discriminator = orig_resume_d
+    secs = time.perf_counter() - t1
+    final = load_checkpoint(ckpt)
+    if [h["epoch"] for h in history] != [1] or final["meta"]["step"] != 2 * steps:
+        raise AssertionError(f"--resume ran epochs {[h['epoch'] for h in history]} "
+                             f"to step {final['meta']['step']}: want epoch 1 with "
+                             f"the optimizer restored (step {steps} -> {2 * steps})")
+    extra = ""
+    if key == "d":
+        d_step, n_moments, n_params = restored.get("d", (0, 0, 1))
+        if d_step != steps or n_moments != n_params:
+            raise AssertionError(f"run (d) resumed D at step {d_step} with {n_moments} of "
+                                 f"{n_params} Adam moments, want step {steps} and all")
+        extra = f", D's Adam restored ({n_moments} tensors, step {d_step})"
+    _log(f"[train] {title}: stopped after epoch 0 (step {steps}, optimizer saved), "
+         f"--resume --epochs 2 continued at epoch 1 with the optimizer restored to "
+         f"step {final['meta']['step']}{extra} in {secs:.2f} s")
+    return history
+
+
 def phase_train(work: Path, kind: str, card: str, device: str = "cuda") -> dict:
-    """Train (a), (b), (c) through cli.train.main on the card, run (a) once
-    more with --resume --epochs 2 after stopping it at its first checkpoint,
-    time each run's step, then export and serve each checkpoint through
-    build_deployed with the kernels counted. Returns the kernels' launch
-    counts on the serve leg. (``device`` is "cuda"; "cpu" only rehearses
+    """Write the PNGs and their manifest (cli.create_json), train (a), (b),
+    (c) and (d) through cli.train.main on the card -- (a) and (d) stopped at
+    their first checkpoint and resumed with --resume --epochs 2 -- time each
+    run's step, hold three pixel and three GAN steps against the CPU's,
+    then serve (a)-(c) through build_deployed and (d) through cli.export
+    and the .isr, with the kernels counted. Returns the kernels' launch
+    counts on the serve legs. (``device`` is "cuda"; "cpu" only rehearses
     the phase's control flow at a reduced size.)"""
+    import math
+
     import torch
 
     from image_super_resolution_tpu_torch.cli import train as cli_train
@@ -1260,39 +1611,13 @@ def phase_train(work: Path, kind: str, card: str, device: str = "cuda") -> dict:
          f"{time.perf_counter() - t0:.2f} s")
     timings = {}
     for key, title, flags in TRAIN_RUNS:
-        argv = _train_argv(flags, manifest, work / key, device)
-        if key == "a":
-            orig = cli_train.save_checkpoint
-
-            def save_then_stop(*args, **kw):
-                orig(*args, **kw)
-                raise _Preempted
-
-            cli_train.save_checkpoint = save_then_stop
-            try:
-                cli_train.main(argv + ["--epochs", "2"])
-            except _Preempted:
-                pass
-            finally:
-                cli_train.save_checkpoint = orig
-            ckpt = next((work / key).glob("*.ckpt"))
-            from image_super_resolution_tpu_torch.train.checkpoint import load_checkpoint
-
-            first = load_checkpoint(ckpt)
-            if "opt_state" not in first or first["meta"]["epoch"] != 0:
-                raise AssertionError("run (a) left no mid-run checkpoint with its optimizer")
-            steps = first["meta"]["step"]
-            t1 = time.perf_counter()
-            history = cli_train.main(argv + ["--epochs", "2", "--resume"])
-            secs = time.perf_counter() - t1
-            final = load_checkpoint(ckpt)
-            if [h["epoch"] for h in history] != [1] or final["meta"]["step"] != 2 * steps:
-                raise AssertionError(f"--resume ran epochs {[h['epoch'] for h in history]} "
-                                     f"to step {final['meta']['step']}: want epoch 1 with "
-                                     f"the optimizer restored (step {steps} -> {2 * steps})")
-            _log(f"[train] {title}: stopped after epoch 0 (step {steps}, optimizer saved), "
-                 f"--resume --epochs 2 continued at epoch 1 with the optimizer restored to "
-                 f"step {final['meta']['step']} in {secs:.2f} s")
+        argv = _train_argv(flags, manifest, work / TRAIN_DIRS[key], device)
+        if key == "d":
+            argv += ["--eval_every", "1", "--eval_json", str(manifest)]
+        if key in ("a", "d"):
+            history = _stop_then_resume(key, title, argv, card)
+            if key == "d" and not all(math.isfinite(v) for v in history[-1]["eval"].values()):
+                raise AssertionError(f"run (d) eval gave {history[-1]['eval']}")
         else:
             t1 = time.perf_counter()
             history = cli_train.main(argv + ["--epochs", "1"])
@@ -1304,7 +1629,9 @@ def phase_train(work: Path, kind: str, card: str, device: str = "cuda") -> dict:
     if device == "cuda":
         torch.cuda.empty_cache()
     _step_card_vs_cpu(card, device)
+    _gan_card_vs_cpu(card, device)
     counts = _serve_trained(work, card, device)
+    counts["fused_rdb gan"] = _serve_gan(work, card, device)
     counts["timings"] = timings
     return counts
 
@@ -1341,7 +1668,9 @@ def main() -> int:
     # launches: every counted main-path run, by path
     k1["launches_by_path"] = {"serve sr x4 (phase 5)": k1_serve,
                               "train -> checkpoint -> serve sr x2 (phase 9)":
-                              trained["fused_rdb"]}
+                              trained["fused_rdb"],
+                              "pixel -> GAN -> export -> serve sr x2 (phase 9)":
+                              trained["fused_rdb gan"]}
     k2["launches_by_path"] = {"serve fast x4 int8 (phase 6)": k2_serve,
                               "train -> checkpoint -> serve fast x4 int8 (phase 9)":
                               trained["conv3x3_int8"]}

@@ -4,17 +4,23 @@
 
 The flags are the JAX CLI's, plus ``--device`` (default ``cuda``; ``cpu``
 only when asked). Phases: ``--train_denoise`` (``Denoiser``, or with
-``--family fast`` the ``FastDenoiser``; ``--preset denoise_fullres``) and
+``--family fast`` the ``FastDenoiser``; ``--preset denoise_fullres``),
 ``--resnet`` (the pixel pretrain of ``sr`` -- ``--enchant`` for EResNet --
-or ``fast``). Checkpoints are the JAX package's files, so ``--resume``
-continues a run of either package. Each epoch dispatches its steps without
-reading anything back, then fetches the epoch's losses at once and prints
-the mean loss, patches/s and the number of patches substituted for files
-that could not be decoded.
+or ``fast``) and, with neither flag, the GAN fine-tune: the generator
+warm-started from the pixel phase's checkpoint in the same ``--work_dir``,
+``Discriminator(3, 64, 8, 1024)``, and ``TruncatedVGG19(5, 4)`` on the
+``--vgg_weights`` file, else on random features with the perceptual loss's
+``feature_norm``. Checkpoints are the JAX package's files (the GAN one with
+D's params and optimizer), so ``--resume`` continues a run of either
+package. Each epoch dispatches its steps without reading anything back,
+then fetches the epoch's losses at once and prints the mean loss
+(``loss/content`` in the GAN phase), patches/s and the number of patches
+substituted for files that could not be decoded. ``--eval_every N`` with
+``--eval_json`` logs PSNR, PSNR-Y and SSIM of the EMA model over 8 batches
+every N epochs as ``eval/*``.
 
-The GAN phase (neither phase flag), ``--eval_every``, ``--ckpt_backend
-orbax``, ``--profile_dir``, ``--loader_backend native`` and more than one
-device exit with a message naming the slice that brings them.
+``--ckpt_backend orbax``, ``--profile_dir``, ``--loader_backend native`` and
+more than one device exit with a message naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -29,19 +35,24 @@ import torch
 
 from ..core.device import resolve_device
 from ..data.pipeline import DevicePrefetcher, LoaderConfig, PatchLoader
+from ..losses.perceptual import PerceptualLoss
 from ..models.denoiser import Denoiser
 from ..models.deploy import family_defaults
+from ..models.discriminator import Discriminator
 from ..models.fast import FastDenoiser, FastSRGenerator
 from ..models.generator import SRGenerator
+from ..models.vgg import TruncatedVGG19, init_vgg_params
 from ..ops.initializers import init_weights
-from ..train.checkpoint import (checkpoint_exists, checkpoint_name, load_checkpoint,
-                                resume_state, save_checkpoint)
+from ..train.checkpoint import (checkpoint_exists, checkpoint_name, discriminator_payload,
+                                load_checkpoint, resume_discriminator, resume_state,
+                                save_checkpoint, warm_start_generator)
 from ..train.state import TrainState
-from ..train.steps import make_denoise_train_step, make_pixel_train_step
+from ..train.steps import (make_denoise_train_step, make_eval_step, make_gan_train_step,
+                           make_pixel_train_step)
 from ..utils.logging import MetricsLogger
 
-GAN_SLICE = "slice 4b (the GAN phase: VGG, discriminator, perceptual and adversarial losses)"
-LATER_SLICE = "slice 5 (eval, native loader, Orbax, multi-GPU)"
+LATER_SLICE = "slice 5 (profiling, native loader, Orbax, multi-GPU)"
+EVAL_BATCHES = 8
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -88,9 +99,10 @@ def build_parser() -> argparse.ArgumentParser:
                              "--downshuffle 1 --rs_deep 6; explicit flags win")
     parser.add_argument("--train_json", type=str, default="./train_images.json")
     parser.add_argument("--vgg_weights", type=str, default=None,
-                        help=f"GAN phase only: {GAN_SLICE}")
+                        help="GAN phase: a local VGG19 npz or torchvision .pth/.pt "
+                             "(default: random features)")
     parser.add_argument("--eval_json", type=str, default=None)
-    parser.add_argument("--eval_every", type=int, default=0, help=f"eval: {LATER_SLICE}")
+    parser.add_argument("--eval_every", type=int, default=0, help="epochs between evals")
     parser.add_argument("--no_tensorboard", action="store_true")
     parser.add_argument("--remat", action="store_true",
                         help="recompute each block's activations in backward")
@@ -126,11 +138,7 @@ def check_options(opt) -> None:
         if opt.rs_deep is None:
             opt.rs_deep = 6
     opt.rs_deep, opt.width = family_defaults(opt.family, opt.rs_deep, opt.width)
-    if _phase(opt) == "gan":
-        raise SystemExit(f"the GAN phase (no --resnet, no --train_denoise) is not "
-                         f"ported yet: it comes with {GAN_SLICE}")
-    refused = {"--eval_every": opt.eval_every,
-               "--ckpt_backend orbax": opt.ckpt_backend == "orbax",
+    refused = {"--ckpt_backend orbax": opt.ckpt_backend == "orbax",
                "--profile_dir": opt.profile_dir,
                "--loader_backend native": opt.loader_backend == "native"}
     for flag, given in refused.items():
@@ -156,8 +164,8 @@ def check_options(opt) -> None:
 
 
 def build_model(opt, device: torch.device):
-    """The phase's model in bf16 compute with fp32 master params, its
-    weights drawn from ``--seed``."""
+    """The phase's model (the generator in the GAN phase) in bf16 compute
+    with fp32 master params, its weights drawn from ``--seed``."""
     kw = dict(dtype=torch.bfloat16, param_dtype=torch.float32, device=device)
     if opt.train_denoise and opt.family == "fast":
         model = FastDenoiser(depth=opt.rs_deep, add_rate=opt.add_rate, width=opt.width,
@@ -178,9 +186,23 @@ def build_model(opt, device: torch.device):
     return init_weights(model, opt.seed)
 
 
+def build_gan(opt, device: torch.device, total_steps: int):
+    """The GAN phase's discriminator state (``--seed`` + 1, no EMA, the
+    generator's optimizer chain) and its perceptual loss."""
+    kw = dict(dtype=torch.bfloat16, param_dtype=torch.float32, device=device)
+    d_model = init_weights(Discriminator(3, 64, 8, 1024, **kw), opt.seed + 1)
+    d_state = TrainState(d_model, lr=opt.lr, lr2=opt.lr2, total_steps=total_steps,
+                         weight_decay=opt.weight_decay, b2=opt.momentum, with_ema=False)
+    vgg = TruncatedVGG19(i=5, j=4, before_act=opt.enchant, dtype=torch.bfloat16,
+                         device=device)
+    vgg, loaded = init_vgg_params(vgg, opt.vgg_weights, with_status=True)
+    # random features: RMS-normalized, so loss/content keeps its scale
+    return d_state, PerceptualLoss(vgg, feature_norm=not loaded)
+
+
 class Run:
-    """Everything one training run holds: the loader, the train state, the
-    phase's step and where its checkpoint goes; ``train`` runs the
+    """Everything one training run holds: the loader, the train state(s),
+    the phase's step and where its checkpoint goes; ``train`` runs the
     epochs."""
 
     def __init__(self, opt):
@@ -196,9 +218,10 @@ class Run:
         self.ckpt_path = self.work_dir / checkpoint_name(self.phase, opt.save_name,
                                                          opt.rs_deep, opt.add_rate)
         scale = 1 if self.phase == "denoise" else opt.scale
-        self.loader = PatchLoader(opt.train_json, LoaderConfig(
+        self.loader_config = LoaderConfig(
             batch_size=opt.batch_size, patch_size=opt.shape, scale=scale,
-            workers=opt.worker, seed=opt.seed))
+            workers=opt.worker, seed=opt.seed)
+        self.loader = PatchLoader(opt.train_json, self.loader_config)
         if opt.mean:
             self.loader.calculate_stats()
         self.mean, self.std = list(self.loader.mean), list(self.loader.std)
@@ -211,15 +234,27 @@ class Run:
             model, lr=opt.lr, lr2=opt.lr2, total_steps=total_steps,
             weight_decay=opt.weight_decay, b2=opt.momentum,
             ema_tau=2000.0 if self.phase == "denoise" else total_steps)
+        self.d_state, self.gen = None, None
         if self.phase == "denoise":
             self.step_fn = make_denoise_train_step(self.mean, self.std)
             self.gen = torch.Generator(self.device).manual_seed(opt.seed + 2)
+        elif self.phase == "gan":
+            self.d_state, perceptual = build_gan(opt, self.device, total_steps)
+            self.step_fn = make_gan_train_step(opt.scale, perceptual, self.mean, self.std)
         else:
             pixel_loss = "l1" if (opt.enchant or opt.L1_loss) else "mse"
             self.step_fn = make_pixel_train_step(opt.scale, pixel_loss, self.mean, self.std)
-            self.gen = None
+        self.loss_key = "loss/content" if self.phase == "gan" else "loss"
+        self.eval_fn = self.eval_loader = None
+        if opt.eval_every and opt.eval_json:
+            self.eval_fn = make_eval_step(scale, self.mean, self.std)
+            self.eval_loader = PatchLoader(opt.eval_json, self.loader_config)
 
-    def step(self, batch_u8: torch.Tensor) -> torch.Tensor:
+    def step(self, batch_u8: torch.Tensor):
+        """One step: the loss as a device tensor (the GAN phase: its metrics
+        dict)."""
+        if self.phase == "gan":
+            return self.step_fn(self.state, self.d_state, batch_u8)
         if self.gen is not None:
             return self.step_fn(self.state, batch_u8, self.gen)
         return self.step_fn(self.state, batch_u8)
@@ -230,18 +265,32 @@ class Run:
 
     def resume(self) -> int:
         """``--resume``: the phase's checkpoint, if there is one, by the
-        reference's per-phase epoch rule; returns the first epoch to run."""
+        reference's per-phase epoch rule (the GAN phase also restores D);
+        without it the GAN generator starts from the pixel phase's
+        checkpoint. Returns the first epoch to run."""
         if not (self.opt.resume and checkpoint_exists(self.ckpt_path)):
+            if self.phase == "gan":
+                warm_start_generator(self.state, self.work_dir / checkpoint_name(
+                    "pixel", self.opt.save_name, self.opt.rs_deep, self.opt.add_rate))
             return 0
         print(f"load from {self.ckpt_path}")
-        policy = "matched" if self.phase == "pixel" else "opt"
-        _, start_epoch = resume_state(self.state, load_checkpoint(self.ckpt_path),
-                                      epoch_policy=policy)
+        ckpt = load_checkpoint(self.ckpt_path)
+        policy = {"pixel": "matched", "denoise": "opt", "gan": "always"}[self.phase]
+        _, start_epoch = resume_state(self.state, ckpt, epoch_policy=policy)
+        if self.d_state is not None:
+            resume_discriminator(self.d_state, ckpt)
         return start_epoch
+
+    def save(self, epoch: int, losses, final: bool) -> None:
+        extra = (discriminator_payload(self.d_state, final)
+                 if self.d_state is not None else None)
+        save_checkpoint(self.ckpt_path, self.state, epoch, self.mean, self.std, losses,
+                        final=final, extra=extra)
 
     def train(self) -> list:
         """Run the epochs; returns one dict per epoch (mean loss, losses,
-        patches/s, substituted patches)."""
+        patches/s, substituted patches, and the eval metrics of an epoch
+        that ran the eval)."""
         opt = self.opt
         logger = MetricsLogger(self.work_dir, opt.save_name,
                                use_tensorboard=not opt.no_tensorboard)
@@ -254,11 +303,23 @@ class Run:
                 history.append(self._epoch(epoch, logger))
                 final = epoch == opt.epochs - 1
                 if final or (epoch + 1) % max(opt.ckpt_every, 1) == 0:
-                    save_checkpoint(self.ckpt_path, self.state, epoch, self.mean, self.std,
-                                    history[-1]["losses"], final=final)
+                    self.save(epoch, history[-1]["losses"], final)
+                if self.eval_fn is not None and (epoch + 1) % opt.eval_every == 0:
+                    history[-1]["eval"] = self.evaluate(epoch, logger)
         finally:
             logger.close()
         return history
+
+    def evaluate(self, epoch: int, logger) -> dict:
+        """The eval metrics averaged over the eval loader's first
+        ``EVAL_BATCHES`` batches, logged as ``eval/*``."""
+        ms = [self.eval_fn(self.state, torch.from_numpy(b).to(self.device))
+              for _, b in zip(range(EVAL_BATCHES), iter(self.eval_loader))]
+        agg = {k: float(torch.stack([m[k] for m in ms]).mean()) for k in ms[0]}
+        for k, v in agg.items():
+            logger.scalar(f"eval/{k}", v, self.state.step)
+        print(f"Eval [{epoch}] " + " ".join(f"{k}={v:.3f}" for k, v in agg.items()))
+        return agg
 
     def _epoch(self, epoch: int, logger) -> dict:
         self.loader.set_epoch(epoch)
@@ -266,19 +327,24 @@ class Run:
         pending, t0 = [], None
         with DevicePrefetcher(iter(self.loader), self.device) as batches:
             for batch in batches:
-                pending.append(self.step(batch))
+                out = self.step(batch)
+                pending.append(out if isinstance(out, dict) else {self.loss_key: out})
                 if t0 is None:  # time from the first step's end
                     self.sync()
                     t0 = time.perf_counter()
         if not pending:
             raise RuntimeError("epoch produced zero training batches: the input "
                                "pipeline is broken")
-        losses = torch.stack(pending).cpu().tolist()  # the epoch's one fetch
+        keys = list(pending[0])
+        fetched = torch.stack([torch.stack([m[k] for k in keys]) for m in pending])
+        fetched = fetched.cpu().tolist()  # the epoch's one fetch
         elapsed = max(time.perf_counter() - t0, 1e-9)
         bs = self.opt.batch_size
         pps = (len(pending) - 1) * bs / elapsed if len(pending) > 1 else bs / elapsed
-        for i, loss in enumerate(losses):
-            logger.scalar("loss", loss, start_step + i + 1)
+        for i, row in enumerate(fetched):
+            for k, v in zip(keys, row):
+                logger.scalar(k, v, start_step + i + 1)
+        losses = [row[keys.index(self.loss_key)] for row in fetched]
         logger.scalar("throughput/patches_per_sec", pps, self.state.step)
         substituted = self.loader.substituted
         print(f"Epoch [{epoch}] mean loss {np.mean(losses):.5f} ({pps:.1f} patches/s, "
@@ -287,6 +353,7 @@ class Run:
             print("WARNING: non-finite loss encountered this epoch -- check lr / data; "
                   "checkpoint still saved")
         return {"epoch": epoch, "mean_loss": float(np.mean(losses)), "losses": losses,
+                "metrics": {k: [row[j] for row in fetched] for j, k in enumerate(keys)},
                 "patches_per_sec": pps, "substituted": substituted}
 
 

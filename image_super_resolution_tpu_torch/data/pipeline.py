@@ -161,13 +161,18 @@ def make_sr_batch_fn(
     scale: int,
     mean: Sequence[float] = IMAGENET_MEAN,
     std: Sequence[float] = IMAGENET_STD,
+    hr_mode: str = "tanh",
 ) -> Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]:
-    """uint8 crops on the device -> (hr, lr): LR = normalize(downscale(x)),
-    HR = tanh(x) in [-1, 1] (the pixel phase)."""
+    """uint8 crops on the device -> (hr, lr): LR = normalize(downscale(x));
+    HR = tanh(x) in [-1, 1] (``hr_mode="tanh"``, the pixel phase) or
+    normalize(x) (``"norm"``, the GAN phase)."""
+    if hr_mode not in ("tanh", "norm"):
+        raise ValueError(f"hr_mode must be 'tanh' or 'norm', got {hr_mode!r}")
 
     def fn(u8: torch.Tensor):
         x01 = u8.float() / 255.0
-        return to_tanh(x01), normalize(degrade.downscale(x01, scale), mean, std)
+        hr = to_tanh(x01) if hr_mode == "tanh" else normalize(x01, mean, std)
+        return hr, normalize(degrade.downscale(x01, scale), mean, std)
 
     return fn
 

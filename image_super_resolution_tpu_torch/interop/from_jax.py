@@ -4,7 +4,8 @@ A flax param tree (nested dicts of numpy arrays, as an ``.isr`` artifact
 stores it) maps onto the port's ``state_dict`` by name: flax path
 ``rrdb0/rdb1/conv2/conv/kernel`` is ``rrdb0.rdb1.conv2.conv.weight``.
 
-- conv kernels go HWIO -> OIHW (``transpose(3, 2, 0, 1)``), biases as they are;
+- conv kernels go HWIO -> OIHW (``transpose(3, 2, 0, 1)``), dense kernels
+  (in, out) -> (out, in), biases as they are;
 - a BatchNorm node ``bn/scale``, ``bn/bias`` is ``bn.weight``, ``bn.bias``,
   and its batch_stats ``bn/mean``, ``bn/var`` are the buffers
   ``bn.running_mean``, ``bn.running_var``;
@@ -30,8 +31,10 @@ _SCATTER_KEYS = ("sx", "s0", "s1", "s2", "s3", "bias")
 
 
 def conv_kernel_to_torch(w_hwio) -> np.ndarray:
-    """flax HWIO -> torch Conv2d OIHW."""
-    return np.ascontiguousarray(np.asarray(w_hwio, np.float32).transpose(3, 2, 0, 1))
+    """flax HWIO -> torch Conv2d OIHW; a dense (in, out) kernel -> torch
+    Linear (out, in)."""
+    w = np.asarray(w_hwio, np.float32)
+    return np.array(w.T if w.ndim == 2 else w.transpose(3, 2, 0, 1), order="C")
 
 
 def _f32(x) -> torch.Tensor:
@@ -97,6 +100,8 @@ def variables_to_jax(state_dict: Mapping[str, torch.Tensor]):
         tree = params
         if leaf == "weight" and arr.ndim == 4:
             leaf, arr = "kernel", np.ascontiguousarray(arr.transpose(2, 3, 1, 0))
+        elif leaf == "weight" and arr.ndim == 2:  # nn.Linear (out, in)
+            leaf, arr = "kernel", np.ascontiguousarray(arr.T)
         elif leaf == "weight" and path[-1:] == ["bn"]:
             leaf = "scale"
         elif leaf in _STATS:

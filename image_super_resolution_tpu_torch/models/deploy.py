@@ -12,8 +12,8 @@ of the JAX package's ``models/deploy.py``).
   Every family but the optimized ``sr`` commits its params in the compute
   dtype.
 - ``build_deployed`` turns a training checkpoint into a ``DeployedModel``:
-  EMA weights preferred, BN folded (``ops/fuse.py``), mean/std from the
-  checkpoint's meta.
+  EMA weights unless ``use_ema=False`` (``cli/export.py --no_ema``), BN
+  folded (``ops/fuse.py``), mean/std from the checkpoint's meta.
 - ``save_artifact``/``load_artifact`` read and write the ``.isr`` file that
   the JAX package writes, with ``msgpack`` alone: ``{"spec": json,
   "params": fp16 tree, "format_version": 1}``, each array a msgpack ext
@@ -251,14 +251,16 @@ def init_fused_params(spec: DeploySpec, seed: int = 0) -> Dict[str, Any]:
     return params_to_jax(sd)
 
 
-def build_deployed(ckpt: Mapping[str, Any], spec: DeploySpec, dtype=torch.bfloat16,
+def build_deployed(ckpt: Mapping[str, Any], spec: DeploySpec, use_ema: bool = True,
+                   dtype=torch.bfloat16,
                    device="cuda") -> Tuple[DeployedModel, Dict[str, Any]]:
     """Training checkpoint (``train/checkpoint.load_checkpoint``) -> fused
     ``DeployedModel`` and the fused params tree, as the reference export
-    does it: EMA weights preferred, the dataset mean/std of the checkpoint's
-    meta baked in, BN folded. A checkpoint without EMA falls back to its
-    raw params and raw batch_stats together."""
-    use = bool(ckpt.get("ema_params"))
+    does it: EMA weights unless ``use_ema=False``, the dataset mean/std of
+    the checkpoint's meta baked in, BN folded. Raw params go with the raw
+    batch_stats, EMA params with the EMA statistics (also when a checkpoint
+    without EMA falls back to its raw ones)."""
+    use = use_ema and bool(ckpt.get("ema_params"))
     params = ckpt["ema_params"] if use else ckpt["params"]
     stats = (ckpt.get("ema_batch_stats") if use else ckpt.get("batch_stats")) or {}
     fused = fuse_conv_bn(params, stats)

@@ -1,5 +1,5 @@
 """Core convolution block on NHWC tensors (counterpart of the JAX package's
-``ops/conv.py``): conv('same') [+ BatchNorm] + act.
+``ops/conv.py``): conv('same') [+ BatchNorm] + act, and the dense block.
 
 The block takes and returns NHWC. ``x.permute(0, 3, 1, 2)`` of a contiguous
 NHWC tensor is an NCHW view in ``channels_last`` memory, so the convolution
@@ -156,6 +156,26 @@ class ConvBlock(nn.Module):
         if is_prelu(self.act):
             return self.prelu(y)
         return apply_act(y, self.act)
+
+
+class DenseBlock(nn.Module):
+    """Linear [+ act] (the discriminator's head; flax ``DenseBlock``):
+    ``dense.weight`` (out, in) and ``dense.bias`` (flax ``dense/kernel``
+    (in, out), ``dense/bias``). As in flax's ``nn.Dense`` with a compute
+    ``dtype``: the product rounded to that dtype, then the bias in it."""
+
+    def __init__(self, in_features: int, features: int, act: ActSpec = None,
+                 dtype=torch.float32, param_dtype=None, device="cuda"):
+        super().__init__()
+        self.act = act
+        self.dtype = dtype
+        self.dense = nn.Linear(in_features, features, dtype=param_dtype or dtype,
+                               device=resolve_device(device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.dense
+        y = F.linear(x.to(self.dtype), d.weight.to(self.dtype))
+        return apply_act(y + d.bias.to(self.dtype), self.act)
 
 
 def same_conv(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:

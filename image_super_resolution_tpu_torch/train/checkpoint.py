@@ -13,18 +13,27 @@ package resumes the other's checkpoints, optimizer included.
   the JAX package's optax chain: ``{"0": {}, "1": {"0": {"count", "mu",
   "nu"}, "1": {"count"}}}`` (clip, Adam, schedule), with an empty ``"1"``
   for the coupled L2 and Adam moved to ``"2"`` when ``--weight_decay > 0``.
-- Written to ``<name>.tmp``, then renamed over the old file.
+- ``extra`` entries go in as they are: the GAN phase's discriminator
+  (``discriminator_payload``: ``d_params`` and ``d_batch_stats`` in fp32,
+  and, but on the final epoch, ``d_opt_state`` and ``d_step``).
+- Written to ``<name>.tmp``, then renamed over the old file. An Orbax
+  checkpoint directory at the path (a JAX ``--ckpt_backend orbax`` run) is
+  first moved to ``<name>.old`` and removed after the rename, so the disk
+  always holds a checkpoint; a stale ``<name>.old`` directory is removed.
 - Resume restores every leaf whose path and shape match, and the optimizer
   and epoch only when all matched, by the reference's per-phase rules
-  (``resume_state``).
+  (``resume_state``; the discriminator: ``resume_discriminator``).
+- The GAN phase starts its generator from the pixel phase's EMA weights
+  (``warm_start_generator``).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 from pathlib import Path
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,7 +41,7 @@ import torch
 from ..interop.from_jax import params_from_jax, variables_from_jax, variables_to_jax
 from ..utils.general import intersect_trees
 from ..utils.serialization import map_tree, msgpack_restore, msgpack_serialize, to_fp16, to_fp32
-from .state import TrainState
+from .state import EMA, TrainState
 
 
 def checkpoint_name(phase: str, save_name: str, depth: int, add_rate: float) -> str:
@@ -93,7 +102,8 @@ def opt_state_from_jax(state: TrainState, tree: Dict[str, Any]) -> None:
 
 
 def save_checkpoint(path: str | Path, state: TrainState, epoch: int, mean, std,
-                    loss_history=None, final: bool = False) -> None:
+                    loss_history=None, final: bool = False,
+                    extra: Optional[Dict[str, Any]] = None) -> None:
     params, stats = variables_to_jax(state.model.state_dict())
     payload: Dict[str, Any] = {
         "params": map_tree(to_fp16, params),
@@ -112,11 +122,36 @@ def save_checkpoint(path: str | Path, state: TrainState, epoch: int, mean, std,
     payload["ema_updates"] = int(state.ema.updates)
     if not final:  # the reference drops the optimizer on the last epoch
         payload["opt_state"] = opt_state_to_jax(state)  # fp32: nu underflows fp16
+    payload.update(extra or {})
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(path.suffix + ".tmp")
     tmp.write_bytes(msgpack_serialize(payload))
-    os.replace(tmp, path)
+    old = path.with_name(path.name + ".old")
+    if path.is_dir():  # an Orbax checkpoint: a file cannot be renamed onto it
+        if old.is_dir():
+            shutil.rmtree(old)
+        elif old.exists():
+            old.unlink()
+        path.rename(old)
+        os.replace(tmp, path)
+        shutil.rmtree(old)
+    else:
+        os.replace(tmp, path)
+        if old.is_dir():  # left by a crash inside an Orbax save; superseded now
+            shutil.rmtree(old)
+
+
+def discriminator_payload(d_state: TrainState, final: bool = False) -> Dict[str, Any]:
+    """The GAN checkpoint's ``extra`` entries for D, as the JAX CLI writes
+    them: fp32 ``d_params`` and ``d_batch_stats``, and, but on the final
+    epoch, ``d_opt_state`` (the optax chain's state dict) and ``d_step``."""
+    params, stats = variables_to_jax(d_state.model.state_dict())
+    out: Dict[str, Any] = {"d_params": params, "d_batch_stats": stats}
+    if not final:
+        out["d_opt_state"] = opt_state_to_jax(d_state)
+        out["d_step"] = int(d_state.step)
+    return out
 
 
 def load_checkpoint(path: str | Path) -> Dict[str, Any]:
@@ -174,3 +209,48 @@ def resume_state(state: TrainState, ckpt: Dict[str, Any], verbose: bool = True,
     if verbose:
         print(f"Loaded pre-trained {matched}/{total} model")
     return state, start_epoch
+
+
+def resume_discriminator(d_state: TrainState, ckpt: Dict[str, Any]) -> TrainState:
+    """D's params and statistics from a GAN checkpoint (matching leaves),
+    and its optimizer and step when ``d_opt_state`` is there and fits; a
+    checkpoint without ``d_params`` leaves D as it is."""
+    if "d_params" not in ckpt:
+        return d_state
+    params, stats = variables_to_jax(d_state.model.state_dict())
+    params, _, _ = intersect_trees(ckpt["d_params"], params)
+    stats, _, _ = intersect_trees(ckpt.get("d_batch_stats", {}), stats)
+    d_state.model.load_state_dict(variables_from_jax(params, stats))
+    if "d_opt_state" in ckpt:
+        try:
+            opt_state_from_jax(d_state, ckpt["d_opt_state"])
+        except (ValueError, KeyError) as e:
+            print("WARNING: discriminator optimizer state in checkpoint is incompatible "
+                  f"({e}); resuming D weights only")
+        else:
+            d_state.step = int(ckpt.get("d_step", 0))
+    return d_state
+
+
+def warm_start_generator(g_state: TrainState, pretrain_ckpt_path: str | Path,
+                         verbose: bool = True) -> TrainState:
+    """The GAN generator from the pixel phase's checkpoint: its EMA params
+    and statistics (the raw ones without an EMA), matching leaves only; the
+    EMA restarts from them. A checkpoint that cannot be read leaves the
+    fresh generator, with a message."""
+    try:
+        ckpt = load_checkpoint(pretrain_ckpt_path)
+    except Exception:
+        if verbose:
+            print("Could not load pretrain checkpoint.")
+        return g_state
+    params, stats = variables_to_jax(g_state.model.state_dict())
+    params, matched, total = intersect_trees(ckpt.get("ema_params", ckpt.get("params")), params)
+    stats, _, _ = intersect_trees(ckpt.get("ema_batch_stats", ckpt.get("batch_stats", {})),
+                                  stats)
+    g_state.model.load_state_dict(variables_from_jax(params, stats))
+    if g_state.ema is not None:
+        g_state.ema = EMA(g_state.model, g_state.ema.tau)
+    if verbose:
+        print(f"loaded pre-trained generator ({matched}/{total} leaves)")
+    return g_state

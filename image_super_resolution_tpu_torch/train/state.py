@@ -11,13 +11,15 @@ One step after ``loss.backward()`` runs, in the JAX package's order:
    steps, stepped per batch (optax ``linear_schedule``);
 4. BatchNorm running statistics folded in (``ops/conv.commit_batch_stats``);
 5. the ramped EMA ``d = 0.9999 (1 - exp(-u / tau))``, ``e = e d + w (1 - d)``
-   over the params and the BN running statistics, in fp32.
+   over the params and the BN running statistics, in fp32 (none for the
+   GAN phase's discriminator, ``with_ema=False``).
 
 Nothing here reads a value back from the device.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Dict, List, Optional
 
@@ -71,7 +73,7 @@ class TrainState:
 
     def __init__(self, model: nn.Module, lr: float = 1e-4, lr2: float = 0.01,
                  total_steps: int = 1, weight_decay: float = 0.0, b2: float = 0.999,
-                 ema_tau: Optional[float] = 2000.0):
+                 ema_tau: Optional[float] = 2000.0, with_ema: bool = True):
         self.model = model.train()
         self.params: List[nn.Parameter] = list(model.parameters())
         on_card = self.params[0].device.type == "cuda"
@@ -80,8 +82,20 @@ class TrainState:
                                           fused=True if on_card else None)
         self.lr, self.lr2, self.total_steps = lr, lr2, total_steps
         self.step = 0
-        self.ema = EMA(model, ema_tau or 2000.0)
+        self.ema = EMA(model, ema_tau or 2000.0) if with_ema else None
         self._batch_norms = batch_norms(model)
+        self._eval_model = None
+
+    def backward(self, loss: torch.Tensor) -> None:
+        """This model's gradients of ``loss``, and no other's: a loss that
+        also runs through another network (G's loss through D) leaves that
+        network's ``.grad`` untouched, as ``jax.grad`` over these params."""
+        grads = torch.autograd.grad(loss, self.params, allow_unused=True)
+        for p, g in zip(self.params, grads):
+            # None where the loss does not reach p, as backward() leaves it; in
+            # p's own layout (a conv's gradient comes channels-last), which the
+            # fused Adam requires
+            p.grad = None if g is None else g.contiguous()
 
     def clip_and_adam(self) -> None:
         """Steps 1-3: global-norm clip, coupled L2 + Adam at this step's lr."""
@@ -97,7 +111,23 @@ class TrainState:
     def commit_and_ema(self) -> None:
         """Steps 4-5: the BN statistics of this step's forward, then the EMA."""
         commit_batch_stats(self._batch_norms)
-        self.ema.update()
+        if self.ema is not None:
+            self.ema.update()
+
+    def discard_batch_stats(self) -> None:
+        """Drop the statistics of the last train forward without folding
+        them in (the GAN step's D forward inside G's loss)."""
+        for m in self._batch_norms:
+            m.batch_stats = None
+
+    def eval_model(self) -> nn.Module:
+        """A copy of the model in eval mode holding the EMA's params and
+        statistics as they are now (the live ones without an EMA)."""
+        if self._eval_model is None:
+            self._eval_model = copy.deepcopy(self.model).eval().requires_grad_(False)
+        source = self.ema.state_dict() if self.ema is not None else self.model.state_dict()
+        self._eval_model.load_state_dict(source)
+        return self._eval_model
 
     def fit(self, x: torch.Tensor, target: torch.Tensor, loss_fn) -> torch.Tensor:
         """One step on (input, target); returns the loss as a device tensor."""

@@ -1,10 +1,13 @@
 """Checkpoints and the training CLI of the port against the JAX package on
 the CPU: files written by each package resumed by the other with the
-optimizer, the per-phase epoch policies, and ``cli/train --device cpu``
-(phases, options, resume, the substitution count, refusals). Tiny models
-(depth 1-2, width 8) in fp32; tolerances are stated where they are used."""
+optimizer, the per-phase epoch policies, saving over an Orbax directory,
+``cli/train --device cpu`` (phases, options, resume, the substitution
+count, refusals) and its GAN phase (warm start, eval, resume with the
+discriminator across the packages). Tiny generators (depth 1-2, width 8)
+in fp32; tolerances are stated where they are used."""
 
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -12,7 +15,9 @@ import torch
 
 import jax
 import jax.numpy as jnp
+from flax import serialization
 
+from image_super_resolution_tpu.models import Discriminator as JaxDiscriminator
 from image_super_resolution_tpu.models import SRGenerator as JaxSRGenerator
 from image_super_resolution_tpu.train import checkpoint as jax_ckpt
 from image_super_resolution_tpu.train.state import build_optimizer, create_train_state
@@ -29,7 +34,9 @@ from image_super_resolution_tpu_torch.train.steps import make_pixel_train_step
 from image_super_resolution_tpu_torch.utils.png import write_png
 
 # As in tests/test_torch_train.py: one fp32 step from the same checkpoint,
-# losses within 1e-6 relative; params and EMA within 2e-6, but for at most
+# losses within 1e-6 relative (a first step's loss is one forward of the
+# same params: within 1.2e-7 to 3.1e-7 by scripts/torch_train_fp64_gap.py);
+# params and EMA within 2e-6, but for at most
 # 0.1% of a tensor whose gradient is rounding noise (Adam turns it into up
 # to lr), within 2 lr; BN statistics within 2e-5.
 LR, TOTAL = 1e-3, 30
@@ -292,8 +299,8 @@ def test_cli_counts_substituted_patches(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,slice_name", [
-    ([], "slice 4b"),
-    (["--resnet", "--eval_every", "1"], "slice 5"),
+    (["--ckpt_backend", "orbax"], "slice 5"),
+    (["--loader_backend", "native"], "slice 5"),
     (["--resnet", "--ckpt_backend", "orbax"], "slice 5"),
     (["--resnet", "--profile_dir", "prof"], "slice 5"),
     (["--resnet", "--loader_backend", "native"], "slice 5"),
@@ -327,3 +334,166 @@ def test_cli_preset_and_checks_match_jax():
                   ["--resnet", "--refine_blocks", "1"]):
         with pytest.raises(SystemExit):
             cli_train.check_options(cli_train.build_parser().parse_args(flags))
+
+
+# ------------------------------------------------- Orbax directory swap --
+
+@pytest.mark.parametrize("at_path,stale_old", [("directory", False), ("directory", True),
+                                                ("file", True)])
+def test_save_over_an_orbax_directory(at_path, stale_old, tmp_path, monkeypatch):
+    """A JAX --ckpt_backend orbax run leaves a checkpoint DIRECTORY at the
+    name the port saves to; a crash inside an Orbax save can leave one at
+    <name>.old. The save succeeds over both, as the JAX save does: the
+    directory is moved to <name>.old before the new file is renamed in (so
+    the disk holds a checkpoint at every moment), then removed, and a stale
+    .old directory is removed."""
+    path, old = tmp_path / "gen_x_1_0.2.ckpt", tmp_path / "gen_x_1_0.2.ckpt.old"
+    if at_path == "directory":
+        (path / "state").mkdir(parents=True)
+        (path / "state" / "x").write_bytes(b"orbax")
+    else:
+        path.write_bytes(b"an older checkpoint")
+    if stale_old:
+        (old / "stale").mkdir(parents=True)
+    seen = []
+    replace = ckpt.os.replace
+
+    def watched(src, dst):
+        if Path(dst) == path:
+            seen.append((path.exists(), old.is_dir()))
+        replace(src, dst)
+
+    monkeypatch.setattr(ckpt.os, "replace", watched)
+    state = TrainState(init_weights(SRGenerator(depth=1, width=8, fused=False,
+                                                device="cpu"), 0))
+    ckpt.save_checkpoint(path, state, 0, (0.4, 0.5, 0.6), (0.2, 0.2, 0.2), [0.1])
+    assert path.is_file() and not old.exists()
+    # during the rename the Orbax directory waits at .old: never no checkpoint
+    assert seen == [(False, True)] if at_path == "directory" else [(True, True)]
+    assert ckpt.load_checkpoint(path)["meta"]["epoch"] == 0
+    assert jax_ckpt.load_checkpoint(path)["meta"]["epoch"] == 0
+
+
+# -------------------------------------------------------------- GAN phase --
+
+def test_cli_gan_phase_warm_starts_evaluates_and_resumes(tmp_path, capsys):
+    """The GAN phase on the CPU: without a pixel checkpoint it says so and
+    starts fresh; after a pixel run it warm-starts G from that run's EMA
+    (the matched-leaves line), trains D, VGG on random features, logs
+    loss/content, loss/adv and loss/dis per step and eval/psnr, psnr_y,
+    ssim after each epoch (--eval_every 1), saves D (with its Adam but on
+    the final epoch), and --resume continues both optimizers by the "always"
+    rule."""
+    m = _manifest(tmp_path)
+    with pytest.raises(SystemExit):  # --eval_every without a phase flag still parses
+        cli_train.build_parser().parse_args(["--eval_every"])
+    _cli(tmp_path, m, "--epochs", "1", "--save_name", "fresh")
+    assert "Could not load pretrain checkpoint." in capsys.readouterr().out
+    _cli(tmp_path, m, "--resnet", "--epochs", "1")
+    pixel = ckpt.load_checkpoint(tmp_path / "w" / "res_checkpoint_1_0.2.ckpt")
+    run = cli_train.Run(cli_train.build_parser().parse_args([
+        "--train_json", str(m), "--work_dir", str(tmp_path / "w"), "--batch_size", "2",
+        "--shape", "16", "--device", "cpu", "--no_tensorboard", "--rs_deep", "1",
+        "--width", "8", "--epochs", "2", "--eval_every", "1", "--eval_json", str(m)]))
+    assert run.resume() == 0
+    assert "loaded pre-trained generator (54/54 leaves)" in capsys.readouterr().out
+    params, _ = variables_to_jax(run.state.model.state_dict())
+    _assert_trees_close(params, pixel["ema_params"], 0, "warm-started G")
+    assert run.state.ema.updates == 0
+    history = run.train()
+    assert [h["epoch"] for h in history] == [0, 1]
+    for h in history:
+        assert sorted(h["metrics"]) == ["loss/adv", "loss/content", "loss/dis"]
+        assert h["losses"] == h["metrics"]["loss/content"]
+        assert sorted(h["eval"]) == ["psnr", "psnr_y", "ssim"]
+        assert all(np.isfinite(v) for v in h["eval"].values())
+    tags = {json.loads(line)["tag"] for line in
+            (tmp_path / "w" / "checkpoint_metrics.jsonl").open()}
+    assert {"loss/content", "loss/adv", "loss/dis", "eval/psnr", "eval/psnr_y",
+            "eval/ssim"} <= tags
+    path = tmp_path / "w" / "gen_checkpoint_1_0.2.ckpt"
+    final = ckpt.load_checkpoint(path)
+    assert {"d_params", "d_batch_stats"} <= set(final) and "d_opt_state" not in final
+    assert final["meta"]["epoch"] == 1 and final["meta"]["step"] == 2
+    resumed = _cli(tmp_path, m, "--epochs", "3", "--resume")
+    assert [h["epoch"] for h in resumed] == [2]
+
+
+def _jax_gan_states(d_channels=64, fc_size=1024):
+    tx = build_optimizer(lr=LR, total_steps=TOTAL)
+    jg = create_train_state(JaxSRGenerator(depth=1, width=8, scale=2, dtype=jnp.float32),
+                            (1, 16, 16, 3), tx, jax.random.PRNGKey(0), ema_tau=TOTAL)
+    jd = create_train_state(JaxDiscriminator(3, d_channels, 8, fc_size, dtype=jnp.float32),
+                            (1, 16, 16, 3), tx, jax.random.PRNGKey(1), with_ema=False)
+    return jg, jd
+
+
+def test_port_resumes_a_jax_gan_checkpoint_with_the_discriminator(tmp_path):
+    """A GAN checkpoint written as the JAX CLI writes it (D's fp32 params
+    and statistics, its optax state dict with set moments, d_step 3):
+    --resume restores G, D's params, D's Adam moments (fc kernels
+    transposed) and D's step, and the run continues at the next epoch."""
+    m = _manifest(tmp_path)
+    jg, jd = _jax_gan_states()
+    rng = np.random.default_rng(0)
+    d_opt = jax.tree_util.tree_map(
+        lambda a: rng.standard_normal(np.shape(a)).astype(np.float32) if np.ndim(a) else a,
+        _np(serialization.to_state_dict(jd.opt_state)))
+    d_opt["1"]["0"]["count"] = d_opt["1"]["1"]["count"] = np.asarray(3, np.int32)
+    d_stats = jax.tree_util.tree_map(lambda a: rng.uniform(0.5, 1.5, a.shape).astype(
+        np.float32), _np(jd.batch_stats))
+    path = tmp_path / "w" / "gen_checkpoint_1_0.2.ckpt"
+    jax_ckpt.save_checkpoint(path, jg, 0, (0.4, 0.5, 0.6), (0.2, 0.2, 0.2), [0.3],
+                             extra={"d_params": _np(jd.params), "d_batch_stats": d_stats,
+                                    "d_opt_state": d_opt, "d_step": 3})
+    run = cli_train.Run(cli_train.build_parser().parse_args([
+        "--train_json", str(m), "--work_dir", str(tmp_path / "w"), "--batch_size", "2",
+        "--shape", "16", "--device", "cpu", "--no_tensorboard", "--rs_deep", "1",
+        "--width", "8", "--epochs", "2", "--resume"]))
+    assert run.resume() == 1
+    assert len(run.state.optimizer.state) == len(run.state.params)  # G's Adam too
+    d = run.d_state
+    assert d.step == 3
+    params, stats = variables_to_jax(d.model.state_dict())
+    _assert_trees_close(params, jd.params, 0, "D params")
+    _assert_trees_close(stats, d_stats, 0, "D batch_stats")
+    adam = d.optimizer.state[d.model.fc1.dense.weight]
+    np.testing.assert_array_equal(adam["exp_avg"].T.numpy(),
+                                  d_opt["1"]["0"]["mu"]["fc1"]["dense"]["kernel"])
+    np.testing.assert_array_equal(
+        d.optimizer.state[d.model.block3.conv.weight]["exp_avg_sq"].permute(2, 3, 1, 0).numpy(),
+        d_opt["1"]["0"]["nu"]["block3"]["conv"]["kernel"])
+    assert float(adam["step"]) == 3
+    assert [h["epoch"] for h in run.train()] == [1] and d.step == 4  # one step per epoch
+
+
+def test_jax_resumes_a_port_gan_checkpoint_with_the_discriminator(tmp_path):
+    """The JAX CLI's GAN resume on the port's file: resume_state by the
+    "always" rule for G, then D's params, statistics and optax chain
+    (flax from_state_dict, as cli/train.py does) equal to the port's, and
+    d_step."""
+    m = _manifest(tmp_path)
+    run = cli_train.Run(cli_train.build_parser().parse_args([
+        "--train_json", str(m), "--work_dir", str(tmp_path / "w"), "--batch_size", "2",
+        "--shape", "16", "--device", "cpu", "--no_tensorboard", "--rs_deep", "1",
+        "--width", "8", "--epochs", "2"]))
+    run.step(torch.from_numpy(next(iter(run.loader))))
+    run.save(0, [0.5], final=False)
+    loaded = jax_ckpt.load_checkpoint(run.ckpt_path)
+    jg, jd = _jax_gan_states()
+    jg, start = jax_ckpt.resume_state(jg, loaded, epoch_policy="always")
+    assert start == 1 and int(jg.step) == 1
+    d_opt = serialization.from_state_dict(jd.opt_state, loaded["d_opt_state"])
+    assert int(loaded["d_step"]) == 1 and int(d_opt[1][0].count) == 1
+    d = run.d_state
+    np.testing.assert_array_equal(
+        np.asarray(d_opt[1][0].mu["fc1"]["dense"]["kernel"]),
+        d.optimizer.state[d.model.fc1.dense.weight]["exp_avg"].T.numpy())
+    np.testing.assert_array_equal(
+        np.asarray(d_opt[1][0].nu["block5"]["bn"]["scale"]),
+        d.optimizer.state[d.model.block5.bn.weight]["exp_avg_sq"].numpy())
+    params, stats = variables_to_jax(d.model.state_dict())
+    _assert_trees_close(params, loaded["d_params"], 0, "D params")
+    _assert_trees_close(stats, loaded["d_batch_stats"], 0, "D batch_stats")
+    assert jax.tree_util.tree_structure(loaded["d_params"]) == \
+        jax.tree_util.tree_structure(_np(jd.params))

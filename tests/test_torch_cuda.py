@@ -309,6 +309,121 @@ def test_denoise_families_on_card_within_bound(card, family):
     assert (got.cpu().int() - want.int()).abs().max().item() <= DENOISE_BF16_MAX_LSB
 
 
+def _gan_states(device):
+    """G (BN, x2, depth 2, width 64), D (3, 64, 8, 1024) and VGG19 truncated
+    at (1, 2), before its first max-pool, on random features, all fp32 at
+    the GAN phase's lr 1e-4, from fixed seeds."""
+    from image_super_resolution_tpu_torch.losses.perceptual import PerceptualLoss
+    from image_super_resolution_tpu_torch.models.discriminator import Discriminator
+    from image_super_resolution_tpu_torch.models.generator import SRGenerator
+    from image_super_resolution_tpu_torch.models.vgg import TruncatedVGG19, init_random_vgg
+    from image_super_resolution_tpu_torch.ops.initializers import init_weights
+    from image_super_resolution_tpu_torch.train.state import TrainState
+
+    g = init_weights(SRGenerator(depth=2, width=64, scale=2, fused=False,
+                                 param_dtype=torch.float32, device=device), 0)
+    d = init_weights(Discriminator(dtype=torch.float32, device=device), 1)
+    vgg = init_random_vgg(TruncatedVGG19(1, 2, dtype=torch.float32, device=device))
+    return (TrainState(g, lr=1e-4, total_steps=10, ema_tau=10),
+            TrainState(d, lr=1e-4, total_steps=10, with_ema=False),
+            PerceptualLoss(vgg, feature_norm=True))
+
+
+def test_gan_step_on_card_matches_cpu(card):
+    """Three GAN steps (G as in the pixel test, the full-width D, VGG19 up
+    to its first max-pool) in fp32 with TF32 off, on the card and on the CPU
+    from the same seeds. Each of the three losses within 1e-4 relative (D's
+    logits sum 36 * 512 features through seven BNs: measured 1.95e-5 on an
+    H100); G's and then D's gradients, each element within 1e-3 of that
+    model's largest gradient but for at most 0.1% of its elements (see
+    below), checked where the step's ``mark`` reports them and replaced by
+    the CPU's, so that both optimizers take the same gradients: then G's
+    params and EMA and D's params within 1e-6, and the BN running statistics
+    of both (D's folded from two forwards a step) and G's EMA of them within
+    1e-5, each of max(1, |value|).
+
+    A few elements may be off, and VGG stops before its first max-pool,
+    because a leaky ReLU's slope and a max-pool's argmax change at a point:
+    where a pre-activation lies within the devices' rounding of 0, or two
+    inputs of a pool window of each other, the card and the CPU
+    back-propagate differently, both right. Measured on an H100: a flipped
+    slope in D's block1 moved 225 elements of its kernel gradient (one
+    output channel's) by up to 4.8e-3 of D's largest gradient; a flipped
+    argmax in VGG (5, 4) moved one input gradient by 1.4e-2 of the largest
+    (scripts/torch_gan_card_probe.py). lr is the GAN phase's 1e-4: at 1e-3
+    the full-width D saturates within two steps and its BCE and gradients
+    shrink to rounding noise."""
+    from image_super_resolution_tpu_torch.train.steps import make_gan_train_step
+
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    card_g, card_d, card_perc = _gan_states(card)
+    cpu_g, cpu_d, cpu_perc = _gan_states("cpu")
+    want_grads = {}
+
+    def record(part):
+        for st, key in ((cpu_g, "G backward"), (cpu_d, "D backward")):
+            if part == key:
+                want_grads[key] = [p.grad.clone() for p in st.params]
+
+    def check_and_replace(part):
+        for st, key in ((card_g, "G backward"), (card_d, "D backward")):
+            if part == key:
+                scale = max(g.abs().max().item() for g in want_grads[key])
+                off = sum(int(((p.grad.cpu() - g).abs() > 1e-3 * scale).sum())
+                          for p, g in zip(st.params, want_grads[key]))
+                assert off <= 1e-3 * sum(g.numel() for g in want_grads[key]), (key, off)
+                for p, g in zip(st.params, want_grads[key]):
+                    p.grad.copy_(g)
+
+    try:
+        for _ in range(3):
+            u8 = torch.from_numpy(rng.integers(0, 256, (4, 48, 48, 3), dtype=np.uint8))
+            want = make_gan_train_step(2, cpu_perc)(cpu_g, cpu_d, u8, record)
+            got = make_gan_train_step(2, card_perc)(card_g, card_d, u8.to(card),
+                                                    check_and_replace)
+            for k, w in want.items():
+                assert abs(got[k].item() - w.item()) <= 1e-4 * abs(w.item()), k
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    for got, want in ((card_g.model.state_dict(), cpu_g.model.state_dict()),
+                      (card_g.ema.state_dict(), cpu_g.ema.state_dict()),
+                      (card_d.model.state_dict(), cpu_d.model.state_dict())):
+        for name, w in want.items():
+            rel = ((got[name].cpu() - w).abs() / w.abs().clamp_min(1.0)).max().item()
+            assert rel <= (1e-5 if "running" in name else 1e-6), name
+
+
+def test_discriminator_and_vgg_bf16_on_card_match_fp32(card):
+    """The full-width D (train and eval mode) and VGG19 (5, 4) in bf16 on the
+    card against fp32 on the CPU, at 2x96x96: D's logits within 3% of the
+    largest fp32 logit and VGG's features within 3% of the largest fp32
+    feature (the CPU's own bf16 runs: within 1.2% and 1.1%,
+    tests/test_torch_gan.py::test_discriminator_and_vgg_bf16_match_fp32)."""
+    from image_super_resolution_tpu_torch.models.discriminator import Discriminator
+    from image_super_resolution_tpu_torch.models.vgg import TruncatedVGG19, init_random_vgg
+    from image_super_resolution_tpu_torch.ops.initializers import init_weights
+
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((2, 96, 96, 3),
+                                                                  dtype=np.float32))
+    d32 = init_weights(Discriminator(dtype=torch.float32, device="cpu"), 0)
+    d16 = Discriminator(device=card)
+    d16.load_state_dict(d32.state_dict())
+    v32 = init_random_vgg(TruncatedVGG19(dtype=torch.float32, device="cpu"))
+    v16 = TruncatedVGG19(device=card)
+    v16.load_state_dict(v32.state_dict())
+    with torch.no_grad():
+        for mode in ("train", "eval"):
+            want = getattr(d32, mode)()(x)
+            got = getattr(d16, mode)()(x.to(card)).cpu()
+            assert got.dtype == torch.float32 and got.shape == (2, 1)
+            assert (got - want).abs().max().item() <= 0.03 * want.abs().max().item(), mode
+        want, got = v32(x), v16(x.to(card)).cpu()
+    assert got.shape == want.shape == (2, 6, 6, 512)
+    assert (got - want).abs().max().item() <= 0.03 * want.abs().max().item()
+
+
 def test_build_deployed_launches_k1_and_k2(card, tmp_path):
     """A checkpoint written by training serves through the kernels:
     build_deployed of the BN generator launches K1 three times per RRDB,

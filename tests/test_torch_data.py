@@ -270,3 +270,68 @@ def test_intersect_trees_and_ground_up_match_jax():
     np.testing.assert_array_equal(ours[0]["a"]["k"], theirs[0]["a"]["k"])
     for v, s in ((96, 2), (97, 4), (5, 1), (0, 3)):
         assert ground_up(v, s) == jax_ground_up(v, s)
+
+
+def test_sr_batch_fn_norm_mode_matches_jax():
+    """hr_mode="norm" (the GAN phase): HR normalized with the dataset
+    mean/std, LR as in the tanh mode; within 1e-6 of JAX's."""
+    u8 = np.random.default_rng(4).integers(0, 256, (2, 16, 16, 3), dtype=np.uint8)
+    mean, std = (0.4, 0.5, 0.6), (0.2, 0.25, 0.3)
+    want = jax_make_sr_batch_fn(2, "norm", mean, std)(jnp.asarray(u8))
+    got = make_sr_batch_fn(2, mean, std, hr_mode="norm")(torch.from_numpy(u8))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="hr_mode"):
+        make_sr_batch_fn(2, hr_mode="01")
+
+
+def test_gan_transforms_match_jax():
+    """tanh_to_01, tanh_to_norm and the BT.601 y_channel (border 4, and
+    none): within 1e-6 (1e-4 for Y, in [16, 235]) of JAX's."""
+    from image_super_resolution_tpu.data import transforms as jt
+    from image_super_resolution_tpu_torch.data import transforms as tt
+
+    x = np.random.default_rng(5).uniform(-1, 1, (2, 12, 10, 3)).astype(np.float32)
+    mean, std = (0.4, 0.5, 0.6), (0.2, 0.25, 0.3)
+    pairs = [(tt.tanh_to_01(torch.from_numpy(x)), jt.tanh_to_01(jnp.asarray(x)), 1e-6),
+             (tt.tanh_to_norm(torch.from_numpy(x), mean, std),
+              jt.tanh_to_norm(jnp.asarray(x), mean, std), 1e-6)]
+    x01 = (x + 1) / 2
+    for border in (4, 0):
+        pairs.append((tt.y_channel(torch.from_numpy(x01), border),
+                      jt.y_channel(jnp.asarray(x01), border), 1e-4))
+    for got, want, atol in pairs:
+        assert tuple(got.shape) == want.shape
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=atol)
+
+
+def test_create_json_matches_jax(tmp_path, capsys):
+    """cli/create_json over nested folders holding good PNGs, one smaller
+    than --shape, one that no decoder reads and a non-image file: the same
+    train and val lists as the JAX package's (sorted, recursive), the small
+    and the unreadable files skipped and counted, and nothing deleted."""
+    from image_super_resolution_tpu.data.manifest import create_data_lists as jax_lists
+    from image_super_resolution_tpu_torch.cli import create_json
+
+    rng = np.random.default_rng(6)
+    train, val = tmp_path / "train", tmp_path / "val"
+    (train / "sub").mkdir(parents=True)
+    val.mkdir()
+    for path, hw in ((train / "b.png", (40, 36)), (train / "sub" / "a.png", (32, 50)),
+                     (train / "small.png", (20, 40)), (val / "v.png", (33, 33))):
+        write_png(path, rng.integers(0, 256, (*hw, 3), dtype=np.uint8))
+    (train / "broken.png").write_bytes(b"not an image")
+    (train / "notes.txt").write_text("not an image either")
+    before = sorted(p.name for p in tmp_path.rglob("*"))
+    out_t, out_v = create_json.main(["--train_dirs", str(train), "--val_dirs", str(val),
+                                     "--shape", "32", "--output", str(tmp_path / "ours")])
+    printed = capsys.readouterr().out
+    assert "There are 2 images in the training data (2 skipped)." in printed
+    assert "There are 1 images in the validating data (0 skipped)." in printed
+    jt, jv = jax_lists([train], [val], 32, tmp_path / "theirs")
+    assert json.loads(out_t.read_text()) == json.loads(jt.read_text()) == [
+        (train / "b.png").as_posix(), (train / "sub" / "a.png").as_posix()]
+    assert json.loads(out_v.read_text()) == json.loads(jv.read_text())
+    assert load_manifest(out_t) == json.loads(jt.read_text())
+    assert sorted(p.name for p in tmp_path.rglob("*") if p.parent.name not in
+                  ("ours", "theirs") and p.name not in ("ours", "theirs")) == before

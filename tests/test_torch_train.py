@@ -38,17 +38,23 @@ from image_super_resolution_tpu_torch.train.steps import (
     make_pixel_train_step,
 )
 
-# fp32 steps: the same convs summed in another order. Measured: gradients
-# within 3.5e-8 of JAX's (largest 0.03; bound GRAD_ATOL); losses within 1e-7
-# relative (bound LOSS_RTOL); after three steps at lr 1e-3, params, EMA and
+# fp32 steps: the same convs summed in another order. Both sides are held
+# on the scale of the float64 run (scripts/torch_train_fp64_gap.py, on the
+# CPU): each fp32 side lies within 1.09e-6 of the model's largest float64
+# gradient (the port 0.95e-6, JAX 1.09e-6, both worst on tail.conv.weight of
+# the Denoiser d2 w8, spread over every tensor), and its three losses within
+# 7.4e-7 relative (the two sides' gaps sum to at most 9.8e-7, at step 2).
+# Bounds: twice the sum of the two sides' gaps, on the same scale:
+# GRAD_RTOL of the largest gradient (elementwise) and LOSS_RTOL relative.
+# After three steps at lr 1e-3, params, EMA and
 # BN statistics within 2e-7 (bound STEP_ATOL), except where a gradient is
 # itself rounding noise (|g| ~ 1e-8, Adam's eps): Adam divides it by its
 # own size, so its update can differ by a good part of lr. Up to
 # NOISY_SHARE of a leaf's elements may do so, each by at most 2 * 3 * lr,
 # the most two Adam trajectories part in three steps. The BN statistics of
 # later batches see those elements: measured within 4e-6 (bound STATS_ATOL).
-GRAD_ATOL = 1e-7
-LOSS_RTOL = 1e-6
+GRAD_RTOL = 4e-6
+LOSS_RTOL = 2e-6
 STEP_ATOL = 2e-6
 STATS_ATOL = 2e-5
 NOISY_SHARE = 1e-3
@@ -354,7 +360,8 @@ def test_three_denoise_steps_match_jax():
 
 def test_denoise_gradients_match_jax():
     """One denoise step's gradients (Denoiser depth 2, width 8, BN in train
-    mode, fp32) on a fixed noisy pair: within GRAD_ATOL of jax.grad."""
+    mode, fp32) on a fixed noisy pair: every element within GRAD_RTOL of
+    jax.grad's largest gradient."""
     from image_super_resolution_tpu.data.transforms import normalize, to_tanh
     from image_super_resolution_tpu_torch.data import transforms
     from image_super_resolution_tpu_torch.interop.from_jax import params_from_jax
@@ -373,8 +380,9 @@ def test_denoise_gradients_match_jax():
     state = _port_state(Denoiser(depth=2, width=8, fused=False, device="cpu"), jstate)
     mse_loss(state.model(transforms.normalize(torch.from_numpy(noisy))),
              transforms.to_tanh(torch.from_numpy(u8))).backward()
+    atol = GRAD_RTOL * max(float(g.abs().max()) for g in want.values())
     for name, p in state.model.named_parameters():
-        torch.testing.assert_close(p.grad, want[name], rtol=0, atol=GRAD_ATOL, msg=name)
+        torch.testing.assert_close(p.grad, want[name], rtol=0, atol=atol, msg=name)
 
 
 def test_denoise_step_draws_from_its_generator():
