@@ -63,10 +63,30 @@ Phases, each of which raises on failure:
    per forward, counted by variant), denoise in bf16; two tiles of each are
    held against the port's CPU path. (d) is exported by ``cli.export.main``
    and served from the ``.isr`` through ``load_artifact`` (48 K1 launches
-   per forward, two tiles against the CPU) and ``rs``.
+   per forward, two tiles against the CPU) and ``rs``;
+10. ``cli.evaluate.main`` over phase 9's 64 PNGs at 192 crops, batch 8:
+    the ``sr`` x4 artifact (K1 counted, 48 per batch), the ``fast`` x4
+    artifact with ``--int8`` (K2 counted by variant) and run (c)'s
+    Denoiser, saved as an ``.isr``, with ``--denoise_eval --severity
+    heavy``; every key finite, 64 images, each run's wall time. Then the
+    ``sr`` and ``fast`` bf16 artifacts on 8 crops on the card and through
+    the port's CPU path, each key within ``EVAL_CARD_ATOL``;
+11. video: a 21-frame 180x320 clip of smooth frames, written by the port's
+    ``FFMPEGRecorder`` (ffmpeg, else OpenCV) and decoded by ``VideoSource``
+    where either exists, else held in memory, through ``rs.video_pipeline``
+    at batch 8 (a padded tail) with the ``sr`` x4 artifact (720x1280 out):
+    frames equal, bit for bit, to a serial loop of ``upscale_batch``, K1
+    counted; frames/s of both on 240 frames held in memory, after one
+    warm-up batch, twice each; the same in int8 with the ``fast`` artifact
+    calibrated on the first 4 frames (K2 counted by variant); with a clip,
+    ``cli.rs.main`` on it (dimensions, frames);
+12. profiling: ``rs --profile_dir`` on one PNG with the ``sr`` artifact,
+    whose trace must name K1's kernel (``rdb_dense_conv``), and
+    ``cli.train --profile_dir`` with run (b)'s flags at batch 8, whose trace
+    must hold steps 2-4.
 
 It prints one JSON line of per-kernel numbers (each kernel's launches
-summed over the counted runs of phases 5/6 and 9, and given by path) and
+summed over the counted runs of phases 5/6 and 9-12, and given by path) and
 the training timings, the ``nvidia-smi`` line, and last ``{"ok": true,
 "device": {...}}``. Without CUDA, or outside a
 checkout, it exits non-zero and prints no result.
@@ -1636,6 +1656,418 @@ def phase_train(work: Path, kind: str, card: str, device: str = "cuda") -> dict:
     return counts
 
 
+# ----------------------------------------------------------------- phase 10 --
+
+# Card (bf16) against the port's CPU path (bf16) on the same 8 crops: each
+# metric of cli.evaluate within EVAL_CARD_ATOL. The two devices sum the
+# convs in other orders and round bf16 in other places, so outputs differ by
+# a few LSB (BF16_MAX_LSB) and the metrics by much less: measured on an H100
+# (700 W) at most 0.0006 dB (PSNR-Y median), 1e-4 SSIM and 2e-4 in the
+# texture metrics, for sr x4 d16 w64 and fast x4 d14 w128 at random
+# weights. The bounds are the order the eval protocol resolves (0.05 dB,
+# 1e-3 SSIM).
+EVAL_CARD_ATOL = {"psnr": 0.05, "psnr_y": 0.05, "ssim": 1e-3, "hf_ratio": 5e-3,
+                  "grad_dist": 5e-3, "sharpness": 1e-3, "sharpness_hr": 1e-4,
+                  "bicubic_psnr": 1e-3, "bicubic_psnr_y": 1e-3, "bicubic_hf_ratio": 1e-3,
+                  "psnr_y_min": 0.05, "psnr_y_max": 0.05, "psnr_y_std": 0.05,
+                  "psnr_y_median": 0.05}
+
+
+def _per_forward(isr: Path, int8: bool = True) -> dict:
+    """The kernel launches one forward of the artifact makes: K1 three per
+    RRDB of an sr artifact; K2 by variant in a fast artifact's int8 trunk
+    (none in bf16); none in any other family."""
+    from image_super_resolution_tpu_torch.models.deploy import read_artifact
+
+    spec, _ = read_artifact(isr)
+    if spec.family == "sr":
+        return {"fused_rdb": 3 * spec.depth}
+    if spec.family == "fast" and int8:
+        return {"fp32 -> int8": spec.depth, "int8 -> fp32": spec.depth, "fp32 -> fp32": 1}
+    return {"fused_rdb": 0}
+
+
+def _counted(kernel, fn):
+    """(fn(), seconds by the host clock, launches of ``kernel`` in it, by
+    variant where the kernel counts them); the counts are set to 0 just
+    before and read just after."""
+    import torch
+
+    kernel.launches = 0
+    by_variant = getattr(kernel, "launches_by_variant", None)
+    if by_variant is not None:
+        by_variant.clear()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return out, secs, kernel.launches, dict(by_variant or {})
+
+
+def _denoiser_isr(work: Path) -> Path:
+    """Run (c)'s final checkpoint as an .isr (EMA, BN folded, the dataset
+    mean/std baked in), written by save_artifact."""
+    from image_super_resolution_tpu_torch.models.deploy import (
+        DeploySpec, build_deployed, infer_family_dims, save_artifact)
+    from image_super_resolution_tpu_torch.train.checkpoint import load_checkpoint
+
+    ckpt = load_checkpoint(_checkpoint(work, "c"))
+    depth, width = infer_family_dims(ckpt["params"], "denoise")
+    deployed, fused = build_deployed(ckpt, DeploySpec(family="denoise", depth=depth,
+                                                      width=width), device="cpu")
+    isr = work / "denoise.isr"
+    save_artifact(isr, deployed.spec, fused)
+    return isr
+
+
+def _eval_forward_ms(isr: Path, manifest: Path, int8: bool) -> float:
+    """Device time of one eval batch's model forward (CUDA events): the
+    first 8 images of the manifest at the eval's 192 crop, downscaled by
+    the artifact's factor (as the CLI does) to uint8 on the card; int8
+    calibrated on that batch."""
+    import numpy as np
+    import torch
+
+    from image_super_resolution_tpu_torch.data import degrade
+    from image_super_resolution_tpu_torch.models.deploy import load_artifact
+    from image_super_resolution_tpu_torch.models.quantized import quantize_deployed
+    from image_super_resolution_tpu_torch.utils.image_io import read_image_rgb
+
+    model = load_artifact(isr, device="cuda")
+    paths = json.loads(manifest.read_text())[:8]
+    hr = torch.from_numpy(np.stack([read_image_rgb(p)[:192, :192] for p in paths])).cuda()
+    lr01 = degrade.downscale(hr.float() / 255.0, model.spec.output_scale)
+    lr = torch.clamp(torch.round(lr01 * 255.0), 0, 255).to(torch.uint8)
+    if int8:
+        model = quantize_deployed(model, [lr])
+    return _cuda_ms(lambda: model(lr), warmup=2, iters=10)
+
+
+def phase_eval(work: Path, sr_isr: Path, fast_isr: Path, card: str) -> dict:
+    """cli.evaluate.main on the card over phase 9's 64 PNGs: the sr x4 and
+    fast x4 --int8 artifacts (192 crops, batch 8; K1 and K2 counted per
+    batch) and run (c)'s Denoiser (--denoise_eval --severity heavy); every
+    key finite, 64 images. Then sr and fast bf16 on 8 crops on the card and
+    through the port's CPU path, each key within EVAL_CARD_ATOL. Returns
+    the counted launches."""
+    import math
+
+    from image_super_resolution_tpu_torch.cli import evaluate
+    from image_super_resolution_tpu_torch.ops.kernels.fused_rdb import scatter_rdb
+    from image_super_resolution_tpu_torch.ops.kernels.matmul import conv3x3_int8
+
+    import contextlib
+    import io
+
+    def evaluate_quietly(argv):  # the CLI prints its JSON; the [eval] lines carry it
+        with contextlib.redirect_stdout(io.StringIO()):
+            return evaluate.main(argv)
+
+    manifest = work / "data" / "train_images.json"
+    base = ["--val_json", str(manifest), "--shape", "192", "--batch_size", "8"]
+    batches = TRAIN_IMAGES // 8
+    den_isr = _denoiser_isr(work)
+    runs = (("sr x4", sr_isr, [], scatter_rdb),
+            ("fast x4 --int8", fast_isr, ["--int8"], conv3x3_int8),
+            ("Denoiser (run c) --denoise_eval --severity heavy", den_isr,
+             ["--denoise_eval", "--severity", "heavy"], scatter_rdb))
+    counts = {}
+    for title, isr, flags, kernel in runs:
+        want = {k: v * batches for k, v in _per_forward(isr).items()}
+        res, secs, launches, by_variant = _counted(
+            kernel, lambda: evaluate_quietly(["--model", str(isr), *base, *flags]))
+        got = by_variant or {"fused_rdb": launches}
+        if got != want:
+            raise AssertionError(f"evaluate {title} launched {got}, want {want}")
+        bad = [k for k, v in res.items() if not math.isfinite(v)]
+        if bad or res["n_images"] != TRAIN_IMAGES:
+            raise AssertionError(f"evaluate {title}: non-finite {bad}, {res['n_images']} images")
+        counts[f"evaluate {title} (phase 10)"] = launches
+        _log(f"[eval] cli.evaluate {title} on {card}: {TRAIN_IMAGES} images in {batches} "
+             f"batches, {secs:.3f} s wall (artifact load, decode, degrade, serve, metrics); "
+             f"launches {got}; model forward {_eval_forward_ms(isr, manifest, "--int8" in flags):.4f} "
+             f"ms per batch (CUDA events); " + ", ".join(f"{k} {v}" for k, v in res.items()))
+    for title, isr in (("sr x4 d16 w64", sr_isr), ("fast x4 d14 w128", fast_isr)):
+        argv = ["--model", str(isr), *base, "--max_images", "8"]
+        t0 = time.perf_counter()
+        on_card = evaluate_quietly(argv)
+        t1 = time.perf_counter()
+        on_cpu = evaluate_quietly(argv + ["--device", "cpu"])
+        t2 = time.perf_counter()
+        diffs = {k: abs(on_card[k] - on_cpu[k]) for k in EVAL_CARD_ATOL}
+        _log(f"[eval] {title} bf16 on 8 crops, card ({t1 - t0:.3f} s) vs the port's CPU path "
+             f"({t2 - t1:.3f} s): |diff| " + ", ".join(f"{k} {v:.4f}" for k, v in diffs.items()))
+        over = {k: v for k, v in diffs.items() if v > EVAL_CARD_ATOL[k]}
+        if over or not on_card["n_images"] == on_cpu["n_images"] == 8:
+            raise AssertionError(f"evaluate {title}: card vs CPU beyond EVAL_CARD_ATOL: {over}")
+    return counts
+
+
+# ----------------------------------------------------------------- phase 11 --
+
+VIDEO_FRAMES, VIDEO_HW, VIDEO_BATCH = 21, (180, 320), 8
+VIDEO_TIMED_FRAMES, VIDEO_TIMED_REPEATS = 240, 2  # the frames/s leg: 30 batches
+
+
+def _video_frames(n: int = VIDEO_FRAMES):
+    """n smooth RGB frames (drifting low-frequency waves)."""
+    import numpy as np
+
+    h, w = VIDEO_HW
+    yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+    rng = np.random.default_rng(SEED + 11)
+    waves = [(rng.uniform(1, 6), rng.uniform(1, 6), rng.uniform(0, 6.3, 3), rng.uniform(20, 50))
+             for _ in range(3)]
+    frames = []
+    for t in range(n):
+        img = np.full((h, w, 3), 128.0)
+        for fy, fx, ph, amp in waves:
+            img += np.sin(2 * np.pi * (fy * yy + fx * xx + 0.05 * t)[..., None] + ph) * amp
+        frames.append(np.clip(img, 0, 255).astype(np.uint8))
+    return frames
+
+
+def _video_rates(engine, frames) -> tuple:
+    """Frames/s of rs.video_pipeline and of a serial upscale_batch loop over
+    frames held in memory, by the host clock, in the order pipelined,
+    serial, serial, pipelined (VIDEO_TIMED_REPEATS of each). Output frames
+    are dropped: no decode, no encode."""
+    import torch
+
+    from image_super_resolution_tpu_torch.cli import rs
+
+    def pipelined():
+        return rs.video_pipeline(engine, _in_memory_batches(frames, VIDEO_BATCH),
+                                 lambda frame: None)
+
+    def serial():
+        for batch, _ in _in_memory_batches(frames, VIDEO_BATCH):
+            engine.upscale_batch(batch)
+
+    rates = {"pipelined": [], "serial": []}
+    order = ["pipelined", "serial", "serial", "pipelined"] * (VIDEO_TIMED_REPEATS // 2)
+    for name in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (pipelined if name == "pipelined" else serial)()
+        torch.cuda.synchronize()
+        rates[name].append(len(frames) / (time.perf_counter() - t0))
+    return rates["pipelined"], rates["serial"]
+
+
+def _in_memory_batches(frames, batch: int):
+    """VideoSource.batches over frames held in memory: fixed shape, the tail
+    padded with its last frame."""
+    import numpy as np
+
+    for i in range(0, len(frames), batch):
+        chunk = list(frames[i:i + batch])
+        n = len(chunk)
+        yield np.stack(chunk + [chunk[-1]] * (batch - n)), n
+
+
+def phase_video(work: Path, sr_isr: Path, fast_isr: Path, card: str) -> dict:
+    """rs.video_pipeline on a 21-frame 180x320 clip with the sr x4
+    artifact: the clip is written by the port's FFMPEGRecorder (ffmpeg, else
+    OpenCV's VideoWriter) and decoded by VideoSource where either exists,
+    else held in memory. Its frames must equal, bit for bit, a serial loop
+    of upscale_batch; K1 counted. Frames/s of both come from a separate
+    240-frame leg held in memory (_video_rates), after one warm-up batch.
+    Then the int8 fast x4 pipeline, calibrated on the first 4 frames as rs
+    does (K2 counted by variant), and, with a clip, cli.rs.main on it end
+    to end."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from image_super_resolution_tpu_torch.cli import rs
+    from image_super_resolution_tpu_torch.infer.engine import TiledUpscaler
+    from image_super_resolution_tpu_torch.models.deploy import load_artifact
+    from image_super_resolution_tpu_torch.models.quantized import quantize_deployed
+    from image_super_resolution_tpu_torch.ops.kernels.fused_rdb import scatter_rdb
+    from image_super_resolution_tpu_torch.ops.kernels.matmul import conv3x3_int8
+
+    try:
+        import cv2  # noqa: F401
+        has_cv2 = True
+    except ImportError:
+        has_cv2 = False
+    ffmpeg, ffprobe = shutil.which("ffmpeg"), shutil.which("ffprobe")
+    codec = None
+    if ffmpeg:  # libx264 where the build has it, else ffmpeg's own mpeg4
+        listed = subprocess.run([ffmpeg, "-hide_banner", "-encoders"], capture_output=True,
+                                text=True, timeout=60).stdout
+        codec = "libx264" if "libx264" in listed else "mpeg4"
+    _log(f"[video] tools on this machine: ffmpeg {ffmpeg or 'absent'}, ffprobe "
+         f"{ffprobe or 'absent'}, cv2 {'present' if has_cv2 else 'absent'}")
+    frames = _video_frames()
+    timed_frames = _video_frames(VIDEO_TIMED_FRAMES)
+    clip = None
+    if ffmpeg or has_cv2:  # the recorder encodes through ffmpeg, else OpenCV
+        from image_super_resolution_tpu_torch.video.recorder import FFMPEGRecorder
+
+        clip = work / "clip.mp4"
+        rec = FFMPEGRecorder(str(clip), video_dimensions=VIDEO_HW[::-1], fps=24.0,
+                             codec=codec)
+        for f in frames:
+            rec.write_frame(f[..., ::-1])
+        rec.stop_recorder()
+    else:
+        _log("[video] no video decoder on this machine (neither cv2 nor ffmpeg): the "
+             "pipeline runs on frames held in memory; the file legs are skipped")
+
+    def batches():
+        if clip is None:
+            return _in_memory_batches(frames, VIDEO_BATCH)
+        from image_super_resolution_tpu_torch.video.reader import VideoSource
+
+        src = VideoSource(clip)
+
+        def gen():
+            try:
+                yield from src.batches(VIDEO_BATCH)
+            finally:
+                src.close()
+        return gen()
+
+    counts = {}
+    for title, isr, kernel in (("sr x4 bf16", sr_isr, scatter_rdb),
+                               ("fast x4 int8", fast_isr, conv3x3_int8)):
+        int8 = kernel is conv3x3_int8
+        want = _per_forward(isr, int8)
+        deployed = load_artifact(isr, device="cuda")
+        if int8:
+            calib = (rs._int8_calib_batches(clip, 96) if clip is not None
+                     else [np.stack(frames[:4])])
+            deployed = quantize_deployed(deployed, calib)
+        engine = TiledUpscaler(deployed, batch_size=VIDEO_BATCH)
+        warm = batches()
+        first = next(warm)[0]
+        warm.close()
+        engine.upscale_batch(first)  # warm-up batch
+        got = []
+        n, secs, launches, by_variant = _counted(
+            kernel, lambda: rs.video_pipeline(engine, batches(), got.append))
+        n_batches = -(-VIDEO_FRAMES // VIDEO_BATCH)
+        launched = by_variant or {"fused_rdb": launches}
+        if launched != {k: v * n_batches for k, v in want.items()}:
+            raise AssertionError(f"video {title} launched {launched}, want {want} per batch")
+        serial = []
+        for batch, k in batches():
+            serial.extend(engine.upscale_batch(batch)[:k])
+        if n != VIDEO_FRAMES or len(serial) != VIDEO_FRAMES:
+            raise AssertionError(f"video {title}: {n} frames pipelined, {len(serial)} serial")
+        for i, (a, b) in enumerate(zip(got, serial)):
+            if a.shape != (4 * VIDEO_HW[0], 4 * VIDEO_HW[1], 3) or not np.array_equal(a, b):
+                raise AssertionError(f"video {title}: frame {i} {a.shape} differs from the "
+                                     f"serial loop's")
+        counts[f"video pipeline {title} (phase 11)"] = launches
+        on_card = torch.from_numpy(first).cuda()
+        device_ms = _cuda_ms(lambda: engine.deployed(on_card), warmup=1, iters=5)
+        _log(f"[video] {title} on {card}: {VIDEO_FRAMES} frames {VIDEO_HW[1]}x{VIDEO_HW[0]} -> "
+             f"{4 * VIDEO_HW[1]}x{4 * VIDEO_HW[0]} in batches of {VIDEO_BATCH} "
+             f"({'decoded from ' + clip.name if clip else 'in memory'}) in {secs:.3f} s: "
+             f"frames equal the serial loop's bit for bit; launches {launched}")
+        piped, ser = _video_rates(engine, timed_frames)
+        _log(f"[video] {title} on {card}: {VIDEO_TIMED_FRAMES} frames held in memory "
+             f"({VIDEO_TIMED_FRAMES // VIDEO_BATCH} batches of {VIDEO_BATCH}, frames dropped: no "
+             f"decode, no encode), host clock, in the order pipelined, serial, serial, "
+             f"pipelined: pipelined {', '.join(f'{r:.2f}' for r in piped)} frames/s, serial "
+             f"{', '.join(f'{r:.2f}' for r in ser)} frames/s; model forward {device_ms:.3f} ms "
+             f"per batch (CUDA events), {VIDEO_BATCH / device_ms * 1e3:.2f} frames/s of device "
+             f"time")
+    if clip is not None:
+        dst = work / "clip_x4.mp4"
+        (out, secs, launches, _) = _counted(scatter_rdb, lambda: rs.main(
+            ["--model", str(sr_isr), "--src", str(clip), "--save_dir", str(dst)]
+            + (["--codec", codec] if codec else [])))
+        from image_super_resolution_tpu_torch.video.reader import VideoSource
+
+        back = VideoSource(out)
+        n = sum(1 for _ in back.frames())
+        dims = (back.width, back.height)
+        back.close()
+        if dims != (4 * VIDEO_HW[1], 4 * VIDEO_HW[0]) or n != VIDEO_FRAMES:
+            raise AssertionError(f"rs on the clip wrote {dims} x {n} frames")
+        if launches != _per_forward(sr_isr)["fused_rdb"] * -(-VIDEO_FRAMES // VIDEO_BATCH):
+            raise AssertionError(f"rs on the clip launched fused_rdb {launches} times")
+        counts["rs on the video file, sr x4 (phase 11)"] = launches
+        _log(f"[video] cli.rs.main on {clip.name} -> {out.name} on {card}: {n} frames "
+             f"{dims[0]}x{dims[1]}, {secs:.3f} s wall (decode, serve, encode, remux), "
+             f"fused_rdb launches {launches}")
+    return counts
+
+
+# ----------------------------------------------------------------- phase 12 --
+
+def phase_profile(work: Path, sr_isr: Path, card: str) -> int:
+    """rs --profile_dir on one PNG with the sr artifact (the trace must name
+    K1's kernel, rdb_dense_conv), then cli.train --profile_dir on run (b)'s
+    flags at batch 8 (8 steps): the trace must open at step 2 and close
+    after step 4. Returns K1's launches in the rs run."""
+    launches = _profile_rs(work, sr_isr, card)
+    _profile_train(work, card)
+    return launches
+
+
+def _profile_rs(work: Path, sr_isr: Path, card: str) -> int:
+    from image_super_resolution_tpu_torch.cli import rs
+    from image_super_resolution_tpu_torch.infer.tiling import plan_tiles
+    from image_super_resolution_tpu_torch.ops.kernels.fused_rdb import scatter_rdb
+    from image_super_resolution_tpu_torch.utils.image_io import read_image_rgb
+    from image_super_resolution_tpu_torch.utils.png import write_png
+
+    paths = json.loads((work / "data" / "train_images.json").read_text())
+    src = work / "prof_in.png"
+    img = read_image_rgb(paths[1])[:150, :130]
+    write_png(src, img)
+    prof = work / "prof_rs"
+    _, secs, launches, _ = _counted(scatter_rdb, lambda: rs.main(
+        ["--model", str(sr_isr), "--src", str(src), "--save_dir", str(work / "prof_out.png"),
+         "--profile_dir", str(prof)]))
+    tiles = plan_tiles(*img.shape[:2], 96, 8)[0]
+    if launches != _per_forward(sr_isr)["fused_rdb"] * -(-len(tiles) // 8):
+        raise AssertionError(f"rs --profile_dir launched fused_rdb {launches} times")
+    traces = sorted(prof.glob("*.pt.trace.json"))
+    if len(traces) != 1 or "rdb_dense_conv" not in traces[0].read_text():
+        raise AssertionError(f"rs --profile_dir wrote {traces}, without K1's rdb_dense_conv")
+    _log(f"[profile] rs --profile_dir on a {img.shape[1]}x{img.shape[0]} PNG on {card}: "
+         f"{secs:.3f} s wall, trace {traces[0].name} ({traces[0].stat().st_size} B) names "
+         f"rdb_dense_conv; fused_rdb launches {launches}")
+    return launches
+
+
+def _profile_train(work: Path, card: str) -> None:
+    from image_super_resolution_tpu_torch.cli import train as cli_train
+
+    seen = []
+    step = cli_train.Run.step
+
+    def recording(self, batch):
+        seen.append(self.profiler is not None)
+        return step(self, batch)
+
+    flags = dict((k, f) for k, _, f in TRAIN_RUNS)["b"]
+    prof = work / "prof_train"
+    cli_train.Run.step = recording
+    t0 = time.perf_counter()
+    try:
+        cli_train.main(_train_argv(flags, work / "data" / "train_images.json",
+                                   work / "prof_b", "cuda", "--epochs", "1",
+                                   "--batch_size", "8", "--profile_dir", str(prof)))
+    finally:
+        cli_train.Run.step = step
+    secs = time.perf_counter() - t0
+    traces = sorted(prof.glob("*.pt.trace.json"))
+    if seen != [False, False, True, True, True] + [False] * 3 or len(traces) != 1:
+        raise AssertionError(f"train --profile_dir: profiled steps {seen}, traces {traces}")
+    n_kernels = traces[0].read_text().count('"cat": "kernel"')
+    _log(f"[profile] cli.train --profile_dir, run (b)'s flags at batch 8 on {card}: steps "
+         f"2-4 of 8 traced into {traces[0].name} ({traces[0].stat().st_size} B, "
+         f"{n_kernels} kernel events), {secs:.2f} s wall")
+
+
 def main() -> int:
     import torch
 
@@ -1665,16 +2097,23 @@ def main() -> int:
         phase_denoise(card)
         phase_cli(Path(tmp), sr_isr, fast_isr, card)
         trained = phase_train(Path(tmp) / "train", kind, card)
+        evals = phase_eval(Path(tmp) / "train", sr_isr, fast_isr, card)
+        videos = phase_video(Path(tmp), sr_isr, fast_isr, card)
+        k1_profile = phase_profile(Path(tmp) / "train", sr_isr, card)
     # launches: every counted main-path run, by path
     k1["launches_by_path"] = {"serve sr x4 (phase 5)": k1_serve,
                               "train -> checkpoint -> serve sr x2 (phase 9)":
                               trained["fused_rdb"],
                               "pixel -> GAN -> export -> serve sr x2 (phase 9)":
-                              trained["fused_rdb gan"]}
+                              trained["fused_rdb gan"],
+                              "rs --profile_dir, sr x4 (phase 12)": k1_profile}
     k2["launches_by_path"] = {"serve fast x4 int8 (phase 6)": k2_serve,
                               "train -> checkpoint -> serve fast x4 int8 (phase 9)":
                               trained["conv3x3_int8"]}
     k2["variants_train_serve"] = trained["conv3x3_int8 by variant"]
+    for path, n in {**evals, **videos}.items():
+        if n:  # the Denoiser's eval runs neither kernel
+            (k2 if "int8" in path else k1)["launches_by_path"][path] = n
     for k in (k1, k2):
         k["launches"] = sum(k["launches_by_path"].values())
     print(json.dumps({"kernels": [k1, k2], "training": trained["timings"]}))

@@ -1,19 +1,23 @@
-"""Inference CLI ("rs" = resolution scaler), image and folder paths
+"""Inference CLI ("rs" = resolution scaler) for images, folders and video
 (counterpart of the JAX package's ``cli/rs.py``).
 
     python -m image_super_resolution_tpu_torch.cli.rs --model a.isr --src img.png
 
 The flags are the JAX CLI's, plus ``--device`` (default ``cuda``). Image
 path: load artifact -> overlap-tiled batched upscale -> PNG. A folder is
-served image by image with one loaded model. ``--int8`` serves a fast-family
-artifact with its trunk in int8, calibrated on crops of the input itself.
-Flags whose paths are not ported yet exit with a message naming the slice
-that brings them.
+served image by image with one loaded model. A video is decoded, upscaled
+in fixed-size frame batches and encoded, three stages overlapped
+(``video_pipeline``), and its audio is remuxed. ``--int8`` serves a
+fast-family artifact with its trunk in int8, calibrated on crops of the
+input itself (on a video, its first frames). ``--profile_dir`` writes a
+``torch.profiler`` trace of the whole run. Multi-device flags exit with a
+message naming the slice that brings them.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 from collections import Counter, deque
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -22,10 +26,11 @@ import numpy as np
 
 from ..utils.general import IMG_FORMATS, VID_FORMATS
 from ..utils.image_io import read_image_rgb as _read_image_rgb
+from ..utils.profiling import annotate, trace
 
 
 def build_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(description="Tiled SR inference (image or folder)")
+    parser = argparse.ArgumentParser(description="Tiled SR inference (image, folder or video)")
     parser.add_argument("--model", type=str, required=True, help="deployed artifact (.isr)")
     parser.add_argument("--src", type=str, required=True)
     parser.add_argument("--save_dir", type=str, default="result.png")
@@ -53,21 +58,28 @@ def build_parser() -> argparse.ArgumentParser:
                              "this percentile of |x| (0 < p <= 100, e.g. "
                              "99.99) instead of the max")
     parser.add_argument("--profile_dir", type=str, default=None,
-                        help="device trace of the run: slice 5")
+                        help="write a torch.profiler trace of the whole run (host "
+                             "ops and the card's kernels) into this directory")
     parser.add_argument("--compile_cache", type=str, default=None,
                         help="accepted for parity; the port compiles no XLA programs")
     parser.add_argument("--codec", type=str, default=None,
-                        help="video encoder (video serving: slice 5)")
+                        help="ffmpeg video encoder (e.g. libx264, hevc_nvenc); default "
+                             "'auto' probes the hardware HEVC encoders, then libx264")
     return parser
 
 
 def main(argv=None):
-    opt = build_parser().parse_args(argv)
-    return run(**vars(opt))
+    kwargs = vars(build_parser().parse_args(argv))
+    profile_dir = kwargs.pop("profile_dir")
+    with trace(profile_dir) if profile_dir else contextlib.nullcontext():
+        result = run(**kwargs)
+    if profile_dir:
+        print(f"profiler trace written to {profile_dir}")
+    return result
 
 
-def _refuse_unported(src: Path, spatial_devices, data_devices, spatial_grid,
-                     tp_devices, int8, int8_percentile, profile_dir) -> None:
+def _refuse_unported(spatial_devices, data_devices, spatial_grid, tp_devices, int8,
+                     int8_percentile) -> None:
     if int8 and tp_devices != 1:
         raise SystemExit("--int8 is mutually exclusive with --tp_devices (the "
                          "TP wrapper shards the bf16 graph; an int8-TP path "
@@ -89,11 +101,6 @@ def _refuse_unported(src: Path, spatial_devices, data_devices, spatial_grid,
         raise SystemExit("multi-device serving (--tp_devices, "
                          "--spatial_devices, --spatial_grid, --data_devices) "
                          "is not ported yet: it comes with slice 5 (multi-GPU)")
-    if profile_dir:
-        raise SystemExit("--profile_dir is not ported yet: it comes with slice 5")
-    if src.suffix.lower() in VID_FORMATS:
-        raise SystemExit("video sources are not ported yet: they come with "
-                         "slice 5 (eval, video, interop)")
 
 
 def run(
@@ -111,7 +118,6 @@ def run(
     tp_devices: int = 1,
     int8: bool = False,
     int8_percentile: float | None = None,
-    profile_dir: str | None = None,
     codec: str | None = None,
     compile_cache: str | None = None,
 ) -> Path:
@@ -120,8 +126,8 @@ def run(
 
     src_path = Path(src)
     out_path = Path(save_dir)
-    _refuse_unported(src_path, spatial_devices, data_devices, spatial_grid,
-                     tp_devices, int8, int8_percentile, profile_dir)
+    _refuse_unported(spatial_devices, data_devices, spatial_grid, tp_devices, int8,
+                     int8_percentile)
     deployed = load_artifact(model, device=device)
     if int8:
         from ..models.quantized import quantize_deployed
@@ -139,6 +145,8 @@ def run(
         raise SystemExit(str(e))
     if src_path.is_dir():
         return _run_folder(engine, src_path, out_path)
+    if src_path.suffix.lower() in VID_FORMATS:
+        return _run_video(engine, src_path, out_path, batch_size, codec=codec)
     return _run_image(engine, src_path, out_path)
 
 
@@ -227,7 +235,16 @@ def _int8_calib_batches(src_path: Path, window: int) -> list:
     Activation scales are per-tensor scalars, so any crop size serves any
     serving shape. A folder gives crops of up to 8 images spread across it
     (skipping unreadable ones), at one common crop size; a single image
-    gives a 2 x 4 grid of crops."""
+    gives a 2 x 4 grid of crops; a video its first 4 frames."""
+    if src_path.suffix.lower() in VID_FORMATS and src_path.is_file():
+        from ..video.reader import VideoSource
+
+        source = VideoSource(src_path)
+        try:
+            batch, n_valid = next(iter(source.batches(4)))
+            return [batch[:n_valid]]
+        finally:
+            source.close()
     c = window or 96
     if src_path.is_dir():
         images = sorted(p for p in src_path.iterdir() if p.suffix.lower() in IMG_FORMATS)
@@ -276,6 +293,152 @@ def _run_image(engine, src: Path, out: Path) -> Path:
     if out.suffix.lower() != ".png":  # append, never replace: "a.v2" is a
         out = out.parent / (out.name + ".png")  # stem, not a suffix to drop
     return _write_png(out, result)
+
+
+def _fetch_async(out):
+    """Enqueue the device -> host copy of a result behind its compute (into
+    pinned memory, without blocking) and return a function that waits for
+    that copy alone and gives the frames as numpy. Launched before the next
+    batch, the copy does not wait for that batch's compute."""
+    if out.device.type != "cuda":
+        return out.numpy
+    import torch
+
+    host = out.to("cpu", non_blocking=True)  # pinned: the copy is asynchronous
+    copied = torch.cuda.Event()
+    copied.record()
+
+    def wait():
+        copied.synchronize()
+        return host.numpy()
+
+    return wait
+
+
+def video_pipeline(engine, batches, write_frame) -> int:
+    """Upscale (batch, n_valid) items from ``batches`` and hand every valid
+    output frame (RGB uint8 HWC) to ``write_frame``, in order; returns the
+    number of frames written. Three stages overlap:
+
+    - a thread decodes the next batches (bounded queue of 2);
+    - the device computes batch k (``upscale_batch_device``, no fetch);
+    - this thread writes batch k-1, whose copy to the host was enqueued
+      right after k-1's compute and before k was launched, so waiting for
+      it does not wait for k.
+
+    The frames equal a serial loop of ``upscale_batch`` bit for bit. The
+    decoder thread is stopped and drained also when a stage raises. In a
+    ``--profile_dir`` trace this thread's two stages are the regions
+    ``video/upscale`` and ``video/write`` (the profiler does not follow the
+    decoder thread)."""
+    import queue
+    import threading
+
+    q: "queue.Queue" = queue.Queue(maxsize=2)
+    done = object()
+    stop = threading.Event()
+    producer_exc: list = []
+
+    def put(item) -> bool:
+        # a bounded put that gives up once the consumer stopped
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def decode():
+        try:
+            for item in batches:
+                if not put(item):
+                    return
+        except BaseException as e:  # handed to the consumer, never swallowed
+            producer_exc.append(e)
+        finally:
+            put(done)
+
+    producer = threading.Thread(target=decode, daemon=True)
+    producer.start()
+    n = 0
+    pending = None  # (fetch, n_valid) of the previous batch
+
+    def write(fetch, n_valid):
+        nonlocal n
+        for frame in fetch()[:n_valid]:
+            write_frame(frame)
+            n += 1
+
+    try:
+        while True:
+            item = q.get()
+            if item is done:
+                break
+            batch, n_valid = item
+            with annotate("video/upscale"):
+                out, _ = engine.upscale_batch_device(batch)
+                fetch = _fetch_async(out)
+            if pending is not None:  # batch k-1, while batch k computes
+                with annotate("video/write"):
+                    write(*pending)
+            pending = (fetch, n_valid)
+        if pending is not None:
+            with annotate("video/write"):
+                write(*pending)
+        if producer_exc:
+            raise RuntimeError("video decode failed") from producer_exc[0]
+    finally:
+        stop.set()
+        while True:  # drain so a put-blocked producer sees the stop
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                break
+        producer.join(timeout=30)
+    return n
+
+
+def _run_video(engine, src: Path, out: Path, batch_size: int,
+               codec: str | None = None) -> Path:
+    """Decode -> upscale -> encode through ``video_pipeline``, then remux the
+    source's audio. The artifact owns all normalization."""
+    from ..video.reader import VideoSource
+    from ..video.recorder import FFMPEGRecorder
+
+    source = VideoSource(src)
+    out = out.with_suffix(".mp4")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    scale = engine.deployed.spec.output_scale
+    try:
+        recorder = FFMPEGRecorder(str(out), video_dimensions=(source.width * scale,
+                                                              source.height * scale),
+                                  fps=source.fps, codec=codec)
+    except BaseException:
+        source.close()
+        raise
+    body_ok = False
+    try:
+        n = video_pipeline(engine, source.batches(batch_size),
+                           lambda frame: recorder.write_frame(frame[..., ::-1]))  # to BGR
+        body_ok = True
+    finally:
+        # Always release the encoder and the decoder. stop_recorder can raise
+        # on a dead ffmpeg pipe: that must not mask an error in flight, but on
+        # the success path it propagates, since the file is then truncated
+        # (a local flag, not sys.exc_info(), which also sees a caller's
+        # handled exception).
+        stop_err = None
+        try:
+            recorder.stop_recorder()
+        except Exception as e:
+            stop_err = e
+        source.close()
+        if stop_err is not None and body_ok:
+            raise stop_err
+    recorder.add_audio(src)
+    print(f"wrote {n} frames -> {out}")
+    return out
 
 
 if __name__ == "__main__":

@@ -17,10 +17,13 @@ then fetches the epoch's losses at once and prints the mean loss
 (``loss/content`` in the GAN phase), patches/s and the number of patches
 substituted for files that could not be decoded. ``--eval_every N`` with
 ``--eval_json`` logs PSNR, PSNR-Y and SSIM of the EMA model over 8 batches
-every N epochs as ``eval/*``.
+every N epochs as ``eval/*``. A run that does not resume first logs the
+first 10 hr/lr batches as images (``images/hr``, ``images/lr``; not in the
+denoise phase). ``--profile_dir`` writes a ``torch.profiler`` trace of
+steps 2-4 (closed early if the run has fewer steps).
 
-``--ckpt_backend orbax``, ``--profile_dir``, ``--loader_backend native`` and
-more than one device exit with a message naming the slice that brings them.
+``--ckpt_backend orbax``, ``--loader_backend native`` and more than one
+device exit with a message naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..data import degrade
 from ..data.pipeline import DevicePrefetcher, LoaderConfig, PatchLoader
 from ..losses.perceptual import PerceptualLoss
 from ..models.denoiser import Denoiser
@@ -50,9 +54,12 @@ from ..train.state import TrainState
 from ..train.steps import (make_denoise_train_step, make_eval_step, make_gan_train_step,
                            make_pixel_train_step)
 from ..utils.logging import MetricsLogger
+from ..utils.profiling import trace
 
-LATER_SLICE = "slice 5 (profiling, native loader, Orbax, multi-GPU)"
+LATER_SLICE = "slice 5 (native loader, Orbax, multi-GPU)"
 EVAL_BATCHES = 8
+IMAGE_BATCHES = 10  # hr/lr batches logged as images at the start of a run
+PROFILE_STEPS = (2, 5)  # --profile_dir traces steps [2, 5), past the first
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -106,7 +113,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no_tensorboard", action="store_true")
     parser.add_argument("--remat", action="store_true",
                         help="recompute each block's activations in backward")
-    parser.add_argument("--profile_dir", type=str, default=None, help=LATER_SLICE)
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="write a torch.profiler trace of steps 2-4 here")
     parser.add_argument("--ckpt_every", type=int, default=1,
                         help="epochs between checkpoint saves")
     parser.add_argument("--ckpt_backend", type=str, default="msgpack",
@@ -139,7 +147,6 @@ def check_options(opt) -> None:
             opt.rs_deep = 6
     opt.rs_deep, opt.width = family_defaults(opt.family, opt.rs_deep, opt.width)
     refused = {"--ckpt_backend orbax": opt.ckpt_backend == "orbax",
-               "--profile_dir": opt.profile_dir,
                "--loader_backend native": opt.loader_backend == "native"}
     for flag, given in refused.items():
         if given:
@@ -245,6 +252,8 @@ class Run:
             pixel_loss = "l1" if (opt.enchant or opt.L1_loss) else "mse"
             self.step_fn = make_pixel_train_step(opt.scale, pixel_loss, self.mean, self.std)
         self.loss_key = "loss/content" if self.phase == "gan" else "loss"
+        self.global_step = 0  # steps this process ran, for --profile_dir
+        self.profiler = None
         self.eval_fn = self.eval_loader = None
         if opt.eval_every and opt.eval_json:
             self.eval_fn = make_eval_step(scale, self.mean, self.std)
@@ -297,6 +306,8 @@ class Run:
         history = []
         try:
             start_epoch = self.resume()
+            if not opt.resume and self.phase != "denoise":
+                self.log_images(logger)
             n_params = sum(p.numel() for p in self.state.params)
             print(f"Train: {opt.epochs} epochs, {n_params:,} parameters")
             for epoch in range(start_epoch, opt.epochs):
@@ -307,8 +318,27 @@ class Run:
                 if self.eval_fn is not None and (epoch + 1) % opt.eval_every == 0:
                     history[-1]["eval"] = self.evaluate(epoch, logger)
         finally:
+            if self.profiler is not None:  # the run ended before step 5
+                self._stop_profile()
             logger.close()
         return history
+
+    def log_images(self, logger) -> None:
+        """The first IMAGE_BATCHES batches of hr patches and their LR
+        (downscaled on the host, truncated to uint8) as images, a visual
+        check of the input pipeline."""
+        scale = self.loader_config.scale
+        for idx, batch in zip(range(IMAGE_BATCHES), self.loader):
+            logger.images("images/hr", batch, idx)
+            lr = degrade.downscale(torch.from_numpy(batch).float() / 255.0, scale)
+            logger.images("images/lr", torch.clamp(lr * 255.0, 0, 255).to(torch.uint8).numpy(),
+                          idx)
+
+    def _stop_profile(self) -> None:
+        self.sync()
+        self.profiler.__exit__(None, None, None)
+        self.profiler = None
+        print(f"profiler trace written to {self.opt.profile_dir}")
 
     def evaluate(self, epoch: int, logger) -> dict:
         """The eval metrics averaged over the eval loader's first
@@ -316,8 +346,7 @@ class Run:
         ms = [self.eval_fn(self.state, torch.from_numpy(b).to(self.device))
               for _, b in zip(range(EVAL_BATCHES), iter(self.eval_loader))]
         agg = {k: float(torch.stack([m[k] for m in ms]).mean()) for k in ms[0]}
-        for k, v in agg.items():
-            logger.scalar(f"eval/{k}", v, self.state.step)
+        logger.scalars({f"eval/{k}": v for k, v in agg.items()}, self.state.step)
         print(f"Eval [{epoch}] " + " ".join(f"{k}={v:.3f}" for k, v in agg.items()))
         return agg
 
@@ -327,8 +356,14 @@ class Run:
         pending, t0 = [], None
         with DevicePrefetcher(iter(self.loader), self.device) as batches:
             for batch in batches:
+                if self.opt.profile_dir and self.global_step == PROFILE_STEPS[0]:
+                    self.profiler = trace(self.opt.profile_dir)
+                    self.profiler.__enter__()
                 out = self.step(batch)
                 pending.append(out if isinstance(out, dict) else {self.loss_key: out})
+                self.global_step += 1
+                if self.profiler is not None and self.global_step == PROFILE_STEPS[1]:
+                    self._stop_profile()
                 if t0 is None:  # time from the first step's end
                     self.sync()
                     t0 = time.perf_counter()
@@ -342,8 +377,7 @@ class Run:
         bs = self.opt.batch_size
         pps = (len(pending) - 1) * bs / elapsed if len(pending) > 1 else bs / elapsed
         for i, row in enumerate(fetched):
-            for k, v in zip(keys, row):
-                logger.scalar(k, v, start_step + i + 1)
+            logger.scalars(dict(zip(keys, row)), start_step + i + 1)
         losses = [row[keys.index(self.loss_key)] for row in fetched]
         logger.scalar("throughput/patches_per_sec", pps, self.state.step)
         substituted = self.loader.substituted

@@ -18,25 +18,91 @@ import torch
 import torch.nn.functional as F
 
 
-def downscale(x01: torch.Tensor, scale: int) -> torch.Tensor:
-    """Downscale an NHWC batch by an integer factor: cv2.INTER_LINEAR with
+def _triangle(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp_min(1.0 - x.abs(), 0.0)
+
+
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic kernel with a = -0.5 (``jax.image.resize``'s; torch's
+    bicubic interpolation uses a = -0.75)."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, 0.0, out)
+
+
+_KERNELS = {"bilinear": _triangle, "bicubic": _keys_cubic}
+
+
+def resize_weights(n_in: int, n_out: int, method: str, antialias: bool,
+                   device=None) -> torch.Tensor:
+    """The (n_in, n_out) float32 weights of a 1-D resize, as
+    ``jax.image.resize`` builds them (scale-and-translate): half-pixel
+    centres, the kernel widened by the downscale factor under
+    ``antialias``, each column renormalized to sum to 1, and columns whose
+    sample lies outside the input zeroed."""
+    if method not in _KERNELS:
+        raise ValueError(f"unknown resize method {method!r}; one of {sorted(_KERNELS)}")
+    inv_scale = 1.0 / (n_out / n_in)
+    kernel_scale = max(inv_scale, 1.0) if antialias else 1.0
+    sample = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
+    src = torch.arange(n_in, dtype=torch.float32, device=device)
+    w = _KERNELS[method]((sample[None, :] - src[:, None]).abs() / kernel_scale)
+    total = w.sum(dim=0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, 0.0)
+
+
+def resize(x01: torch.Tensor, h: int, w: int, method: str, antialias: bool) -> torch.Tensor:
+    """Resize an NHWC float batch to (h, w) as ``jax.image.resize`` does: two
+    separable weight matrices, applied as matmuls in full fp32 (no TF32)."""
+    n, h0, w0, c = x01.shape
+    x = x01.float()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        if w != w0:
+            ww = resize_weights(w0, w, method, antialias, x.device)
+            x = torch.einsum("nhwc,wv->nhvc", x, ww)
+        if h != h0:
+            wh = resize_weights(h0, h, method, antialias, x.device)
+            x = torch.einsum("nhwc,hu->nuwc", x, wh)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return x
+
+
+def downscale(x01: torch.Tensor, scale: int, method: str = "bilinear",
+              antialias: bool = False) -> torch.Tensor:
+    """Downscale an NHWC [0,1] batch by an integer factor.
+
+    The default (bilinear, no antialias) is cv2.INTER_LINEAR with
     half-pixel centres and no prefilter (the reference's albumentations
-    Resize), in its closed form. With the sample point midway between the
-    two middle pixels of each block (even factor) or on the centre pixel
-    (odd factor), it is two averages of neighbours, in the JAX package's
-    order, so the two agree bit for bit."""
+    Resize). At sizes divisible by the factor it has a closed form: with the
+    sample point midway between the two middle pixels of each block (even
+    factor) or on the centre pixel (odd factor), it is two averages of
+    neighbours, in the JAX package's order, so the two agree bit for bit.
+    Every other case (``bicubic``, ``antialias``, other sizes) goes through
+    :func:`resize`, ``jax.image.resize``'s weights."""
     n, h, w, c = x01.shape
-    if h % scale or w % scale:
-        raise ValueError(f"downscale takes sizes divisible by the factor (got {h}x{w} "
-                         f"by {scale}); general resizing comes with eval (slice 5)")
-    if scale == 1:
-        return x01
-    blocks = x01.reshape(n, h // scale, scale, w // scale, scale, c)
-    m = scale // 2
-    if scale % 2:
-        return blocks[:, :, m, :, m, :]
-    rows = (blocks[:, :, m - 1] + blocks[:, :, m]) * 0.5  # (n, H/s, W/s, s, c)
-    return (rows[:, :, :, m - 1] + rows[:, :, :, m]) * 0.5
+    if method == "bilinear" and not antialias and h % scale == 0 and w % scale == 0:
+        if scale == 1:
+            return x01
+        blocks = x01.reshape(n, h // scale, scale, w // scale, scale, c)
+        m = scale // 2
+        if scale % 2:
+            return blocks[:, :, m, :, m, :]
+        rows = (blocks[:, :, m - 1] + blocks[:, :, m]) * 0.5  # (n, H/s, W/s, s, c)
+        return (rows[:, :, :, m - 1] + rows[:, :, :, m]) * 0.5
+    return resize(x01, h // scale, w // scale, method, antialias)
+
+
+def upscale(x01: torch.Tensor, scale: int, method: str = "bicubic") -> torch.Tensor:
+    """Upscale an NHWC [0,1] batch by an integer factor (no antialias), as
+    ``jax.image.resize``: the eval CLI's bicubic baseline."""
+    n, h, w, c = x01.shape
+    return resize(x01, h * scale, w * scale, method, antialias=False)
 
 
 def _uniform(gen: torch.Generator, shape, lo: float, hi: float, like: torch.Tensor):

@@ -64,9 +64,21 @@ class TiledUpscaler:
                     f"stay on the model's space_to_depth grid"
                 )
 
+    def upscale_batch_device(self, batch_u8: np.ndarray):
+        """Dispatch only: uint8 NHWC in -> (uint8 NHWC tensor on the device,
+        n input frames). It returns without waiting for the device: on the
+        card the input goes up from pinned memory without blocking, so the
+        caller can fetch and encode the previous batch while this one
+        computes (``cli/rs.py``'s video path)."""
+        x = torch.as_tensor(np.ascontiguousarray(batch_u8)
+                            if isinstance(batch_u8, np.ndarray) else batch_u8)
+        if self.deployed.device.type == "cuda" and x.device.type == "cpu":
+            x = x.pin_memory().to(self.deployed.device, non_blocking=True)
+        return self.deployed(x), x.shape[0]
+
     def upscale_batch(self, batch_u8: np.ndarray) -> np.ndarray:
         """uint8 NHWC RGB -> uint8 NHWC RGB at the model scale."""
-        return self.deployed(batch_u8).cpu().numpy()
+        return self.upscale_batch_device(batch_u8)[0].cpu().numpy()
 
     def upscale_image(self, image_u8: np.ndarray) -> np.ndarray:
         """uint8 HWC RGB of any size -> uint8 HWC RGB."""

@@ -6,15 +6,18 @@ from __future__ import annotations
 import json
 import time
 from pathlib import Path
+from typing import Any, Dict
+
+import numpy as np
 
 
 class MetricsLogger:
     def __init__(self, work_dir: str | Path, run_name: str = "run",
                  use_tensorboard: bool = True):
         self.work_dir = Path(work_dir)
+        self._tb = None
         self.work_dir.mkdir(parents=True, exist_ok=True)
         self._jsonl = open(self.work_dir / f"{run_name}_metrics.jsonl", "a")
-        self._tb = None
         if use_tensorboard:
             try:
                 from torch.utils.tensorboard import SummaryWriter
@@ -30,7 +33,23 @@ class MetricsLogger:
         if self._tb is not None:
             self._tb.add_scalar(tag, float(value), step)
 
+    def scalars(self, metrics: Dict[str, Any], step: int) -> None:
+        for tag, value in metrics.items():
+            self.scalar(tag, float(value), step)
+
+    def images(self, tag: str, batch_u8, step: int) -> None:
+        """Log an NHWC uint8 image batch to TensorBoard (the first 10 hr/lr
+        batches of a run, a visual check of the input pipeline)."""
+        if self._tb is not None:
+            self._tb.add_images(tag, np.asarray(batch_u8), step, dataformats="NHWC")
+
+    def flush(self) -> None:
+        self._jsonl.flush()
+        if self._tb is not None:
+            self._tb.flush()
+
     def close(self) -> None:
+        self.flush()
         self._jsonl.close()
         if self._tb is not None:
             self._tb.close()

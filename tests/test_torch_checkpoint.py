@@ -302,7 +302,7 @@ def test_cli_counts_substituted_patches(tmp_path, capsys):
     (["--ckpt_backend", "orbax"], "slice 5"),
     (["--loader_backend", "native"], "slice 5"),
     (["--resnet", "--ckpt_backend", "orbax"], "slice 5"),
-    (["--resnet", "--profile_dir", "prof"], "slice 5"),
+    (["--train_denoise", "--ckpt_backend", "orbax"], "slice 5"),
     (["--resnet", "--loader_backend", "native"], "slice 5"),
 ])
 def test_cli_refuses_what_is_not_ported(flags, slice_name, tmp_path):

@@ -464,3 +464,98 @@ def test_build_deployed_launches_k1_and_k2(card, tmp_path):
     assert k2.conv3x3_int8.launches - before == 5
     assert k2.conv3x3_int8.launches_by_variant == {
         "fp32 -> int8": 2, "int8 -> fp32": 2, "fp32 -> fp32": 1}
+
+
+# ------------------------------------------------- eval, video, profiling --
+
+def test_texture_metrics_and_resize_on_card_match_cpu(card):
+    """The eval CLI's metrics and resizes on the card against the CPU:
+    upscale and the bicubic downscale within 1e-6 (fp32, TF32 off inside);
+    sharpness, the hf ratio and per-image PSNR-Y within 1e-5 relative; the
+    gradient histograms' distance within 1e-3 (a gradient an ulp apart can
+    cross a bin edge)."""
+    from image_super_resolution_tpu_torch.data import degrade
+    from image_super_resolution_tpu_torch.utils import metrics
+
+    rng = np.random.default_rng(11)
+    a = torch.from_numpy(rng.uniform(0, 1, (4, 96, 80, 3)).astype(np.float32))
+    b = torch.clamp(a + torch.from_numpy(rng.normal(0, 0.05, a.shape).astype(np.float32)), 0, 1)
+    b[:, :40, :40] = 0.5
+    for fn in (lambda x: degrade.upscale(x, 4), lambda x: degrade.upscale(x, 3),
+               lambda x: degrade.downscale(x, 4, "bicubic"),
+               lambda x: degrade.downscale(x, 3, "bicubic", True)):
+        torch.testing.assert_close(fn(a.to(card)).cpu(), fn(a), rtol=0, atol=1e-6)
+    for name, tol in (("sharpness", 1e-5), ("hf_energy_ratio", 1e-5),
+                      ("psnr_y_per_image", 1e-5), ("gradient_hist_distance", 1e-3)):
+        fn = getattr(metrics, name)
+        args = (a,) if name == "sharpness" else (a, b)
+        got = fn(*(t.to(card) for t in args)).cpu()
+        want = fn(*args)
+        if name == "gradient_hist_distance":
+            assert abs(float(got) - float(want)) <= tol
+        else:
+            torch.testing.assert_close(got, want, rtol=tol, atol=0)
+    edges = metrics.histogram_edges(0.5, 32, card).cpu()
+    assert torch.equal(edges, metrics.histogram_edges(0.5, 32, "cpu"))
+
+
+def _sr_engine(card, depth=2, batch_size=8):
+    from image_super_resolution_tpu_torch.infer.engine import TiledUpscaler
+
+    spec = DeploySpec(family="sr", depth=depth, width=64, scale=4)
+    deployed = DeployedModel(spec, init_fused_params(spec, seed=3), dtype=torch.bfloat16,
+                             device=card)
+    return TiledUpscaler(deployed, batch_size=batch_size)
+
+
+def test_video_pipeline_on_card_equals_the_serial_loop(card):
+    """21 frames in batches of 8 (a padded tail) through rs.video_pipeline
+    on the card: the frames of a serial loop of upscale_batch, bit for bit,
+    and K1 launched 3 * depth times per batch."""
+    from image_super_resolution_tpu_torch.cli import rs
+
+    engine = _sr_engine(card)
+    frames = np.random.default_rng(12).integers(0, 256, (21, 48, 64, 3), dtype=np.uint8)
+    batches = []
+    for i in range(0, 21, 8):
+        chunk = frames[i:i + 8]
+        batches.append((np.concatenate([chunk, np.repeat(chunk[-1:], 8 - len(chunk), 0)]),
+                        len(chunk)))
+    got = []
+    before = k1.scatter_rdb.launches
+    assert rs.video_pipeline(engine, iter(batches), got.append) == 21
+    assert k1.scatter_rdb.launches - before == 3 * 2 * 3
+    serial = [f for b, n in batches for f in engine.upscale_batch(b)[:n]]
+    for x, y in zip(got, serial):
+        assert x.shape == (192, 256, 3)
+        np.testing.assert_array_equal(x, y)
+
+
+def test_upscale_batch_device_does_not_wait_for_the_device(card):
+    """On a large batch the host returns from upscale_batch_device (pinned,
+    non-blocking upload; no fetch) while the card is still computing: an
+    event recorded right after it is not yet done. And the copy of one
+    batch to the host, enqueued right after its compute, completes while
+    the next batch still computes (rs._fetch_async)."""
+    from image_super_resolution_tpu_torch.cli import rs
+
+    engine = _sr_engine(card, depth=16, batch_size=64)
+    x = np.random.default_rng(13).integers(0, 256, (64, 96, 96, 3), dtype=np.uint8)
+    for warm in (x[:2], x):  # build the kernel; cache every block (a cudaMalloc may sync)
+        engine.upscale_batch(warm)
+    torch.cuda.synchronize()
+    out, n = engine.upscale_batch_device(x)
+    launched = torch.cuda.Event()
+    launched.record()
+    assert not launched.query(), "upscale_batch_device waited for the device"
+    launched.synchronize()
+    assert n == 64 and tuple(out.shape) == (64, 384, 384, 3)
+
+    small, _ = engine.upscale_batch_device(x[:2])
+    fetch = rs._fetch_async(small)  # enqueued before the next batch launches
+    engine.upscale_batch_device(x)
+    next_done = torch.cuda.Event()
+    next_done.record()
+    frames = fetch()
+    assert not next_done.query(), "the fetch of batch k-1 waited for batch k"
+    np.testing.assert_array_equal(frames, small.cpu().numpy())

@@ -300,7 +300,7 @@ def test_rs_cli_folder_on_cpu(small, tmp_path):
 
 
 @pytest.mark.parametrize("flag,slice_name", [
-    (["--profile_dir", "prof"], "slice 5"),
+    (["--spatial_grid", "2", "1"], "slice 5"),
     (["--tp_devices", "2"], "slice 5"),
     (["--data_devices", "2"], "slice 5"),
     (["--spatial_devices", "2"], "slice 5"),

@@ -191,6 +191,35 @@ def test_denoise_fast_tiled_and_whole_image(artifacts):
     assert np.abs(whole.astype(int) - jwhole.astype(int)).max() <= 1
 
 
+@pytest.mark.parametrize("dtype,jdtype", [(torch.float32, jnp.float32),
+                                          (torch.bfloat16, jnp.bfloat16)])
+def test_denoise_fast_whole_image_pins_the_padding_modes(artifacts, dtype, jdtype):
+    """A 37x29 image, a size the downshuffle factor 2 does not divide, whole
+    and tiled. Whole-image, the model's front pads the last row and column
+    by repeating the edge (JAX ``models/fast.py:131``); tiled, the image is
+    reflect-padded to the tile grid (``infer/tiling.py:83-87``). Each mode
+    agrees with JAX's within 1 LSB, and the two modes differ from each other
+    (at the edges and at the seams, where depth 2's receptive field outgrows
+    the overlap of 8) by the same amounts in both packages: the difference
+    maps within 2 LSB of each other."""
+    spec, jspec, params, path = artifacts["denoise_fast"]
+    image = _u8((37, 29, 3), 8)
+    deployed = load_artifact(path, dtype=dtype, device="cpu")
+    jdeployed = JaxDeployedModel(jspec, params, dtype=jdtype)
+    whole = TiledUpscaler(deployed, window=0).upscale_image(image).astype(int)
+    jwhole = np.asarray(jdeployed(jnp.asarray(image[None])))[0].astype(int)
+    tiled = TiledUpscaler(deployed, window=32, overlap=8, batch_size=4).upscale_image(
+        image).astype(int)
+    jtiled = JaxTiledUpscaler(jdeployed, window=32, overlap=8,
+                              batch_size=4).upscale_image(image).astype(int)
+    assert whole.shape == tiled.shape == jwhole.shape == jtiled.shape == image.shape
+    assert np.abs(whole - jwhole).max() <= 1
+    assert np.abs(tiled - jtiled).max() <= 1
+    modes, jmodes = whole - tiled, jwhole - jtiled
+    assert np.abs(modes - jmodes).max() <= 2
+    assert np.abs(jmodes).max() > 2  # the padding modes really differ
+
+
 def test_fast_bf16_full_depth_bound():
     """fast x4 at full depth 14, width 128: bf16 against the port's fp32
     path, the comparison the card's check makes. Measured on the CPU over
