@@ -83,10 +83,22 @@ Phases, each of which raises on failure:
 12. profiling: ``rs --profile_dir`` on one PNG with the ``sr`` artifact,
     whose trace must name K1's kernel (``rdb_dense_conv``), and
     ``cli.train --profile_dir`` with run (b)'s flags at batch 8, whose trace
-    must hold steps 2-4.
+    must hold steps 2-4;
+13. interop and export formats: a seeded ``sr`` x4 d16 w64 generator in the
+    reference's layout as a TorchScript artifact (the helper of
+    ``tests/test_torch_reference_layout.py``) through ``cli.import_torch
+    --smoke`` (card bf16 vs the CPU fp32 TorchScript forward within
+    ``BF16_MAX_LSB``), its ``.isr`` through ``load_artifact`` and
+    ``cli.demo``; ``cli.export --stablehlo`` (a ``torch.export`` program,
+    static at b256 t24 and ``--hlo_dynamic``) from run (d) and from a seeded
+    ``sr`` x4 checkpoint, each loaded and held bit-equal to the eager model
+    (K1 48 launches per forward; the static x4 request timed beside eager);
+    ``--torch_state_dict`` and ``--torch_discriminator`` from runs (a) and
+    (d) re-imported bit for bit; a legacy-denoiser artifact (d8 w64 hidden
+    32) served within ``DENOISE_BF16_MAX_LSB``.
 
 It prints one JSON line of per-kernel numbers (each kernel's launches
-summed over the counted runs of phases 5/6 and 9-12, and given by path) and
+summed over the counted runs of phases 5/6 and 9-13, and given by path) and
 the training timings, the ``nvidia-smi`` line, and last ``{"ok": true,
 "device": {...}}``. Without CUDA, or outside a
 checkout, it exits non-zero and prints no result.
@@ -2068,6 +2080,263 @@ def _profile_train(work: Path, card: str) -> None:
          f"{n_kernels} kernel events), {secs:.2f} s wall")
 
 
+# ----------------------------------------------------------------- phase 13 --
+
+# The reference-layout artifacts come from the test helper, loaded by path.
+REFERENCE_LAYOUT = ROOT / "tests" / "test_torch_reference_layout.py"
+# Phase 13's sr generator and the .pt2 request (a rehearsal on the CPU
+# lowers them).
+INTEROP_DEPTH, PROGRAM_SHAPE = 16, (256, 24, 24)
+
+
+def _reference_layout():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("reference_layout", REFERENCE_LAYOUT)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _k1_counted(fn, want: int, what: str, device: str):
+    """fn() with K1 counted (``_counted``); fails unless it launched ``want``
+    times (none on a CPU rehearsal: the plain versions count none).
+    Returns (fn(), seconds)."""
+    from image_super_resolution_tpu_torch.ops.kernels.fused_rdb import scatter_rdb
+
+    out, secs, launches, _ = _counted(scatter_rdb, fn)
+    if launches != (want if device == "cuda" else 0):
+        raise AssertionError(f"{what}: fused_rdb launched {launches} times, want {want}")
+    return out, secs
+
+
+def _same_trees(what: str, got, want) -> None:
+    """Bit for bit, fp32, the same keys."""
+    import numpy as np
+
+    from image_super_resolution_tpu_torch.utils.general import flatten_tree
+
+    a, b = flatten_tree(got), flatten_tree(want)
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"{what}: keys differ: {sorted(set(a) ^ set(b))[:5]}")
+    bad = [k for k in a if np.asarray(a[k]).dtype != np.float32
+           or not np.array_equal(np.asarray(a[k]), np.asarray(b[k], np.float32))]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} leaves differ, e.g. {bad[:3]}")
+
+
+def _eager_op_or_launcher(isr: Path, card: str) -> None:
+    """Phase 5's request (sr x4 d16 w64 bf16, b256 t24, host clock over 5
+    requests after one) with ``ScatterRDB`` calling K1 through the
+    registered op ``isr::scatter_rdb``, as serving does, and through its
+    launcher directly (swapped in this process for the measurement only),
+    in the order op, launcher, launcher, op: what the op's dispatch costs.
+    Not a counted path."""
+    import numpy as np
+    import torch
+
+    from image_super_resolution_tpu_torch.models.deploy import load_artifact
+    from image_super_resolution_tpu_torch.ops import scatter as scatter_mod
+    from image_super_resolution_tpu_torch.ops.kernels import fused_rdb
+
+    model = load_artifact(isr, device="cuda")
+    x = torch.from_numpy(np.random.default_rng(SEED + 1).integers(
+        0, 256, (256, 24, 24, 3), dtype=np.uint8)).cuda()
+    times = {"op": [], "launcher": []}
+    for which in ("op", "launcher", "launcher", "op"):
+        if which == "launcher":
+            scatter_mod.scatter_rdb = fused_rdb._cuda_forward
+        try:
+            times[which].append(_serve(model, x, 5)[0])
+        finally:
+            scatter_mod.scatter_rdb = fused_rdb.scatter_rdb
+    _log(f"[interop] eager sr x4 d16 b256 t24 request on {card}, host clock over 5 requests "
+         f"after one (order O, L, L, O): K1 through the op isr::scatter_rdb "
+         f"{' / '.join(f'{t:.3f}' for t in times['op'])} ms, through its launcher "
+         f"{' / '.join(f'{t:.3f}' for t in times['launcher'])} ms")
+
+
+def phase_interop(work: Path, train_work: Path, card: str, device: str = "cuda") -> dict:
+    """Reference interop and the export formats at full width: a seeded sr x4
+    d16 w64 generator, exported to the reference's layout and saved as a
+    TorchScript artifact, through ``cli.import_torch --smoke`` (card bf16
+    vs the CPU fp32 TorchScript forward within BF16_MAX_LSB), the ``.isr``
+    it wrote through ``load_artifact`` and ``cli.demo``; ``cli.export
+    --stablehlo`` static at b256 t24 and ``--hlo_dynamic`` from phase 9's
+    GAN checkpoint (x2) and from a seeded sr x4 checkpoint, each program
+    loaded and run (bit-equal to the eager model, the dynamic one at two
+    shapes), the static x4 one timed beside eager; ``--torch_state_dict``
+    and ``--torch_discriminator`` from runs (a) and (d), re-imported bit for
+    bit; a legacy-denoiser artifact (the shape of the reference's model.pt)
+    served within DENOISE_BF16_MAX_LSB. K1 is counted on every path (48
+    launches per x4 d16 forward). Returns K1's launches by path."""
+    import contextlib
+    import math
+    import re
+
+    import numpy as np
+    import torch
+
+    from image_super_resolution_tpu_torch.cli import demo, export, import_torch
+    from image_super_resolution_tpu_torch.infer.tiling import plan_tiles
+    from image_super_resolution_tpu_torch.interop import (
+        export_generator_state, import_discriminator_state, import_generator_state,
+        import_torchscript_artifact)
+    from image_super_resolution_tpu_torch.models.deploy import (
+        BF16_MAX_LSB, DENOISE_BF16_MAX_LSB, DeploySpec, build_deployed,
+        init_fused_params, load_artifact, load_program)
+    from image_super_resolution_tpu_torch.models.generator import SRGenerator
+    from image_super_resolution_tpu_torch.ops.initializers import init_weights
+    from image_super_resolution_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                                   save_checkpoint)
+    from image_super_resolution_tpu_torch.train.state import TrainState
+    from image_super_resolution_tpu_torch.utils.image_io import read_image_rgb
+
+    layout = _reference_layout()
+    work.mkdir(parents=True, exist_ok=True)
+    counts = {}
+    per_forward = 3 * INTEROP_DEPTH
+    spec = DeploySpec(family="sr", depth=INTEROP_DEPTH, width=64, scale=4)
+    pt = layout.save_sr_artifact(work / "reference_sr_x4.pt",
+                                 export_generator_state(init_fused_params(spec, SEED + 13)),
+                                 spec.mean, spec.std)
+    isr = work / "imported_sr_x4.isr"
+    (got, (worst, share)), secs = _k1_counted(lambda: import_torch.main(
+        ["--src", str(pt), "--out", str(isr), "--smoke", "--device", device]),
+        per_forward, "import_torch --smoke", device)
+    if (got.family, got.depth, got.width, got.scale) != ("sr", INTEROP_DEPTH, 64, 4):
+        raise AssertionError(f"import_torch read {got}")
+    if worst > BF16_MAX_LSB:
+        raise AssertionError(f"import_torch --smoke: {worst} LSB from the TorchScript "
+                             f"forward, bound {BF16_MAX_LSB}")
+    counts["import_torch --smoke, sr x4 (phase 13)"] = per_forward
+    _log(f"[interop] reference-layout TorchScript sr x4 d{INTEROP_DEPTH} w64 -> "
+         f"cli.import_torch --smoke on {card}: {secs:.2f} s (import, .isr, CPU fp32 "
+         f"TorchScript forward, one card forward); card bf16 vs TorchScript fp32 max "
+         f"{worst} LSB (bound {BF16_MAX_LSB}), {share:.4f} of values differ; fused_rdb "
+         f"launches {per_forward}")
+
+    x = np.random.default_rng(SEED + 13).integers(0, 256, (16, 48, 48, 3), dtype=np.uint8)
+    model = load_artifact(isr, device=device)
+    out, _ = _k1_counted(lambda: model(x), per_forward, "the imported .isr", device)
+    w32, s32 = _lsb(out[:2].cpu(), load_artifact(isr, dtype=torch.float32,
+                                                   device="cpu")(x[:2]))
+    if tuple(out.shape) != (16, 192, 192, 3) or w32 > BF16_MAX_LSB:
+        raise AssertionError(f"the imported .isr: {tuple(out.shape)}, {w32} LSB")
+    counts["import -> .isr -> load_artifact, sr x4 (phase 13)"] = per_forward
+    _log(f"[interop] imported .isr through load_artifact, b16 t48 on {card}: 2 tiles vs "
+         f"CPU fp32 max {w32} LSB (bound {BF16_MAX_LSB}), {s32:.4f} differ; fused_rdb "
+         f"launches {per_forward}")
+
+    tiles = plan_tiles(48, 48, min(96, 48 + 2 * 8), 8)[0]  # the demo's 48x48 LR card
+    want = per_forward * -(-len(tiles) // 8)
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        restored, secs = _k1_counted(lambda: demo.main(
+            ["--model_pt", str(pt), "--out_dir", str(work / "demo"), "--device", device]),
+            want, "cli.demo", device)
+    psnrs = [float(v) for v in re.findall(r"([-\d.]+) dB", "".join(tee.text))]
+    image = read_image_rgb(restored)
+    if image.shape != (192, 192, 3) or len(psnrs) < 2 or not all(map(math.isfinite, psnrs)):
+        raise AssertionError(f"cli.demo wrote {image.shape}, PSNRs {psnrs}")
+    counts["demo, sr x4 (phase 13)"] = want
+    _log(f"[interop] cli.demo on {card}: {secs:.2f} s, restored {image.shape}, PSNR bicubic "
+         f"{psnrs[0]:.2f} dB, restored {psnrs[1]:.2f} dB (random weights); fused_rdb "
+         f"launches {want}")
+
+    sr4_ckpt = work / "sr_x4.ckpt"
+    state = TrainState(init_weights(SRGenerator(depth=INTEROP_DEPTH, width=64, scale=4,
+                                                fused=False, device=device), SEED + 13),
+                       total_steps=1)
+    save_checkpoint(sr4_ckpt, state, 0, spec.mean, spec.std, [0.0])
+    del state
+    n, h, w = PROGRAM_SHAPE
+    for title, ckpt, scale in (("GAN-trained sr x2 (run d)", _checkpoint(train_work, "d"), 2),
+                               ("seeded sr x4", sr4_ckpt, 4)):
+        for dynamic in (False, True):
+            pt2 = work / f"sr_x{scale}{'_dynamic' if dynamic else ''}.pt2"
+            t0 = time.perf_counter()
+            exp_spec = export.main(["--checkpoint", str(ckpt), "--scale", str(scale),
+                                    "--out", str(work / "program.isr"), "--device", device,
+                                    "--stablehlo", str(pt2), "--hlo_shape", str(n), str(h),
+                                    str(w)] + (["--hlo_dynamic"] if dynamic else []))
+            secs = time.perf_counter() - t0
+            program = load_program(pt2)
+            eager = build_deployed(load_checkpoint(ckpt), exp_spec, device=device)[0]
+            k1_per = 3 * exp_spec.depth
+            shapes = [(n, h, w)] + ([(3, 40, 56)] if dynamic else [])
+            for i, shape in enumerate(shapes):
+                xd = torch.from_numpy(np.random.default_rng(SEED + i).integers(
+                    0, 256, (*shape, 3), dtype=np.uint8)).to(device)
+                got, _ = _k1_counted(lambda: program(xd), k1_per, f".pt2 {title}", device)
+                want = eager(xd)
+                if got.dtype != torch.uint8 or not torch.equal(got, want):
+                    raise AssertionError(f".pt2 {title} {shape}: not equal to eager "
+                                         f"({_lsb(got.cpu(), want.cpu())})")
+                key = (f".pt2 {'dynamic' if dynamic else 'static'} {title} "
+                       f"{shape[0]}x{shape[1]}x{shape[2]} (phase 13)")
+                counts[key] = k1_per
+            timing = ""
+            if device == "cuda" and not dynamic and scale == 4:
+                t_prog = _cuda_ms(lambda: program(xd), warmup=2, iters=10)
+                t_eager = _cuda_ms(lambda: eager(xd), warmup=2, iters=10)
+                timing = (f"; b{n} t{h} request by CUDA events: program {t_prog:.3f} ms, "
+                          f"eager {t_eager:.3f} ms")
+            _log(f"[interop] cli.export --stablehlo{' --hlo_dynamic' if dynamic else ''} "
+                 f"{title} d{exp_spec.depth} on {card}: export {secs:.2f} s, "
+                 f"{pt2.stat().st_size / 2**20:.1f} MiB; {len(shapes)} shape(s) equal to eager "
+                 f"bit for bit; fused_rdb launches {k1_per} per forward{timing}")
+            del program, eager
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        _eager_op_or_launcher(isr, card)
+
+    for key, flags in (("a", ["--torch_state_dict"]),
+                       ("d", ["--torch_state_dict", "--torch_discriminator"])):
+        ckpt_path = _checkpoint(train_work, key)
+        argv = ["--checkpoint", str(ckpt_path), "--scale", "2", "--device", device,
+                "--out", str(work / "sd.isr")]
+        for flag in flags:
+            argv += [flag, str(work / f"{key}{flag}.pt")]
+        export.main(argv)
+        ckpt = load_checkpoint(ckpt_path)
+        sd = {k: v.numpy() for k, v in torch.load(work / f"{key}--torch_state_dict.pt",
+                                                   weights_only=True)["state_dict"].items()}
+        params, stats, _ = import_generator_state(sd)
+        _same_trees(f"run ({key}) --torch_state_dict params", params, ckpt["ema_params"])
+        _same_trees(f"run ({key}) --torch_state_dict batch_stats", stats,
+                    ckpt["ema_batch_stats"])
+        done = "G (EMA params and statistics)"
+        if "--torch_discriminator" in flags:
+            sd = {k: v.numpy() for k, v in torch.load(
+                work / f"{key}--torch_discriminator.pt", weights_only=True)[
+                "state_dict"].items()}
+            d_params, d_stats = import_discriminator_state(sd)
+            _same_trees("run (d) --torch_discriminator params", d_params, ckpt["d_params"])
+            _same_trees("run (d) --torch_discriminator batch_stats", d_stats,
+                        ckpt["d_batch_stats"])
+            done += " and D (params and statistics)"
+        _log(f"[interop] cli.export {' '.join(flags)} from run ({key}): re-imported {done} "
+             f"equal to the checkpoint's bit for bit in fp32")
+
+    legacy = DeploySpec(family="denoise_legacy", depth=8, width=64, hidden=32)
+    pt = layout.save_state_artifact(work / "legacy_denoiser.pt", layout.legacy_denoiser_state(
+        init_fused_params(legacy, SEED + 13)), spec.mean, spec.std)
+    deployed, got, _ = import_torchscript_artifact(pt, device=device)
+    if (got.family, got.depth, got.width, got.hidden) != ("denoise_legacy", 8, 64, 32):
+        raise AssertionError(f"the legacy denoiser imported as {got}")
+    x = np.random.default_rng(SEED + 14).integers(0, 256, (2, 96, 96, 3), dtype=np.uint8)
+    worst, share = _lsb(deployed(x).cpu(), import_torchscript_artifact(
+        pt, torch.float32, "cpu")[0](x))
+    if worst > DENOISE_BF16_MAX_LSB:
+        raise AssertionError(f"the legacy denoiser: {worst} LSB from the CPU, bound "
+                             f"{DENOISE_BF16_MAX_LSB}")
+    _log(f"[interop] legacy-denoiser artifact (d8 w64 hidden 32) -> denoise_legacy on {card}: "
+         f"2 tiles 96x96 card bf16 vs CPU fp32 max {worst} LSB (bound "
+         f"{DENOISE_BF16_MAX_LSB}), {share:.4f} differ")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2100,6 +2369,7 @@ def main() -> int:
         evals = phase_eval(Path(tmp) / "train", sr_isr, fast_isr, card)
         videos = phase_video(Path(tmp), sr_isr, fast_isr, card)
         k1_profile = phase_profile(Path(tmp) / "train", sr_isr, card)
+        interop = phase_interop(Path(tmp) / "interop", Path(tmp) / "train", card)
     # launches: every counted main-path run, by path
     k1["launches_by_path"] = {"serve sr x4 (phase 5)": k1_serve,
                               "train -> checkpoint -> serve sr x2 (phase 9)":
@@ -2111,6 +2381,7 @@ def main() -> int:
                               "train -> checkpoint -> serve fast x4 int8 (phase 9)":
                               trained["conv3x3_int8"]}
     k2["variants_train_serve"] = trained["conv3x3_int8 by variant"]
+    k1["launches_by_path"].update(interop)
     for path, n in {**evals, **videos}.items():
         if n:  # the Denoiser's eval runs neither kernel
             (k2 if "int8" in path else k1)["launches_by_path"][path] = n

@@ -19,6 +19,11 @@ of the JAX package's ``models/deploy.py``).
   "params": fp16 tree, "format_version": 1}``, each array a msgpack ext
   type 1 whose payload is ``msgpack.packb((shape, dtype_name, C-order
   bytes))`` -- flax's own ndarray encoding.
+- ``export_program``/``load_program`` write and read a ``torch.export``
+  program (``.pt2``) of the whole uint8 -> uint8 request, the port's
+  counterpart of the JAX package's StableHLO export. K1 is one node of it
+  (the op ``isr::scatter_rdb``), so the loaded program launches the
+  hand-written kernel on the card.
 """
 
 from __future__ import annotations
@@ -32,7 +37,8 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD, normalize, tanh_to_uint8
+from ..data.transforms import (IMAGENET_MEAN, IMAGENET_STD, normalize, tanh_to_uint8,
+                               to_float01)
 from ..interop.from_jax import params_from_jax, params_to_jax
 from ..ops.fuse import fuse_conv_bn
 from ..utils.serialization import (map_tree, msgpack_restore, msgpack_serialize,
@@ -204,6 +210,64 @@ class DeployedModel:
         """uint8 NHWC (numpy or tensor) -> uint8 NHWC tensor on the device."""
         x = torch.as_tensor(u8_batch).to(self.device)
         return tanh_to_uint8(self.model(normalize(x, self._mean, self._std)))
+
+
+class _Program(torch.nn.Module):
+    """``DeployedModel.__call__`` as one module, for ``torch.export``: the
+    same ops, with mean and std as buffers."""
+
+    def __init__(self, deployed: DeployedModel):
+        super().__init__()
+        self.model = deployed.model
+        kw = dict(dtype=torch.float32, device=deployed.device)
+        self.register_buffer("mean", torch.tensor(deployed._mean, **kw))
+        self.register_buffer("std", torch.tensor(deployed._std, **kw))
+
+    def forward(self, u8: torch.Tensor) -> torch.Tensor:
+        return tanh_to_uint8(self.model((to_float01(u8) - self.mean) / self.std))
+
+
+def export_program(deployed: DeployedModel, batch: int, height: int, width: int,
+                   out_path: str | Path, polymorphic: bool = False) -> None:
+    """Write the request (uint8 NHWC -> uint8 NHWC: normalize, the model,
+    ``tanh_to_uint8``) as a ``torch.export`` program on the model's device.
+
+    Static: for a (batch, height, width, 3) input. ``polymorphic=True``:
+    N, H and W are ``torch.export.Dim``s, the counterpart of the JAX
+    package's symbolic StableHLO dims. For ``downshuffle > 1`` H and W are
+    constrained to multiples of the factor, as JAX constrains them: the
+    edge pad of other sizes is shape arithmetic an export cannot keep
+    symbolic. The ``denoise`` family's H and W are even: its stride-2 trunk
+    comes back through a x2 pixel shuffle onto the full-size skip. Load
+    with ``load_program``.
+    """
+    f = 2 if deployed.spec.family == "denoise" else deployed.spec.downshuffle or 1
+    dynamic = None
+    if polymorphic:
+        Dim = torch.export.Dim
+        hdim, wdim = (f * Dim("h_f"), f * Dim("w_f")) if f > 1 else (Dim("h"), Dim("w"))
+        dynamic = ({0: Dim("n"), 1: hdim, 2: wdim},)
+        # sizes 0 and 1 would specialize a dim: trace at two or more
+        batch = max(batch, 2)
+        height, width = (f * max(2, -(-v // f)) for v in (height, width))
+    x = torch.zeros((batch, height, width, 3), dtype=torch.uint8, device=deployed.device)
+    # Shape checks that the tracer cannot prove symbolically (stride
+    # comparisons such as min(128w, 256w) == 128w, true for every w) stay in
+    # the program as runtime asserts instead of failing the export.
+    program = torch.export.export(_Program(deployed).eval(), (x,), dynamic_shapes=dynamic,
+                                  strict=False,
+                                  prefer_deferred_runtime_asserts_over_guards=polymorphic)
+    torch.export.save(program, str(out_path))
+
+
+def load_program(path: str | Path):
+    """A program written by ``export_program``, as a callable module (uint8
+    NHWC in, uint8 NHWC out) on the device it was exported on. K1's op is
+    registered by importing ``ops.kernels.fused_rdb``, which this module
+    does, before the program is read."""
+    from ..ops.kernels import fused_rdb  # noqa: F401  registers isr::scatter_rdb
+
+    return torch.export.load(str(path)).module()
 
 
 # ------------------------------------------------------------ persistence --

@@ -14,6 +14,12 @@ scatter-form weights (``dense_plan``), so no fp32 partial sum leaves the
 chip. Unlike the Pallas kernel it takes any batch and any H, W (whole-image
 serving sends non-square images through it). The CUDA design and its bound
 are described at the top of the ``.cu`` file.
+
+The wrapper ``scatter_rdb`` calls the registered op ``isr::scatter_rdb``
+(``scatter_rdb_op``), which dispatches by device: CUDA -> the counted
+launch, CPU -> the plain version, its fake implementation -> the output's
+shape. So ``torch.export`` records each RDB as one node, and a loaded
+program launches the hand-written kernel.
 """
 
 from __future__ import annotations
@@ -163,15 +169,37 @@ def _check(x, weights, bias) -> None:
 
 def scatter_rdb(x, sx, s0, s1, s2, s3, bias, add_rate: float = 0.2,
                 slope: float = 0.01) -> torch.Tensor:
-    """One scatter-form RDB, NHWC. CPU tensor: the plain version. CUDA
-    tensor: the hand-written kernel, on the current stream, or an error."""
-    if x.device.type == "cpu":
-        return scatter_rdb_reference(x, sx, s0, s1, s2, s3, bias, add_rate, slope)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+    """One scatter-form RDB, NHWC, through the registered op
+    ``isr::scatter_rdb`` (``scatter_rdb_op``). CPU tensor: the plain
+    version. CUDA tensor: the hand-written kernel, on the current stream, or
+    an error. Traced by ``torch.export``, it is one node of the graph."""
+    return scatter_rdb_op(x, sx, s0, s1, s2, s3, bias, float(add_rate), float(slope))
+
+
+def _cuda_forward(x, sx, s0, s1, s2, s3, bias, add_rate, slope) -> torch.Tensor:
+    """The kernel's five launches, counted as one in ``scatter_rdb.launches``."""
     out = _launch(x, (sx, s0, s1, s2, s3), bias, add_rate, slope)[0]
     scatter_rdb.launches += 1
     return out
+
+
+@torch.library.custom_op("isr::scatter_rdb", mutates_args=())
+def scatter_rdb_op(x: torch.Tensor, sx: torch.Tensor, s0: torch.Tensor, s1: torch.Tensor,
+                   s2: torch.Tensor, s3: torch.Tensor, bias: torch.Tensor, add_rate: float,
+                   slope: float) -> torch.Tensor:
+    """K1 as an operator that ``torch.export`` records as one node and a
+    loaded program dispatches by device: CPU -> the plain version, CUDA ->
+    the kernel (counted); any other device raises."""
+    raise ValueError(f"unsupported device {x.device}")
+
+
+scatter_rdb_op.register_kernel("cpu")(scatter_rdb_reference)
+scatter_rdb_op.register_kernel("cuda")(_cuda_forward)
+
+
+@scatter_rdb_op.register_fake
+def _scatter_rdb_fake(x, sx, s0, s1, s2, s3, bias, add_rate, slope):
+    return torch.empty_like(x)
 
 
 def _launch(x, weights, bias, add_rate, slope, only: int = -1, y=None, out=None):

@@ -559,3 +559,61 @@ def test_upscale_batch_device_does_not_wait_for_the_device(card):
     frames = fetch()
     assert not next_done.query(), "the fetch of batch k-1 waited for batch k"
     np.testing.assert_array_equal(frames, small.cpu().numpy())
+
+
+# --------------------------------------------------- interop, torch.export --
+
+def _reference_layout():
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "reference_layout", Path(__file__).with_name("test_torch_reference_layout.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("polymorphic", [False, True])
+def test_k1_op_under_torch_export_on_card(card, tmp_path, polymorphic):
+    """export_program of a bf16 sr x4 model on the card: K1 is one
+    isr::scatter_rdb node per RDB, the loaded program launches the kernel
+    (three per RRDB, counted) and its output equals the eager model's bit
+    for bit; the dynamic program at a second shape too."""
+    from image_super_resolution_tpu_torch.models.deploy import export_program, load_program
+
+    spec = DeploySpec(family="sr", depth=2, width=64, scale=4)
+    eager = DeployedModel(spec, init_fused_params(spec, seed=4), dtype=torch.bfloat16,
+                          device=card)
+    export_program(eager, 4, 24, 24, tmp_path / "p.pt2", polymorphic=polymorphic)
+    graph = torch.export.load(str(tmp_path / "p.pt2")).graph
+    assert sum(n.target is torch.ops.isr.scatter_rdb.default for n in graph.nodes) == 6
+    program = load_program(tmp_path / "p.pt2")
+    for shape in [(4, 24, 24, 3)] + ([(1, 17, 30, 3)] if polymorphic else []):
+        x = torch.from_numpy(np.random.default_rng(sum(shape)).integers(
+            0, 256, shape, dtype=np.uint8)).to(card)
+        before = k1.scatter_rdb.launches
+        got = program(x)
+        torch.cuda.synchronize()
+        assert k1.scatter_rdb.launches - before == 3 * spec.depth
+        assert got.device.type == "cuda" and torch.equal(got, eager(x))
+
+
+def test_import_torch_smoke_on_card(card, tmp_path):
+    """A reference-layout sr x4 artifact through cli.import_torch --smoke on
+    the card: K1 launched three times per RRDB, the bf16 output within
+    BF16_MAX_LSB of the TorchScript forward in fp32 on the CPU."""
+    from image_super_resolution_tpu_torch.cli import import_torch
+    from image_super_resolution_tpu_torch.interop import export_generator_state
+    from image_super_resolution_tpu_torch.models.deploy import BF16_MAX_LSB
+
+    spec = DeploySpec(family="sr", depth=2, width=64, scale=4)
+    sd = export_generator_state(init_fused_params(spec, seed=5))
+    path = _reference_layout().save_sr_artifact(tmp_path / "g.pt", sd, (0.4, 0.5, 0.6),
+                                                (0.2, 0.2, 0.2))
+    before = k1.scatter_rdb.launches
+    got, (worst, share) = import_torch.main(["--src", str(path), "--out",
+                                             str(tmp_path / "g.isr"), "--smoke"])
+    assert k1.scatter_rdb.launches - before == 3 * spec.depth
+    assert (got.family, got.depth, got.scale) == ("sr", 2, 4)
+    assert worst <= BF16_MAX_LSB and 0 <= share < 1

@@ -2,7 +2,8 @@
 written from a checkpoint of either package (pixel or GAN phase, EMA or
 raw weights) holds the same spec and fp16 params as the JAX export's, and
 JAX's ``load_artifact`` serves it within 1 LSB of the port; ``--smoke``,
-dims read from the checkpoint, and the refused formats."""
+dims read from the checkpoint, the reference-layout state dicts and the
+``torch.export`` program, and the refused formats."""
 
 import json
 
@@ -127,12 +128,49 @@ def test_export_no_ema_differs_and_smoke_serves(tmp_path, capsys):
     assert any(not np.array_equal(a[k], b[k]) for k in a)
 
 
-@pytest.mark.parametrize("flag", ["--stablehlo", "--tf_saved_model", "--torch_state_dict",
-                                  "--torch_discriminator"])
+@pytest.mark.parametrize("flag", ["--torch_state_dict", "--torch_discriminator", "--stablehlo"])
+def test_export_writes_the_other_formats(flag, tmp_path):
+    """--torch_state_dict and --torch_discriminator write the JAX export's
+    file from the same checkpoint (a GAN checkpoint for D): the same keys
+    in order, fp32 values bit for bit, the same meta. --stablehlo writes a
+    torch.export program that loads and equals the eager model bit for
+    bit, and --hlo_dynamic one that serves another shape too."""
+    from image_super_resolution_tpu_torch.models.deploy import build_deployed, load_program
+
+    path = _gan_checkpoint(tmp_path) if flag == "--torch_discriminator" else _port_checkpoint(tmp_path)
+    ours, theirs = tmp_path / "ours.pt", tmp_path / "theirs.pt"
+    flags = ["--checkpoint", str(path), "--scale", "2", "--out", str(tmp_path / "m.isr")]
+    if flag == "--stablehlo":
+        x = _u8((2, 12, 16, 3), 3)
+        for dynamic in ([], ["--hlo_dynamic"]):
+            spec = export.main(flags + ["--device", "cpu", flag, str(ours), "--hlo_shape",
+                                        "2", "12", "16", *dynamic])
+            program = load_program(ours)
+            eager = build_deployed(ckpt.load_checkpoint(path), spec, device="cpu")[0]
+            assert torch.equal(program(torch.from_numpy(x)), eager(x))
+        y = _u8((1, 9, 7, 3), 4)
+        assert tuple(program(torch.from_numpy(y)).shape) == (1, 18, 14, 3)
+        assert torch.equal(program(torch.from_numpy(y)), eager(y))
+        return
+    export.main(flags + ["--device", "cpu", flag, str(ours)])
+    jax_export.main(flags + ["--compile_cache", "off", flag, str(theirs)])
+    a, b = torch.load(ours, weights_only=True), torch.load(theirs, weights_only=True)
+    assert a["meta"] == b["meta"]
+    assert list(a["state_dict"]) == list(b["state_dict"])
+    for k, v in a["state_dict"].items():
+        assert v.dtype == b["state_dict"][k].dtype and torch.equal(v, b["state_dict"][k]), k
+    assert any(k.endswith("bn.running_var") for k in a["state_dict"])
+
+
+@pytest.mark.parametrize("flag", ["--tf_saved_model", "fast --torch_state_dict"])
 def test_export_refuses_formats_of_a_later_slice(flag, tmp_path):
-    with pytest.raises(SystemExit, match="slice 5"):
-        export.main(["--checkpoint", str(tmp_path / "missing.ckpt"), flag,
-                     str(tmp_path / "x"), "--device", "cpu"])
+    """--tf_saved_model needs jax2tf and TensorFlow, which the port does not
+    depend on; the fast families have no reference class to take a
+    --torch_state_dict. Both exit before reading the checkpoint."""
+    family = ["--family", "fast"] if flag.startswith("fast") else []
+    with pytest.raises(SystemExit, match="TensorFlow" if family == [] else "no reference"):
+        export.main(["--checkpoint", str(tmp_path / "missing.ckpt"), flag.split()[-1],
+                     str(tmp_path / "x"), "--device", "cpu", *family])
 
 
 def test_export_checks_downshuffle_like_jax(tmp_path):
