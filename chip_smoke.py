@@ -46,7 +46,8 @@ Phases, each of which raises on failure:
    PNG codec;
 9. the user's path at full width: 64 smooth 192x192 PNGs and their
    manifest written by ``cli.create_json``, then training through
-   ``cli.train.main`` at the CLI defaults (batch 16, patch 96), one epoch
+   ``cli.train.main`` at the CLI defaults (batch 16, patch 96, the loader's
+   ``auto`` backend: the C++ loader where it builds), one epoch
    each: (a) ``--resnet`` sr x2 d16 w64 with BN, (b) ``--resnet --family
    fast --scale 4``, (c) ``--train_denoise``, (d) the GAN phase in (a)'s
    work dir (G warm-started from (a), every leaf matched; D 3-64-8-1024;
@@ -95,11 +96,29 @@ Phases, each of which raises on failure:
     (K1 48 launches per forward; the static x4 request timed beside eager);
     ``--torch_state_dict`` and ``--torch_discriminator`` from runs (a) and
     (d) re-imported bit for bit; a legacy-denoiser artifact (d8 w64 hidden
-    32) served within ``DENOISE_BF16_MAX_LSB``.
+    32) served within ``DENOISE_BF16_MAX_LSB``;
+14. the native loader on the card's host: a ``g++`` probe of the
+    libjpeg-turbo (``jpeg_crop_scanline``) and libpng headers, printed;
+    where it fails, one ``[loader] native unavailable`` line, ``auto``
+    choosing python and ``--loader_backend native`` raising, and nothing
+    more. Else a COCO-like set written by OpenCV (256 smooth-plus-noise
+    JPEG photos 640x480 and 480x640 at quality 90, 4:2:0; two JPEGs under
+    the patch; a grey PNG; a BMP) and its manifest (``cli.create_json``);
+    ``native.decode_rgb`` against cv2 and PIL (mean difference under 1); 64
+    crops of ``load_patches`` bit-equal to the native full decode at the
+    offsets of a Python splitmix64, none substituted; ``PatchLoader``'s
+    patches/s with each backend at workers 2, 4 and 8 (batch 16, patch 96,
+    one epoch after a warm-up one, host clock, beside the CPU count); then
+    ``cli.train.main`` fast x4 on the set for 3 epochs with each backend
+    (patches/s of epochs 2-3, losses finite), and the native run's
+    checkpoint served in int8 through K2 (29 launches per forward, counted
+    by variant, two tiles against the CPU). Any failure to build or load
+    the loader after the probe passed fails the run.
 
 It prints one JSON line of per-kernel numbers (each kernel's launches
-summed over the counted runs of phases 5/6 and 9-13, and given by path) and
-the training timings, the ``nvidia-smi`` line, and last ``{"ok": true,
+summed over the counted runs of phases 5/6 and 9-14, and given by path),
+the training timings and the loader's rates, the ``nvidia-smi`` line, and
+last ``{"ok": true,
 "device": {...}}``. Without CUDA, or outside a
 checkout, it exits non-zero and prints no result.
 """
@@ -1211,12 +1230,9 @@ def _serve_trained(work: Path, card: str, device: str) -> dict:
     import torch
 
     from image_super_resolution_tpu_torch.models.deploy import (
-        BF16_MAX_LSB, BF16_X2_MAX_LSB, DENOISE_BF16_MAX_LSB, FAST_BF16_MAX_LSB, DeploySpec,
-        build_deployed, infer_family_dims)
-    from image_super_resolution_tpu_torch.models.quantized import (
-        INT8_CARD_MAX_LSB, Int8DeployedFast, quantize_deployed)
+        BF16_MAX_LSB, BF16_X2_MAX_LSB, DENOISE_BF16_MAX_LSB, DeploySpec, build_deployed,
+        infer_family_dims)
     from image_super_resolution_tpu_torch.ops.kernels.fused_rdb import scatter_rdb
-    from image_super_resolution_tpu_torch.ops.kernels.matmul import conv3x3_int8
     from image_super_resolution_tpu_torch.train.checkpoint import load_checkpoint
     from image_super_resolution_tpu_torch.utils.image_io import read_image_rgb
 
@@ -1257,32 +1273,9 @@ def _serve_trained(work: Path, card: str, device: str) -> dict:
     if w16 > BF16_MAX_LSB or w32 > BF16_X2_MAX_LSB:
         raise AssertionError("trained sr card output is outside its bound")
 
-    spec = spec_of("b", "fast", scale=4)
-    fast, _ = build_deployed(ckpts["b"], spec, dtype=torch.bfloat16, device=device)
     x24 = np.ascontiguousarray(x[:, :24, :24])
-    out16 = fast(x24)
-    quant = quantize_deployed(fast, [x24])
-    conv3x3_int8.launches = 0
-    conv3x3_int8.launches_by_variant.clear()
-    for _ in range(n):
-        out8 = quant(x24)
-    sync()
-    counts["conv3x3_int8"] = conv3x3_int8.launches
-    by_variant = dict(conv3x3_int8.launches_by_variant)
-    want = {"fp32 -> int8": spec.depth * n, "int8 -> fp32": spec.depth * n, "fp32 -> fp32": n}
-    if by_variant != want:
-        raise AssertionError(f"trained fast int8 launched conv3x3_int8 {by_variant} in {n} "
-                             f"forwards, want {want}")
-    w16, s16 = _lsb(out16[:2].cpu(), build_deployed(ckpts["b"], spec, dtype=torch.float32,
-                                                    device="cpu")[0](x24[:2]))
-    w8, s8 = _lsb(out8[:2].cpu(), Int8DeployedFast(spec, quant.params, device="cpu")(x24[:2]))
-    _log(f"[serve] trained fast x4 d{spec.depth} (checkpoint of run b) b{len(x)} t24 on {card}: int8 "
-         f"conv3x3_int8 launches {counts['conv3x3_int8']} by variant {by_variant} ({n} "
-         f"forwards, {2 * spec.depth + 1} per forward); 2 tiles: card int8 vs CPU int8 max {w8} LSB (bound "
-         f"{INT8_CARD_MAX_LSB}), {s8:.4f} differ; card bf16 vs CPU fp32 max {w16} LSB (bound "
-         f"{FAST_BF16_MAX_LSB}), {s16:.4f} differ")
-    if w8 > INT8_CARD_MAX_LSB or w16 > FAST_BF16_MAX_LSB:
-        raise AssertionError("trained fast card output is outside its bound")
+    counts["conv3x3_int8"], by_variant = _serve_fast_int8(
+        ckpts["b"], x24, f"trained fast x4 (checkpoint of run b) b{len(x)} t24", card, device)
 
     spec = spec_of("c", "denoise")
     den, _ = build_deployed(ckpts["c"], spec, dtype=torch.bfloat16, device=device)
@@ -1299,6 +1292,49 @@ def _serve_trained(work: Path, card: str, device: str) -> dict:
     counts["conv3x3_int8 by variant"] = {k: {"launches": v, "launches_per_forward": v // n}
                                          for k, v in by_variant.items()}
     return counts
+
+
+def _serve_fast_int8(ckpt: dict, x24, title: str, card: str, device: str, n: int = 3):
+    """A fast x4 checkpoint through build_deployed (bf16, EMA weights; depth
+    and width read from it), calibrated to int8 on ``x24`` and served
+    through K2 ``n`` times: launches counted by variant (2 * depth + 1 per
+    forward) and two tiles held against the port's CPU paths (int8 against
+    int8, bf16 against fp32). Returns (launches, launches by variant)."""
+    import torch
+
+    from image_super_resolution_tpu_torch.models.deploy import (
+        FAST_BF16_MAX_LSB, DeploySpec, build_deployed, infer_family_dims)
+    from image_super_resolution_tpu_torch.models.quantized import (
+        INT8_CARD_MAX_LSB, Int8DeployedFast, quantize_deployed)
+    from image_super_resolution_tpu_torch.ops.kernels.matmul import conv3x3_int8
+
+    depth, width = infer_family_dims(ckpt["params"], "fast")
+    spec = DeploySpec(family="fast", depth=depth, width=width, scale=4)
+    fast, _ = build_deployed(ckpt, spec, dtype=torch.bfloat16, device=device)
+    out16 = fast(x24)
+    quant = quantize_deployed(fast, [x24])
+    conv3x3_int8.launches = 0
+    conv3x3_int8.launches_by_variant.clear()
+    for _ in range(n):
+        out8 = quant(x24)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = conv3x3_int8.launches
+    by_variant = dict(conv3x3_int8.launches_by_variant)
+    want = {"fp32 -> int8": depth * n, "int8 -> fp32": depth * n, "fp32 -> fp32": n}
+    if by_variant != want:
+        raise AssertionError(f"{title}: int8 launched conv3x3_int8 {by_variant} in {n} "
+                             f"forwards, want {want}")
+    w16, s16 = _lsb(out16[:2].cpu(), build_deployed(ckpt, spec, dtype=torch.float32,
+                                                    device="cpu")[0](x24[:2]))
+    w8, s8 = _lsb(out8[:2].cpu(), Int8DeployedFast(spec, quant.params, device="cpu")(x24[:2]))
+    _log(f"[serve] {title} d{depth} on {card}: int8 conv3x3_int8 launches {launches} by "
+         f"variant {by_variant} ({n} forwards, {2 * depth + 1} per forward); 2 tiles: card "
+         f"int8 vs CPU int8 max {w8} LSB (bound {INT8_CARD_MAX_LSB}), {s8:.4f} differ; card "
+         f"bf16 vs CPU fp32 max {w16} LSB (bound {FAST_BF16_MAX_LSB}), {s16:.4f} differ")
+    if w8 > INT8_CARD_MAX_LSB or w16 > FAST_BF16_MAX_LSB:
+        raise AssertionError(f"{title}: card output is outside its bound")
+    return launches, by_variant
 
 
 def _checkpoint(work: Path, key: str) -> Path:
@@ -2337,6 +2373,262 @@ def phase_interop(work: Path, train_work: Path, card: str, device: str = "cuda")
     return counts
 
 
+# ----------------------------------------------------------------- phase 14 --
+
+# A COCO-like training set: photo-sized JPEGs (quality 90, 4:2:0), half
+# landscape and half portrait, plus two JPEGs smaller than the patch, a grey
+# PNG and a BMP (which the C++ loader hands back to the Python decoders).
+LOADER_PHOTOS, LOADER_SIZE = 256, (480, 640)
+LOADER_WORKERS, LOADER_BATCH, LOADER_PATCH = (2, 4, 8), 16, 96
+LOADER_CROPS = 64  # (path, seed) pairs held against the full decode
+LOADER_EPOCHS = 3
+# Compiled and run before the loader is built: the headers of libjpeg-turbo
+# >= 1.5 (jpeg_crop_scanline, which the ROI decode needs) and libpng, and
+# both libraries' link names.
+PROBE_SOURCE = r"""
+#include <cstdio>
+#include <jpeglib.h>
+#include <png.h>
+#define ISR_STR2(x) #x
+#define ISR_STR(x) ISR_STR2(x)
+int main() {
+  void (*crop)(j_decompress_ptr, JDIMENSION*, JDIMENSION*) = jpeg_crop_scanline;
+#ifdef LIBJPEG_TURBO_VERSION
+  const char* turbo = ISR_STR(LIBJPEG_TURBO_VERSION);
+#else
+  const char* turbo = "none";
+#endif
+  void* volatile png = (void*)&png_create_read_struct;  // links -lpng
+  std::printf("libjpeg API %d, libjpeg-turbo %s, libpng %s\n", JPEG_LIB_VERSION, turbo,
+              PNG_LIBPNG_VER_STRING);
+  return crop == nullptr || png == nullptr;
+}
+"""
+
+
+def _probe_toolchain(work: Path) -> tuple:
+    """(True, what was found) when g++ builds and runs PROBE_SOURCE against
+    -ljpeg -lpng, else (False, the compiler's first error line)."""
+    work.mkdir(parents=True, exist_ok=True)
+    (work / "probe.cpp").write_text(PROBE_SOURCE)
+    try:
+        version = subprocess.run(["g++", "--version"], capture_output=True, text=True,
+                                 timeout=30).stdout.splitlines()[0]
+        built = subprocess.run(["g++", "-std=c++17", str(work / "probe.cpp"), "-o",
+                                str(work / "probe"), "-ljpeg", "-lpng"],
+                               capture_output=True, text=True, timeout=120)
+    except (OSError, subprocess.TimeoutExpired, IndexError) as e:
+        return False, f"g++: {e}"
+    if built.returncode != 0:
+        lines = built.stderr.strip().splitlines() or ["no message"]
+        return False, f"{version}: {next((l for l in lines if 'error' in l), lines[0])}"
+    ran = subprocess.run([str(work / "probe")], capture_output=True, text=True, timeout=30)
+    return ran.returncode == 0, f"{version}; {ran.stdout.strip()}{ran.stderr.strip()}"
+
+
+def _jpeg_sampling(path: Path) -> str:
+    """The chroma subsampling a baseline JPEG's frame header declares."""
+    data = path.read_bytes()
+    at = data.index(b"\xff\xc0")
+    n = data[at + 9]
+    factors = [(data[at + 11 + 3 * i] >> 4, data[at + 11 + 3 * i] & 15) for i in range(n)]
+    return {((2, 2), (1, 1), (1, 1)): "4:2:0", ((2, 1), (1, 1), (1, 1)): "4:2:2",
+            ((1, 1), (1, 1), (1, 1)): "4:4:4"}.get(tuple(factors), str(factors))
+
+
+def _coco_like_set(folder: Path) -> tuple:
+    """LOADER_PHOTOS smooth-plus-noise photos as JPEGs (quality 90, 4:2:0),
+    two JPEGs under the patch, a grey PNG and a BMP, written by OpenCV on
+    all cores, and their manifest written by ``cli.create_json``. Returns
+    (manifest, the photos' paths)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import cv2
+    import numpy as np
+
+    from image_super_resolution_tpu_torch.cli import create_json
+
+    (folder / "img").mkdir(parents=True)
+    params = [cv2.IMWRITE_JPEG_QUALITY, 90]
+    if hasattr(cv2, "IMWRITE_JPEG_SAMPLING_FACTOR"):
+        params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420]
+    h, w = LOADER_SIZE
+    shapes = ([(h, w)] * (LOADER_PHOTOS // 2) + [(w, h)] * (LOADER_PHOTOS // 2)
+              + [(72, 56), (80, 64)])
+
+    def write(i):
+        hh, ww = shapes[i]
+        rng = np.random.default_rng([SEED, 14, i])
+        coarse = rng.uniform(0, 255, (hh // 40 + 2, ww // 40 + 2, 3)).astype(np.float32)
+        img = cv2.resize(coarse, (ww, hh), interpolation=cv2.INTER_CUBIC)
+        img += 8 * rng.standard_normal((hh, ww, 3), dtype=np.float32)
+        path = folder / "img" / f"{i:04d}.jpg"
+        if not cv2.imwrite(str(path), np.clip(img, 0, 255).astype(np.uint8), params):
+            raise AssertionError(f"cv2 could not write {path}")
+        return path
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        paths = list(pool.map(write, range(len(shapes))))
+    rng = np.random.default_rng(SEED + 14)
+    cv2.imwrite(str(folder / "img" / "grey.png"),
+                rng.integers(0, 256, (240, 320), dtype=np.uint8))
+    cv2.imwrite(str(folder / "img" / "bmp.bmp"),
+                rng.integers(0, 256, (200, 300, 3), dtype=np.uint8))
+    sampling = _jpeg_sampling(paths[0])
+    if sampling != "4:2:0":
+        raise AssertionError(f"cv2 wrote {sampling} JPEGs, want 4:2:0")
+    manifest, _ = create_json.main(["--train_dirs", str(folder / "img"), "--shape", "48",
+                                    "--output", str(folder)])
+    listed = json.loads(manifest.read_text())
+    if len(listed) != len(shapes) + 2:
+        raise AssertionError(f"create_json listed {len(listed)} images, want {len(shapes) + 2}")
+    return manifest, paths[:LOADER_PHOTOS]
+
+
+def _loader_checks(photos, grey: Path, card: str) -> None:
+    """decode_rgb against cv2 and PIL; LOADER_CROPS crops from load_patches
+    against the native full decode at crop_offsets; nothing substituted."""
+    import cv2
+    import numpy as np
+    from PIL import Image
+
+    from image_super_resolution_tpu_torch import native
+
+    diffs = {"cv2": [], "PIL": []}
+    for path in photos[::LOADER_PHOTOS // 8]:
+        got = native.decode_rgb(str(path)).astype(np.int16)
+        for name, ref in (("cv2", cv2.imread(str(path))[..., ::-1]),
+                          ("PIL", np.asarray(Image.open(path).convert("RGB")))):
+            diffs[name].append(np.abs(got - ref.astype(np.int16)))
+    for name, d in diffs.items():
+        mean, worst = float(np.mean([x.mean() for x in d])), int(max(x.max() for x in d))
+        _log(f"[loader] native.decode_rgb vs {name} on 8 photos {LOADER_SIZE[1]}x"
+             f"{LOADER_SIZE[0]}: mean {mean:.4f}, max {worst} (bound: mean < 1)")
+        if mean >= 1.0:
+            raise AssertionError(f"native.decode_rgb is {mean} from {name} on average")
+
+    rng = np.random.default_rng(SEED + 140)
+    paths = [str(photos[i]) for i in rng.choice(LOADER_PHOTOS, LOADER_CROPS - 1,
+                                                replace=False)] + [str(grey)]
+    seeds = [int(s) for s in rng.integers(0, 2 ** 63, LOADER_CROPS, dtype=np.int64)]
+    crops, substituted = native.load_patches(paths, LOADER_PATCH, seeds, threads=8)
+    if substituted:
+        raise AssertionError(f"load_patches substituted {substituted} patches")
+    bad = 0
+    for path, seed, crop in zip(paths, seeds, crops):
+        full = native.decode_rgb(path)
+        top, left = native.crop_offsets(*full.shape[:2], LOADER_PATCH, seed)
+        bad += not np.array_equal(crop, full[top:top + LOADER_PATCH, left:left + LOADER_PATCH])
+    _log(f"[loader] load_patches: {LOADER_CROPS - bad} of {LOADER_CROPS} crops {LOADER_PATCH}"
+         f"x{LOADER_PATCH} ({LOADER_CROPS - 1} JPEG photos by the ROI decode, 1 grey PNG) "
+         f"bit-equal to the "
+         f"native full decode at the Python splitmix64+Lemire offsets; 0 substituted")
+    if bad:
+        raise AssertionError(f"{bad} of {LOADER_CROPS} ROI crops differ from the full decode")
+
+
+def _loader_rates(manifest: Path, card: str) -> dict:
+    """Patches/s of PatchLoader by backend and workers: one epoch after a
+    warm-up epoch, by the host clock, nothing substituted."""
+    import os
+
+    from image_super_resolution_tpu_torch.data.pipeline import LoaderConfig, PatchLoader
+
+    cpus, affinity = os.cpu_count(), len(os.sched_getaffinity(0))
+    rates = {}
+    for workers in LOADER_WORKERS:
+        for backend in ("python", "native"):
+            loader = PatchLoader(manifest, LoaderConfig(
+                batch_size=LOADER_BATCH, patch_size=LOADER_PATCH, workers=workers,
+                seed=SEED, backend=backend))
+            for epoch in (0, 1):
+                loader.set_epoch(epoch)
+                t0 = time.perf_counter()
+                n = sum(len(batch) for batch in loader)
+                secs = time.perf_counter() - t0
+            if loader.uses_native != (backend == "native") or loader.substituted:
+                raise AssertionError(f"{backend} loader: native {loader.uses_native}, "
+                                     f"{loader.substituted} substituted")
+            rates[f"{backend} workers {workers}"] = n / secs
+            _log(f"[loader] {backend} workers {workers}: {n / secs:.1f} patches/s ({n} "
+                 f"patches of {LOADER_PATCH}x{LOADER_PATCH}, batch {LOADER_BATCH}, epoch 1 "
+                 f"after a warm-up epoch, host clock; os.cpu_count() {cpus}, affinity "
+                 f"{affinity}) on {card}")
+    return rates
+
+
+def phase_loader(work: Path, train_manifest: Path, card: str, device: str = "cuda") -> dict:
+    """The native loader on the card's host: probe g++ and the headers;
+    where they are missing, check that ``auto`` chose python and that
+    ``--loader_backend native`` raises, and stop. Else write the COCO-like
+    set, check decodes and crops, time the loader by backend and workers,
+    train fast x4 on it through ``cli.train.main`` with each backend and
+    serve the native run's checkpoint in int8 through K2. Returns the K2
+    launches of that serve leg and the loader's rates."""
+    import numpy as np
+
+    from image_super_resolution_tpu_torch import native
+    from image_super_resolution_tpu_torch.cli import train as cli_train
+    from image_super_resolution_tpu_torch.data.pipeline import LoaderConfig, PatchLoader
+    from image_super_resolution_tpu_torch.train.checkpoint import load_checkpoint
+
+    ok, found = _probe_toolchain(work / "probe")
+    _log(f"[loader] toolchain probe (g++, jpeglib.h with jpeg_crop_scanline, png.h): "
+         f"{'found' if ok else 'failed'}: {found}")
+    flags = ["--resnet", "--family", "fast", "--scale", "4"]
+    if not ok:
+        _log(f"[loader] native unavailable on this host: {found}")
+        if PatchLoader(train_manifest, LoaderConfig()).uses_native:
+            raise AssertionError("the probe failed, yet auto chose the native loader")
+        try:
+            cli_train.main(_train_argv(flags, train_manifest, work / "refused", device,
+                                       "--epochs", "1", "--loader_backend", "native"))
+        except RuntimeError as e:
+            if "did not build on this host" not in str(e):
+                raise
+            _log(f"[loader] auto chose python; --loader_backend native raised: "
+                 f"{str(e).splitlines()[0]}")
+        else:
+            raise AssertionError("--loader_backend native trained without the library")
+        return {"launches": 0, "rates": {}}
+    if not native.available():
+        raise AssertionError(f"the probe passed but the loader did not build: "
+                             f"{native.build_error()}")
+
+    t0 = time.perf_counter()
+    manifest, photos = _coco_like_set(work / "data")
+    _log(f"[loader] {LOADER_PHOTOS} JPEG photos {LOADER_SIZE[1]}x{LOADER_SIZE[0]} and "
+         f"{LOADER_SIZE[0]}x{LOADER_SIZE[1]} (quality 90, 4:2:0), 2 JPEGs under the patch, "
+         f"a grey PNG and a BMP, with their manifest, in {time.perf_counter() - t0:.2f} s")
+    _loader_checks(photos, work / "data" / "img" / "grey.png", card)
+    rates = _loader_rates(manifest, card)
+
+    runs = {}
+    for backend in ("native", "python"):
+        title = f"fast x4 d14 w128 on JPEGs (--loader_backend {backend})"
+        t1 = time.perf_counter()
+        history = cli_train.main(_train_argv(
+            flags, manifest, work / backend, device, "--epochs", str(LOADER_EPOCHS),
+            "--loader_backend", backend))
+        _log(f"[train] {title}: cli.train.main --epochs {LOADER_EPOCHS} in "
+             f"{time.perf_counter() - t1:.2f} s")
+        _check_history(title, history, card)
+        runs[backend] = [h["patches_per_sec"] for h in history[1:]]
+    _log(f"[loader] training patches/s, epochs 2-{LOADER_EPOCHS} (CLI, host clock), fast x4 "
+         f"batch {LOADER_BATCH} patch {LOADER_PATCH}, workers 2: "
+         + "; ".join(f"{k} {', '.join(f'{v:.1f}' for v in vs)}" for k, vs in runs.items())
+         + f" on {card}")
+
+    from image_super_resolution_tpu_torch.utils.image_io import read_image_rgb
+
+    x24 = np.stack([read_image_rgb(p)[200:224, 100:124] for p in photos[:16]])
+    ckpt = load_checkpoint(next((work / "native").glob("res_*.ckpt")))
+    launches, _ = _serve_fast_int8(ckpt, x24, "fast x4 trained on JPEGs by the native "
+                                   "loader, b16 t24", card, device)
+    rates["train epochs 2-3"] = runs
+    return {"launches": launches, "rates": rates}
+
+
 def main() -> int:
     import torch
 
@@ -2370,6 +2662,8 @@ def main() -> int:
         videos = phase_video(Path(tmp), sr_isr, fast_isr, card)
         k1_profile = phase_profile(Path(tmp) / "train", sr_isr, card)
         interop = phase_interop(Path(tmp) / "interop", Path(tmp) / "train", card)
+        loader = phase_loader(Path(tmp) / "loader", Path(tmp) / "train" / "data" /
+                              "train_images.json", card)
     # launches: every counted main-path run, by path
     k1["launches_by_path"] = {"serve sr x4 (phase 5)": k1_serve,
                               "train -> checkpoint -> serve sr x2 (phase 9)":
@@ -2381,13 +2675,17 @@ def main() -> int:
                               "train -> checkpoint -> serve fast x4 int8 (phase 9)":
                               trained["conv3x3_int8"]}
     k2["variants_train_serve"] = trained["conv3x3_int8 by variant"]
+    if loader["launches"]:
+        k2["launches_by_path"]["JPEGs -> native loader -> train -> serve fast x4 int8 "
+                               "(phase 14)"] = loader["launches"]
     k1["launches_by_path"].update(interop)
     for path, n in {**evals, **videos}.items():
         if n:  # the Denoiser's eval runs neither kernel
             (k2 if "int8" in path else k1)["launches_by_path"][path] = n
     for k in (k1, k2):
         k["launches"] = sum(k["launches_by_path"].values())
-    print(json.dumps({"kernels": [k1, k2], "training": trained["timings"]}))
+    print(json.dumps({"kernels": [k1, k2], "training": trained["timings"],
+                      "loader": loader["rates"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -5,8 +5,9 @@ plus ``--device``, default ``cuda``).
 
     python -m image_super_resolution_tpu_torch.cli.evaluate --model a.isr --val_json m.json
 
-Crops come from ``PatchLoader`` with seed 0, so they are the JAX loader's
-crops. The LR side is the training pipeline's degradation on the device:
+Crops come from ``PatchLoader`` with seed 0 on its default backend
+(``auto``: the C++ loader where it builds), as in the JAX CLI, so on any
+host both CLIs score the same crops. The LR side is the training pipeline's degradation on the device:
 ``downscale`` for an SR artifact, the denoise chain at ``--severity`` for
 ``--denoise_eval``, the clean input for any other x1 artifact. The
 denoise noise of batch ``i`` is drawn from a ``torch.Generator`` seeded

@@ -15,15 +15,18 @@ D's params and optimizer), so ``--resume`` continues a run of either
 package. Each epoch dispatches its steps without reading anything back,
 then fetches the epoch's losses at once and prints the mean loss
 (``loss/content`` in the GAN phase), patches/s and the number of patches
-substituted for files that could not be decoded. ``--eval_every N`` with
+substituted for files that could not be decoded. ``--loader_backend``
+(``auto``, the default; ``native``, the C++ loader; ``python``) picks the
+host loader as the JAX CLI does; the choice is printed once, and ``native``
+raises where the C++ loader does not build. ``--eval_every N`` with
 ``--eval_json`` logs PSNR, PSNR-Y and SSIM of the EMA model over 8 batches
 every N epochs as ``eval/*``. A run that does not resume first logs the
 first 10 hr/lr batches as images (``images/hr``, ``images/lr``; not in the
 denoise phase). ``--profile_dir`` writes a ``torch.profiler`` trace of
 steps 2-4 (closed early if the run has fewer steps).
 
-``--ckpt_backend orbax``, ``--loader_backend native`` and more than one
-device exit with a message naming the slice that brings them.
+``--ckpt_backend orbax`` and more than one device exit with a message
+naming the slice that brings them.
 """
 
 from __future__ import annotations
@@ -56,7 +59,7 @@ from ..train.steps import (make_denoise_train_step, make_eval_step, make_gan_tra
 from ..utils.logging import MetricsLogger
 from ..utils.profiling import trace
 
-LATER_SLICE = "slice 5 (native loader, Orbax, multi-GPU)"
+LATER_SLICE = "slice 5 (Orbax, multi-GPU)"
 EVAL_BATCHES = 8
 IMAGE_BATCHES = 10  # hr/lr batches logged as images at the start of a run
 PROFILE_STEPS = (2, 5)  # --profile_dir traces steps [2, 5), past the first
@@ -70,8 +73,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--worker", type=int, default=2, help="host decode threads")
     parser.add_argument("--loader_backend", type=str, default="auto",
                         choices=["auto", "native", "python"],
-                        help="host patch loader; the port has the python one "
-                             f"(native: {LATER_SLICE})")
+                        help="host patch loader: auto picks native (the C++ loader) "
+                             "where it builds and most of the manifest is JPEG/PNG")
     parser.add_argument("--batch_size", type=int, default=16)
     parser.add_argument("--work_dir", type=str, default="./")
     parser.add_argument("--momentum", type=float, default=0.999, help="Adam beta2")
@@ -146,11 +149,8 @@ def check_options(opt) -> None:
         if opt.rs_deep is None:
             opt.rs_deep = 6
     opt.rs_deep, opt.width = family_defaults(opt.family, opt.rs_deep, opt.width)
-    refused = {"--ckpt_backend orbax": opt.ckpt_backend == "orbax",
-               "--loader_backend native": opt.loader_backend == "native"}
-    for flag, given in refused.items():
-        if given:
-            raise SystemExit(f"{flag} is not ported yet: it comes with {LATER_SLICE}")
+    if opt.ckpt_backend == "orbax":
+        raise SystemExit(f"--ckpt_backend orbax is not ported yet: it comes with {LATER_SLICE}")
     if opt.family == "fast" and opt.enchant:
         raise SystemExit("--enchant is a reference-topology variant (EResNet); the fast "
                          "family is BN-free by construction -- drop one of the flags")
@@ -227,7 +227,7 @@ class Run:
         scale = 1 if self.phase == "denoise" else opt.scale
         self.loader_config = LoaderConfig(
             batch_size=opt.batch_size, patch_size=opt.shape, scale=scale,
-            workers=opt.worker, seed=opt.seed)
+            workers=opt.worker, seed=opt.seed, backend=opt.loader_backend)
         self.loader = PatchLoader(opt.train_json, self.loader_config)
         if opt.mean:
             self.loader.calculate_stats()
@@ -235,7 +235,7 @@ class Run:
         steps_per_epoch = len(self.loader)
         total_steps = opt.epochs * steps_per_epoch
         print(f"Train: {len(self.loader.samples)} images, {steps_per_epoch} steps/epoch, "
-              f"phase={self.phase}, device={self.device}")
+              f"phase={self.phase}, device={self.device}, loader={self.loader.backend}")
         model = build_model(opt, self.device)
         self.state = TrainState(
             model, lr=opt.lr, lr2=opt.lr2, total_steps=total_steps,

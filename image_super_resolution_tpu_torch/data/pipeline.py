@@ -1,20 +1,24 @@
 """Training input pipeline (counterpart of the JAX package's
 ``data/pipeline.py``): host-side decode and crop, device-side degradation.
 
-- Host (``PatchLoader``): decode + random crop on a thread pool, shipping
-  uint8 NHWC batches. Each patch's crop comes from
-  ``SeedSequence([seed, epoch, batch, index])``, as in the JAX package's
-  Python backend, so the two packages cut the same patches. Images smaller
-  than the patch are reflect-padded. A file that cannot be decoded becomes
-  a black patch, as in the JAX package, and is counted in ``substituted``
-  (per epoch), which the training CLI prints.
+- Host (``PatchLoader``): decode + random crop, shipping uint8 NHWC
+  batches, by one of two backends, chosen as the JAX package chooses
+  (``LoaderConfig.backend``): ``"native"``, the C++ loader of ``native/``
+  (one call per batch on ``workers`` native threads, JPEGs decoded only
+  where the crop lies); ``"python"``, a thread pool over cv2/PIL; and
+  ``"auto"`` (the default), native where the library builds and at least
+  half the manifest is JPEG or PNG, else python. The choice is printed
+  once. Each backend cuts the crops of its JAX counterpart: splitmix64
+  offsets seeded from ``SeedSequence([seed, epoch, batch, index])`` in the
+  native one, ``np.random.Generator`` from the same seed sequence in the
+  Python one. Images smaller than the patch are reflect-padded. A file that
+  cannot be decoded becomes a black patch, as in the JAX package, and is
+  counted in ``substituted`` (per epoch), which the training CLI prints.
 - Transfer (``DevicePrefetcher``): a thread copies each batch from pinned
   memory to the card with ``non_blocking=True`` while the previous step
   runs.
 - Device (``make_sr_batch_fn``, ``make_denoise_batch_fn``): downscale or the
   denoise chain, then normalize, in fp32 on the device.
-
-The C++ loader (``--loader_backend native``) comes with slice 5.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from typing import Callable, Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..utils.general import ground_up
 from ..utils.image_io import read_image_rgb
 from . import degrade
@@ -77,6 +82,10 @@ class LoaderConfig:
     workers: int = 4
     seed: int = 100
     prefetch: int = 4
+    backend: str = "auto"  # "auto", "native" (the C++ loader) or "python"
+
+
+BACKENDS = ("auto", "native", "python")
 
 
 class PatchLoader:
@@ -97,6 +106,7 @@ class PatchLoader:
         self._epoch = 0
         self._lock = threading.Lock()
         self.substituted = 0  # patches of unreadable files in the last epoch
+        self._backend_choice: Optional[str] = None
 
     def __len__(self) -> int:
         return max(len(self.samples) // self.config.batch_size, 1)
@@ -142,11 +152,71 @@ class PatchLoader:
             idx = np.concatenate([idx, np.resize(order, bs - len(idx))])
         return idx
 
+    @property
+    def backend(self) -> str:
+        """The backend batches come from, ``"native"`` or ``"python"``:
+        chosen at first use and printed once (``PatchLoader backend:
+        <name>``); raises there when ``native`` was asked for and the C++
+        loader is unavailable."""
+        if self._backend_choice is None:
+            self._backend_choice = self._pick_backend()
+            print(f"PatchLoader backend: {self._backend_choice}", flush=True)
+        return self._backend_choice
+
+    @property
+    def uses_native(self) -> bool:
+        return self.backend == "native"
+
+    def _pick_backend(self) -> str:
+        backend = self.config.backend
+        if backend not in BACKENDS:
+            raise ValueError(f"LoaderConfig.backend must be one of {BACKENDS}, got {backend!r}")
+        if backend == "python":
+            return "python"
+        ok = native.available()
+        if backend == "native":
+            if not ok:
+                raise RuntimeError(
+                    "LoaderConfig.backend='native' but the C++ loader did not build on this "
+                    f"host (need g++, libjpeg, libpng): {native.build_error()}")
+            return "native"
+        # auto: a slot the library cannot decode costs a failed native probe
+        # and then a serial Python decode, so mostly-bmp/webp/tiff manifests
+        # stay on the Python thread pool.
+        if not ok:
+            return "python"
+        decodable = sum(1 for p in self.samples
+                        if str(p).lower().endswith((".jpg", ".jpeg", ".png")))
+        return "native" if decodable * 2 >= len(self.samples) else "python"
+
+    def _iter_native(self, order: np.ndarray) -> Iterator[np.ndarray]:
+        """One ``native.load_patches`` call per batch on ``workers`` native
+        threads, pipelined min(prefetch, 8) batches deep (each batch in
+        flight already runs ``workers`` threads)."""
+        cfg = self.config
+
+        def load_batch(b: int):
+            idx = self._batch_indices(order, b)
+            seeds = [int(np.random.SeedSequence([cfg.seed, self._epoch, b, int(i)])
+                         .generate_state(1, np.uint64)[0]) for i in idx]
+            return native.load_patches([self.samples[i] for i in idx], self.patch, seeds,
+                                       threads=max(cfg.workers, 1))
+
+        depth = min(max(cfg.prefetch, 1), 8)
+        with ThreadPoolExecutor(max_workers=depth) as pool:
+            for fut in _pipelined(lambda b: pool.submit(load_batch, b), len(self), depth):
+                batch, substituted = fut.result()
+                self.substituted += substituted
+                yield batch
+
     def __iter__(self) -> Iterator[np.ndarray]:
         cfg = self.config
         rng = np.random.default_rng(np.random.SeedSequence([cfg.seed, self._epoch]))
         order = rng.permutation(len(self.samples))
         self.substituted = 0
+        if self.uses_native:
+            yield from self._iter_native(order)
+            return
         with ThreadPoolExecutor(max_workers=max(cfg.workers, 1)) as pool:
             def submit_batch(b: int):
                 return [pool.submit(self._load_patch, self.samples[i], np.random.default_rng(

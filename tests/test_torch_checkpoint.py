@@ -2,9 +2,9 @@
 the CPU: files written by each package resumed by the other with the
 optimizer, the per-phase epoch policies, saving over an Orbax directory,
 ``cli/train --device cpu`` (phases, options, resume, the substitution
-count, refusals) and its GAN phase (warm start, eval, resume with the
-discriminator across the packages). Tiny generators (depth 1-2, width 8)
-in fp32; tolerances are stated where they are used."""
+count, the native loader, refusals) and its GAN phase (warm start, eval,
+resume with the discriminator across the packages). Tiny generators
+(depth 1-2, width 8) in fp32; tolerances are stated where they are used."""
 
 import json
 from pathlib import Path
@@ -298,12 +298,36 @@ def test_cli_counts_substituted_patches(tmp_path, capsys):
     assert "1 substituted patches" in capsys.readouterr().out
 
 
+def test_cli_trains_with_the_native_loader(tmp_path, capsys):
+    """cli/train --loader_backend native on JPEGs (one smaller than the
+    patch) and a file no decoder reads: one finite epoch, the backend
+    printed, the unreadable file counted as one substituted patch."""
+    import cv2
+
+    from image_super_resolution_tpu_torch import native
+
+    if not native.available():
+        pytest.skip(f"the C++ loader does not build here: {native.build_error()}")
+    rng = np.random.default_rng(4)
+    paths = []
+    for i, (h, w) in enumerate([(40, 52), (33, 47), (12, 20)]):
+        p = tmp_path / f"{i}.jpg"
+        cv2.imwrite(str(p), rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+        paths.append(str(p))
+    (tmp_path / "bad.jpg").write_bytes(b"\xff\xd8 not a jpeg")
+    m = tmp_path / "train.json"
+    m.write_text(json.dumps(paths + [str(tmp_path / "bad.jpg")]))
+    with pytest.warns(UserWarning, match="unreadable by both"):
+        history = _cli(tmp_path, m, "--resnet", "--epochs", "1", "--loader_backend", "native")
+    out = capsys.readouterr().out
+    assert "PatchLoader backend: native" in out and "1 substituted patches" in out
+    assert history[0]["substituted"] == 1 and np.isfinite(history[0]["mean_loss"])
+
+
 @pytest.mark.parametrize("flags,slice_name", [
     (["--ckpt_backend", "orbax"], "slice 5"),
-    (["--loader_backend", "native"], "slice 5"),
     (["--resnet", "--ckpt_backend", "orbax"], "slice 5"),
     (["--train_denoise", "--ckpt_backend", "orbax"], "slice 5"),
-    (["--resnet", "--loader_backend", "native"], "slice 5"),
 ])
 def test_cli_refuses_what_is_not_ported(flags, slice_name, tmp_path):
     with pytest.raises(SystemExit, match=slice_name):

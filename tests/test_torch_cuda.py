@@ -617,3 +617,33 @@ def test_import_torch_smoke_on_card(card, tmp_path):
     assert k1.scatter_rdb.launches - before == 3 * spec.depth
     assert (got.family, got.depth, got.scale) == ("sr", 2, 4)
     assert worst <= BF16_MAX_LSB and 0 <= share < 1
+
+
+# ------------------------------------------------------- the native loader --
+
+def test_native_batches_through_the_prefetcher_to_the_card(card, tmp_path):
+    """PatchLoader's native backend on JPEGs and a PNG, through
+    DevicePrefetcher (pinned, non-blocking copies) to the card and back:
+    each batch bit-equal to the loader's own, uint8 on the card."""
+    import cv2
+
+    from image_super_resolution_tpu_torch import native
+    from image_super_resolution_tpu_torch.data.pipeline import (
+        DevicePrefetcher, LoaderConfig, PatchLoader)
+
+    if not native.available():
+        pytest.skip(f"the C++ loader does not build on this host: {native.build_error()}")
+    rng = np.random.default_rng(9)
+    paths = []
+    for i, (h, w) in enumerate([(120, 160), (97, 131), (64, 70), (150, 99), (40, 44)]):
+        p = tmp_path / f"{i}.{'png' if i == 2 else 'jpg'}"
+        cv2.imwrite(str(p), rng.integers(0, 256, (h, w, 3), dtype=np.uint8))
+        paths.append(str(p))
+    loader = PatchLoader(paths, LoaderConfig(batch_size=2, patch_size=48, backend="native"))
+    want = list(loader)
+    with DevicePrefetcher(iter(loader), card) as batches:
+        got = [b for b in batches]
+    assert loader.uses_native and len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.dtype == torch.uint8
+        np.testing.assert_array_equal(g.cpu().numpy(), w)

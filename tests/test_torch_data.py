@@ -162,19 +162,24 @@ def images(tmp_path):
     return m, paths
 
 
+@pytest.mark.parametrize("backend", ["python", "native"])
 @pytest.mark.parametrize("scale,patch,batch,steps", [(2, 24, 2, 2), (3, 16, 2, 2), (1, 30, 2, 2),
                                                      (2, 24, 8, 1)])
-def test_patch_loader_cuts_the_jax_loaders_patches(images, scale, patch, batch, steps):
-    """Same manifest, seed and epoch: the same order and the same crops,
-    bit for bit, as the JAX package's Python loader, over two epochs, in
-    full batches (the last sample left over at batch 2; at batch 8, more
-    than the 5 samples, one batch filled by cycling them), including images
-    smaller than the patch; the patch is rounded up to a multiple of the
-    scale (ground_up)."""
+def test_patch_loader_cuts_the_jax_loaders_patches(images, scale, patch, batch, steps, backend):
+    """Same manifest, seed and epoch, each package on the same backend: the
+    same order and the same crops, bit for bit, as the JAX package's
+    loader, over two epochs, in full batches (the last sample left over at
+    batch 2; at batch 8, more than the 5 samples, one batch filled by
+    cycling them), including images smaller than the patch; the patch is
+    rounded up to a multiple of the scale (ground_up). The native backend
+    is tests/test_torch_native.py's; here it must build, as it does
+    wherever g++, libjpeg-turbo and libpng are installed."""
     m, _ = images
-    kw = dict(batch_size=batch, patch_size=patch, scale=scale, workers=2, seed=7)
+    kw = dict(batch_size=batch, patch_size=patch, scale=scale, workers=2, seed=7,
+              backend=backend)
     ours = PatchLoader(m, LoaderConfig(**kw))
-    theirs = JaxPatchLoader(m, JaxLoaderConfig(backend="python", **kw))
+    theirs = JaxPatchLoader(m, JaxLoaderConfig(**kw))
+    assert ours.uses_native == theirs.uses_native == (backend == "native")
     assert len(ours) == len(theirs) == steps and ours.patch == theirs.patch
     assert ours.patch == ground_up(patch, scale)
     for epoch in (0, 1):

@@ -16,6 +16,7 @@ import image_super_resolution_tpu.native as jax_native
 from image_super_resolution_tpu.cli import evaluate as jax_evaluate
 from image_super_resolution_tpu.data import degrade as jax_degrade
 from image_super_resolution_tpu.utils import metrics as jm
+from image_super_resolution_tpu_torch import native as port_native
 from image_super_resolution_tpu_torch.cli import evaluate
 from image_super_resolution_tpu_torch.data import degrade
 from image_super_resolution_tpu_torch.data.transforms import y_channel
@@ -177,14 +178,19 @@ EXACT_KEYS = ("n_images", "n_batches", "hr_crop", "scale")
     ("sr_x2", dict(family="sr", depth=1, width=8, scale=2), []),
     ("fast_x4", dict(family="fast", depth=2, width=8, scale=4), []),
     ("fast_x4_int8", dict(family="fast", depth=2, width=8, scale=4), ["--int8"]),
+    ("sr_x2_defaults", dict(family="sr", depth=1, width=8, scale=2), []),
 ])
-def test_eval_cli_matches_jax_key_by_key(val_set, name, kw, extra, monkeypatch):
-    """Both CLIs on one .isr and manifest (the JAX loader on its Python
-    backend, whose crops the port's loader cuts): the same keys; the counts
-    equal; every other key within EVAL_ATOL, or 2e-4 where the model is not
-    involved (bicubic_* and sharpness_hr)."""
+def test_eval_cli_matches_jax_key_by_key(val_set, name, kw, extra, monkeypatch, capsys):
+    """Both CLIs on one .isr and manifest: the same keys; the counts equal;
+    every other key within EVAL_ATOL, or 2e-4 where the model is not
+    involved (bicubic_* and sharpness_hr). Both loaders are held to their
+    Python backend, but in ``sr_x2_defaults``, where each CLI runs at its
+    defaults (``auto``: the C++ loader, which builds here) and the two must
+    still score the same crops."""
     tmp, m = val_set
-    monkeypatch.setattr(jax_native, "available", lambda: False)
+    if name != "sr_x2_defaults":
+        monkeypatch.setattr(jax_native, "available", lambda: False)
+        monkeypatch.setattr(port_native, "available", lambda: False)
     isr = _artifact(tmp, name, **kw)
     argv = ["--model", str(isr), "--val_json", str(m), "--shape", "32", "--batch_size", "2",
             *extra]
@@ -198,6 +204,8 @@ def test_eval_cli_matches_jax_key_by_key(val_set, name, kw, extra, monkeypatch):
             assert got[k] == want[k], k
         else:
             assert abs(got[k] - want[k]) <= EVAL_ATOL.get(k, 2e-4), (k, got[k], want[k])
+    backend = "python" if name != "sr_x2_defaults" else "native"
+    assert capsys.readouterr().out.count(f"PatchLoader backend: {backend}\n") == 2
 
 
 @pytest.fixture(scope="module")
