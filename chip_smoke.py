@@ -113,10 +113,32 @@ Phases, each of which raises on failure:
     (patches/s of epochs 2-3, losses finite), and the native run's
     checkpoint served in int8 through K2 (29 launches per forward, counted
     by variant, two tiles against the CPU). Any failure to build or load
-    the loader after the probe passed fails the run.
+    the loader after the probe passed fails the run;
+15. multi-device serving: the device count and the device lists used
+    (the local cards in turn, so ``cuda:0`` N times on a one-card machine,
+    which then says that peer copies and concurrency across cards were not
+    exercised). (a) the ``sr`` x4 artifact in bf16 on a 192x256 image
+    under ``spatial_devices=4`` and ``spatial_grid=(2, 2)`` (halo 16):
+    equal to the same bands run one after another through one
+    ``DeployedModel``, K1 48 launches per band forward, a 96x96 crop within
+    ``BF16_MAX_LSB`` of the CPU's fp32 spatial run (the whole-image
+    forward's reading on that crop printed beside it); (b)
+    ``data_devices=2``: ``sr`` tiles (K1), ``fast`` x4 int8 b256 t24 frames
+    (K2 29 per shard forward, by variant) and ``denoise_fast`` d14 w128 int8
+    tiled (K2), each equal to one device or within 1 LSB with the share
+    printed. Every path of (a) and (b) is also run again on the card with
+    its kernels swapped for their plain versions, so each kernel is held at
+    the shapes that path gives it (the 96-row bands, the 160x128 blocks,
+    4x96x96 tiles, b128 t24 frames, the denoiser's tile shards): within
+    ``BF16_MAX_LSB`` (K1) or ``INT8_CARD_MAX_LSB`` (K2), no launch there; (c)
+    ``TPFastUpscaler`` over 2 and 4 on ``fast`` x4 and a ``denoise_fast``
+    with a refine tail, bf16, b1 96x96, within 1 LSB of the single-device
+    graph; (d) ``rs --data_devices 0`` equal to one device, and
+    ``--data_devices 2`` exiting on a one-card machine with the JAX
+    message. Request times by CUDA events beside one device's.
 
 It prints one JSON line of per-kernel numbers (each kernel's launches
-summed over the counted runs of phases 5/6 and 9-14, and given by path),
+summed over the counted runs of phases 5/6 and 9-15, and given by path),
 the training timings and the loader's rates, the ``nvidia-smi`` line, and
 last ``{"ok": true,
 "device": {...}}``. Without CUDA, or outside a
@@ -125,6 +147,7 @@ checkout, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -2629,6 +2652,307 @@ def phase_loader(work: Path, train_manifest: Path, card: str, device: str = "cud
     return {"launches": launches, "rates": rates}
 
 
+# ----------------------------------------------------------------- phase 15 --
+
+SPATIAL_IMAGE = (256, 192)  # H, W of the sr image served over 4 devices
+SPATIAL_CROP = 96  # side of the crop held against the CPU's fp32 spatial run
+SPATIAL_OVERLAP = 16  # the halo of the spatial runs
+TP_TILE = 96  # side of the batch-1 tile of the TP runs
+MULTI_DEPTH, MULTI_WIDTH = 14, 128  # of the seeded denoise_fast models
+
+
+def _phase_devices(n: int, device: str):
+    """``n`` devices for a sharded run: the local cards in turn (all
+    ``cuda:0`` on a one-card machine), or the CPU ``n`` times."""
+    import torch
+
+    if device != "cuda":
+        return [torch.device(device)] * n
+    return [torch.device("cuda", i % torch.cuda.device_count()) for i in range(n)]
+
+
+def _same_bands(deployed, image, halo: int, grid):
+    """The spatial engine's result recomputed without it: the image padded
+    as the engine pads it, cut into its (ny, nx) blocks, each extended by
+    numpy's reflect-padded neighbourhood (rows only for 1-D bands), run one
+    after another through ``deployed`` on one device, cropped, stitched."""
+    import numpy as np
+
+    ny, nx = grid
+    h, w = image.shape[:2]
+    bh = max(-(-h // ny), halo + 1)
+    bw = max(-(-w // nx), halo + 1) if nx > 1 else w
+    padded = np.pad(image, ((0, bh * ny - h), (0, bw * nx - w), (0, 0)), mode="reflect")
+    cols = (halo, halo) if nx > 1 else (0, 0)
+    full = np.pad(padded, ((halo, halo), cols, (0, 0)), mode="reflect")
+    s = deployed.spec.output_scale
+    rows = []
+    for i in range(ny):
+        row = []
+        for j in range(nx):
+            x0 = j * bw
+            block = full[i * bh:(i + 1) * bh + 2 * halo,
+                         x0:x0 + bw + (2 * halo if nx > 1 else 0)]
+            out = deployed(np.ascontiguousarray(block)[None]).cpu().numpy()[0]
+            cw = slice(halo * s, (halo + bw) * s) if nx > 1 else slice(None)
+            row.append(out[halo * s:(halo + bh) * s, cw])
+        rows.append(np.concatenate(row, axis=1))
+    return np.concatenate(rows, axis=0)[:h * s, :w * s]
+
+
+def _equal_or_1lsb(what: str, got, want, exact: bool = False) -> str:
+    """'equal', or the share of values 1 LSB apart; fails beyond 1 LSB (or
+    on any difference where ``exact``)."""
+    worst, share = _lsb(got, want)
+    if worst > (0 if exact else 1):
+        raise AssertionError(f"{what}: max {worst} LSB from the single-device run "
+                             f"({share:.6f} of values differ)")
+    return "equal" if worst == 0 else f"within 1 LSB ({share:.6f} of values differ)"
+
+
+@contextlib.contextmanager
+def _plain_kernels():
+    """Within: the main path's kernels swapped for their plain PyTorch
+    versions where the models call them, on the card too (K1's
+    ``scatter_rdb_reference``: fp32 sums, bf16 at the kernel's places; K2's
+    ``conv3x3_int8_reference``: exact sums, the kernel's fp32 epilogue)."""
+    from unittest import mock
+
+    from image_super_resolution_tpu_torch.ops.kernels.fused_rdb import scatter_rdb_reference
+    from image_super_resolution_tpu_torch.ops.kernels.matmul import conv3x3_int8_reference
+
+    def plain_k2(x, w_q, deq, bias, leaky, inv_x=None, out_inv_x=None, w_k=None):
+        return conv3x3_int8_reference(x, w_q, deq, bias, leaky, inv_x, out_inv_x)
+
+    with mock.patch(f"{PACKAGE}.ops.scatter.scatter_rdb", scatter_rdb_reference), \
+            mock.patch(f"{PACKAGE}.models.quantized.conv3x3_int8", plain_k2):
+        yield
+
+
+def _against_plain(what: str, got, plain_run, bound: int) -> str:
+    """``got`` held against ``plain_run()`` under ``_plain_kernels``: the
+    same path on the same inputs, so each kernel sees the shapes the path
+    gives it. Fails beyond ``bound`` LSB, or if a kernel launched there."""
+    from image_super_resolution_tpu_torch.ops.kernels.fused_rdb import scatter_rdb
+    from image_super_resolution_tpu_torch.ops.kernels.matmul import conv3x3_int8
+
+    before = scatter_rdb.launches, conv3x3_int8.launches
+    with _plain_kernels():
+        want = plain_run()
+    if (scatter_rdb.launches, conv3x3_int8.launches) != before:
+        raise AssertionError(f"{what}: a kernel launched in the plain run")
+    worst, share = _lsb(got, want)
+    if worst > bound:
+        raise AssertionError(f"{what}: max {worst} LSB from the plain versions on the "
+                             f"same shapes (bound {bound})")
+    return (f"vs the plain kernel versions on the card at the path's own shapes max "
+            f"{worst} LSB (bound {bound}), {share:.4f} differ")
+
+
+def phase_multi(work: Path, sr_isr: Path, fast_isr: Path, card: str,
+                device: str = "cuda") -> dict:
+    """Multi-device serving at full width: (a) sr x4 spatial 1-D and 2-D
+    (K1 per band), (b) data_devices=2 (sr tiles, fast int8 frames, the
+    denoise_fast int8 tiled path), (c) TP at 2 and 4 on fast x4 and on a
+    denoise_fast with a refine tail, (d) ``rs --data_devices``. Each is
+    held to the single-device run, and each path that runs a kernel also to
+    the same path with the kernels' plain versions (``_against_plain``);
+    request times by CUDA events beside the single device's. Returns
+    {path: (kernel name, launches)}."""
+    import numpy as np
+    import torch
+
+    from image_super_resolution_tpu_torch.cli import rs
+    from image_super_resolution_tpu_torch.infer.engine import TiledUpscaler
+    from image_super_resolution_tpu_torch.infer.tiling import plan_tiles
+    from image_super_resolution_tpu_torch.models.deploy import (
+        BF16_MAX_LSB, DeployedModel, DeploySpec, init_fused_params, load_artifact)
+    from image_super_resolution_tpu_torch.models.quantized import (
+        INT8_CARD_MAX_LSB, quantize_deployed)
+    from image_super_resolution_tpu_torch.ops.kernels.fused_rdb import scatter_rdb
+    from image_super_resolution_tpu_torch.ops.kernels.matmul import conv3x3_int8
+    from image_super_resolution_tpu_torch.parallel.tensor import TPFastUpscaler
+    from image_super_resolution_tpu_torch.utils.png import read_png, write_png
+
+    cards = torch.cuda.device_count() if device == "cuda" else 0
+    d4, d2 = _phase_devices(4, device), _phase_devices(2, device)
+    _log(f"[multi] torch.cuda.device_count() = {cards}; 4-way device list "
+         f"{[str(d) for d in d4]}, 2-way {[str(d) for d in d2]}")
+    if cards < 2:
+        _log("[multi] one card: every shard runs on cuda:0 in turn, so the band "
+             "cuts, halos, crops, split batches and partial-sum reductions run at "
+             "full width, but peer copies between cards and concurrency across "
+             "cards are NOT exercised, and no scaling figure is measured")
+    counts = {}
+    rng = np.random.default_rng(SEED + 15)
+    times = []
+
+    def timed(title, fn, single):
+        ms, ms1 = _cuda_ms(fn, warmup=1, iters=3), _cuda_ms(single, warmup=1, iters=3)
+        times.append(f"{title} {ms:.3f} ms vs one device {ms1:.3f} ms")
+
+    # (a) sr x4 d16 w64 bf16, spatial 1-D over 4 and 2-D over (2, 2)
+    sr = load_artifact(sr_isr, dtype=torch.bfloat16, device=device)
+    image = rng.integers(0, 256, (*SPATIAL_IMAGE, 3), dtype=np.uint8)
+    crop = np.ascontiguousarray(image[:SPATIAL_CROP, :SPATIAL_CROP])
+    sr_cpu = load_artifact(sr_isr, dtype=torch.float32, device="cpu")
+    per_forward = 3 * sr.spec.depth
+    # the whole-image forward on the same crop against the CPU's: the
+    # model's own bf16 drift there, beside the spatial runs' below
+    whole_lsb = _lsb(sr(crop[None]).cpu().numpy()[0], sr_cpu(crop[None]).numpy()[0])
+    for title, kw, grid in (("spatial_devices=4", dict(spatial_devices=4), (4, 1)),
+                            ("spatial_grid=(2, 2)", dict(spatial_grid=(2, 2)), (2, 2))):
+        engine = TiledUpscaler(sr, overlap=SPATIAL_OVERLAP, devices=d4, **kw)
+        out, _, launches, _ = _counted(scatter_rdb, lambda: engine.upscale_image(image))
+        want = 4 * per_forward if device == "cuda" else 0
+        if launches != want:
+            raise AssertionError(f"sr {title}: fused_rdb launched {launches} times, "
+                                 f"want {per_forward} per band forward")
+        if out.shape != (4 * SPATIAL_IMAGE[0], 4 * SPATIAL_IMAGE[1], 3):
+            raise AssertionError(f"sr {title} wrote {out.shape}")
+        same = _equal_or_1lsb(f"sr {title}", out,
+                              _same_bands(sr, image, SPATIAL_OVERLAP, grid), exact=True)
+        plain = _against_plain(f"sr {title}", out, lambda: engine.upscale_image(image),
+                               BF16_MAX_LSB)
+        got = TiledUpscaler(sr, overlap=SPATIAL_OVERLAP, devices=d4, **kw).upscale_image(crop)
+        ref = TiledUpscaler(sr_cpu, overlap=SPATIAL_OVERLAP, **kw).upscale_image(crop)
+        worst, share = _lsb(got, ref)
+        if worst > BF16_MAX_LSB:
+            raise AssertionError(f"sr {title} on a {SPATIAL_CROP}^2 crop: {worst} LSB "
+                                 f"from the CPU's fp32 spatial run")
+        counts[f"sr x4 {title}, one {SPATIAL_IMAGE[1]}x{SPATIAL_IMAGE[0]} image "
+               f"(phase 15)"] = ("fused_rdb", launches)
+        _log(f"[multi] sr x4 d{sr.spec.depth} w{sr.spec.width} bf16 {title} halo "
+             f"{SPATIAL_OVERLAP} on "
+             f"{SPATIAL_IMAGE[1]}x{SPATIAL_IMAGE[0]}: {same} to the same bands run one "
+             f"after another through one DeployedModel; {plain}; fused_rdb launches "
+             f"{launches} ({per_forward} per band forward); {SPATIAL_CROP}x{SPATIAL_CROP} "
+             f"crop vs the CPU's fp32 spatial run max {worst} LSB (bound {BF16_MAX_LSB}), "
+             f"{share:.4f} differ (the whole-image forward on that crop vs the CPU's: max "
+             f"{whole_lsb[0]} LSB, {whole_lsb[1]:.4f} differ)")
+        whole = TiledUpscaler(sr, window=0)
+        timed(f"sr x4 {title}", lambda: engine.upscale_image(image),
+              lambda: whole.upscale_image(image))
+
+    # (b) data_devices=2: sr tiles, fast int8 frames, denoise_fast int8 tiled
+    single = TiledUpscaler(sr)
+    multi = TiledUpscaler(sr, data_devices=2, devices=d2)
+    out, _, launches, _ = _counted(scatter_rdb, lambda: multi.upscale_image(image))
+    chunks = -(-len(plan_tiles(*SPATIAL_IMAGE, 96, 8)[0]) // multi.batch_size)
+    want = chunks * 2 * per_forward if device == "cuda" else 0
+    if launches != want:
+        raise AssertionError(f"sr data_devices=2: fused_rdb launched {launches} times, "
+                             f"want {want}")
+    same = _equal_or_1lsb("sr data_devices=2", out, single.upscale_image(image))
+    plain = _against_plain("sr data_devices=2", out, lambda: multi.upscale_image(image),
+                           BF16_MAX_LSB)
+    counts["sr x4 data_devices=2, tiles of one image (phase 15)"] = ("fused_rdb", launches)
+    _log(f"[multi] sr x4 data_devices=2, {chunks} tile batches of {multi.batch_size} "
+         f"(window 96, {multi.batch_size // 2} tiles per shard): {same} to one device; "
+         f"{plain}; fused_rdb launches {launches}")
+    timed("sr x4 data_devices=2 tiles", lambda: multi.upscale_image(image),
+          lambda: single.upscale_image(image))
+
+    fast = load_artifact(fast_isr, dtype=torch.bfloat16, device=device)
+    x = rng.integers(0, 256, (256, 24, 24, 3), dtype=np.uint8)
+    xd = torch.from_numpy(x).to(device)
+    quant = quantize_deployed(fast, [xd])
+    multi = TiledUpscaler(quant, data_devices=2, devices=d2)
+    frames, _, launches, by_variant = _counted(conv3x3_int8, lambda: multi.upscale_batch(xd))
+    depth = fast.spec.depth
+    per_shard = {"fp32 -> int8": depth, "int8 -> fp32": depth, "fp32 -> fp32": 1}
+    if device == "cuda" and by_variant != {k: 2 * v for k, v in per_shard.items()}:
+        raise AssertionError(f"fast int8 data_devices=2: conv3x3_int8 by variant "
+                             f"{by_variant}, want {per_shard} per shard forward")
+    same = _equal_or_1lsb("fast int8 data_devices=2", frames, quant(xd).cpu().numpy())
+    plain = _against_plain("fast int8 data_devices=2", frames,
+                           lambda: multi.upscale_batch(xd), INT8_CARD_MAX_LSB)
+    counts["fast x4 int8 data_devices=2, b256 t24 frames (phase 15)"] = \
+        ("conv3x3_int8", launches)
+    _log(f"[multi] fast x4 d{depth} w{fast.spec.width} int8 data_devices=2, b256 t24 "
+         f"frames (calibrated "
+         f"once, replicated; b128 per shard): {same} to one device; {plain}; "
+         f"conv3x3_int8 launches {launches}, by "
+         f"variant {by_variant} ({2 * depth + 1} per shard forward)")
+    timed("fast x4 int8 data_devices=2 frames", lambda: multi.upscale_batch(xd),
+          lambda: quant(xd).cpu())
+
+    spec = DeploySpec(family="denoise_fast", depth=MULTI_DEPTH, width=MULTI_WIDTH,
+                      downshuffle=2)
+    dn = DeployedModel(spec, init_fused_params(spec, SEED + 5), dtype=torch.bfloat16,
+                       device=device)
+    img = rng.integers(0, 256, (301, 203, 3), dtype=np.uint8)
+    dq = quantize_deployed(dn, [np.stack(rs._grid_crops(img, 96, 2, 4))])
+    multi = TiledUpscaler(dq, data_devices=2, devices=d2)
+    out, _, launches, _ = _counted(conv3x3_int8, lambda: multi.upscale_image(img))
+    chunks = -(-len(plan_tiles(*img.shape[:2], 96, 8)[0]) // multi.batch_size)
+    want = chunks * 2 * (2 * MULTI_DEPTH + 1)
+    if launches != (want if device == "cuda" else 0):
+        raise AssertionError(f"denoise_fast int8 data_devices=2: conv3x3_int8 launched "
+                             f"{launches} times, want {want}")
+    same = _equal_or_1lsb("denoise_fast int8 data_devices=2", out,
+                          TiledUpscaler(dq).upscale_image(img))
+    plain = _against_plain("denoise_fast int8 data_devices=2", out,
+                           lambda: multi.upscale_image(img), INT8_CARD_MAX_LSB)
+    counts["denoise_fast int8 data_devices=2, tiled (phase 15)"] = ("conv3x3_int8", launches)
+    _log(f"[multi] denoise_fast d{MULTI_DEPTH} w{MULTI_WIDTH} ds2 int8 data_devices=2, "
+         f"one 203x301 image, "
+         f"{chunks} tile batches: {same} to one device; {plain}; conv3x3_int8 launches "
+         f"{launches}")
+
+    # (c) TP at 2 and 4: fast x4 bf16 and denoise_fast with a refine tail
+    tile = rng.integers(0, 256, (1, TP_TILE, TP_TILE, 3), dtype=np.uint8)
+    spec_r = DeploySpec(family="denoise_fast", depth=MULTI_DEPTH, width=MULTI_WIDTH,
+                        downshuffle=2, refine_blocks=2, refine_width=32)
+    refine = DeployedModel(spec_r, init_fused_params(spec_r, SEED + 7),
+                           dtype=torch.bfloat16, device=device)
+    for name, dep in ((f"fast x4 d{fast.spec.depth} w{fast.spec.width}", fast),
+                      (f"denoise_fast d{MULTI_DEPTH} w{MULTI_WIDTH} ds2 refine 2x32", refine)):
+        want = dep(tile)
+        for n in (2, 4):
+            tp = TPFastUpscaler(dep, _phase_devices(n, device))
+            same = _equal_or_1lsb(f"TP {n} {name}", tp(tile).cpu(), want.cpu())
+            _log(f"[multi] TP over {n} ({name}, bf16, b1 {TP_TILE}x{TP_TILE}): {same} to "
+                 f"the single-device bf16 graph (bound 1 LSB)")
+            timed(f"TP {n} {name}", lambda: tp(tile).cpu(), lambda: dep(tile).cpu())
+
+    # (d) the CLI: --data_devices 0 (all local cards), and more than there are
+    src = work / "multi.png"
+    write_png(src, image[:128, :96])
+    plain = read_png(rs.main(["--model", str(sr_isr), "--src", str(src), "--device", device,
+                              "--save_dir", str(work / "multi_one.png")]))
+    out_png, _, launches, _ = _counted(scatter_rdb, lambda: rs.main(
+        ["--model", str(sr_isr), "--src", str(src), "--device", device, "--data_devices",
+         "0", "--save_dir", str(work / "multi_all.png")]))
+    n_all = max(cards, 1)  # --data_devices 0: every card, the batch rounded up to them
+    batch = -(-8 // n_all) * n_all
+    want = -(-len(plan_tiles(128, 96, 96, 8)[0]) // batch) * n_all * per_forward
+    if launches != (want if device == "cuda" else 0):
+        raise AssertionError(f"rs --data_devices 0: fused_rdb launched {launches} times, "
+                             f"want {want}")
+    _equal_or_1lsb("rs --data_devices 0", read_png(out_png), plain)
+    counts["rs --data_devices 0, sr x4 (phase 15)"] = ("fused_rdb", launches)
+    argv = ["--model", str(sr_isr), "--src", str(src), "--device", device,
+            "--data_devices", "2", "--save_dir", str(work / "multi_two.png")]
+    if device == "cuda" and cards < 2:
+        try:
+            rs.main(argv)
+        except SystemExit as e:
+            if str(e) != f"data_devices=2 but only {cards} local devices available":
+                raise
+            _log(f"[multi] rs --data_devices 0: fused_rdb launches {launches}, equal to "
+                 f"one device; --data_devices 2 on {cards} card exits: {e}")
+        else:
+            raise AssertionError("rs --data_devices 2 served on one card")
+    else:
+        _equal_or_1lsb("rs --data_devices 2", read_png(rs.main(argv)), plain)
+        _log(f"[multi] rs --data_devices 0 over {cards} cards and --data_devices 2: "
+             f"equal to one device")
+    _log(f"[multi] request times by CUDA events (mean of 3 after 1; on one card the "
+         f"cost of splitting, not scaling), on {card}: " + "; ".join(times))
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -2664,6 +2988,9 @@ def main() -> int:
         interop = phase_interop(Path(tmp) / "interop", Path(tmp) / "train", card)
         loader = phase_loader(Path(tmp) / "loader", Path(tmp) / "train" / "data" /
                               "train_images.json", card)
+        t0 = time.perf_counter()
+        multi = phase_multi(Path(tmp), sr_isr, fast_isr, card)
+        _log(f"[multi] phase 15 in {time.perf_counter() - t0:.1f} s")
     # launches: every counted main-path run, by path
     k1["launches_by_path"] = {"serve sr x4 (phase 5)": k1_serve,
                               "train -> checkpoint -> serve sr x2 (phase 9)":
@@ -2682,6 +3009,10 @@ def main() -> int:
     for path, n in {**evals, **videos}.items():
         if n:  # the Denoiser's eval runs neither kernel
             (k2 if "int8" in path else k1)["launches_by_path"][path] = n
+    for path, (kernel, n) in multi.items():
+        if not n:
+            raise AssertionError(f"{path}: {kernel} was launched no time")
+        (k1 if kernel == "fused_rdb" else k2)["launches_by_path"][path] = n
     for k in (k1, k2):
         k["launches"] = sum(k["launches_by_path"].values())
     print(json.dumps({"kernels": [k1, k2], "training": trained["timings"],

@@ -17,8 +17,11 @@ only. The baseline is the bicubic upsample of the LR (SR) or the noisy
 input itself (``noisy_*``, denoise). ``--int8`` calibrates the fast
 families' int8 trunk on the first batch's LR and feeds that batch back
 into the loop. Each batch's metrics stay on the device until the end,
-when they are fetched at once. ``--data_devices`` other than 1 exits
-naming the multi-GPU slice.
+when they are fetched at once. ``--data_devices N`` splits every batch's
+LR over N devices, one replica of the artifact on each (on ``cuda`` the
+distinct local cards, 0 = all of them; on ``cpu`` the CPU stands for N),
+gathers the outputs on the first device and scores them there, so the
+metrics equal the single-device run's.
 """
 
 from __future__ import annotations
@@ -26,8 +29,6 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
-
-MULTI_GPU_SLICE = "slice 5 (multi-GPU)"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -49,7 +50,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--antialias", action="store_true")
     parser.add_argument("--json_out", type=str, default=None)
     parser.add_argument("--data_devices", type=int, default=1,
-                        help=f"more than one GPU: {MULTI_GPU_SLICE}")
+                        help="shard eval batches over N devices (0 = all local "
+                             "devices) — same data-axis serving as rs.py; on "
+                             "--device cpu the CPU stands for N devices")
     parser.add_argument("--int8", action="store_true",
                         help="evaluate the fast families' int8 serving path, "
                              "calibrated on the first eval batch")
@@ -64,14 +67,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     opt = build_parser().parse_args(argv)
-    if opt.data_devices != 1:
-        raise SystemExit(f"--data_devices {opt.data_devices}: evaluating over several "
-                         f"GPUs is not ported yet: it comes with {MULTI_GPU_SLICE}")
 
     import numpy as np
     import torch
 
     from ..core.device import resolve_device
+    from ..core.mesh import gather, replicate, serving_devices, split_batch
     from ..data import degrade
     from ..data.manifest import load_manifest
     from ..data.pipeline import DevicePrefetcher, LoaderConfig, PatchLoader
@@ -81,6 +82,17 @@ def main(argv=None) -> dict:
                                  psnr_y_per_image, sharpness, ssim)
 
     device = resolve_device(opt.device)
+    devices = None
+    if opt.data_devices != 1:
+        if opt.data_devices < 0:
+            raise SystemExit(f"--data_devices must be >= 0, got {opt.data_devices}")
+        try:
+            devices = serving_devices(opt.data_devices, device)
+        except ValueError as e:
+            raise SystemExit(str(e))
+        if opt.batch_size % len(devices):
+            raise SystemExit(f"--batch_size {opt.batch_size} must be divisible by "
+                             f"--data_devices {len(devices)}")
     deployed = load_artifact(opt.model, device=device)
     scale = deployed.spec.output_scale
     if opt.denoise_eval and scale != 1:
@@ -109,10 +121,18 @@ def main(argv=None) -> dict:
 
     base = "noisy" if opt.denoise_eval else "bicubic"
 
+    def serve(lr_u8):
+        """The artifact on the LR batch: on one device, or split over the
+        data devices' replicas and gathered back on ``device``."""
+        if devices is None:
+            return deployed(lr_u8)
+        shards = split_batch(lr_u8, devices)
+        return gather([r(s) for r, s in zip(replicas, shards)], device)
+
     def eval_batch(hr_u8, i):
         hr01 = hr_u8.float() / 255.0
         lr01 = make_lr01(hr01, i)
-        sr01 = deployed(to_u8(lr01)).float() / 255.0
+        sr01 = serve(to_u8(lr01)).float() / 255.0
         # the no-model baseline: the bicubic upsample, or the noisy input
         base01 = torch.clamp(degrade.upscale(lr01, scale) if scale > 1 else lr01, 0, 1)
         return {
@@ -141,6 +161,8 @@ def main(argv=None) -> dict:
                 deployed = quantize_deployed(deployed, [lr_u8], percentile=opt.int8_percentile)
             except ValueError as e:
                 raise SystemExit(str(e)) from None
+        if devices is not None:  # calibrated once, then replicated
+            replicas = replicate(deployed, devices)
         for i, batch in enumerate(itertools.chain([first], batches)):
             metrics = eval_batch(batch, i)
             per_image.append(metrics.pop("psnr_y_per_image"))

@@ -10,8 +10,11 @@ in fixed-size frame batches and encoded, three stages overlapped
 (``video_pipeline``), and its audio is remuxed. ``--int8`` serves a
 fast-family artifact with its trunk in int8, calibrated on crops of the
 input itself (on a video, its first frames). ``--profile_dir`` writes a
-``torch.profiler`` trace of the whole run. Multi-device flags exit with a
-message naming the slice that brings them.
+``torch.profiler`` trace of the whole run. ``--data_devices``,
+``--spatial_devices``, ``--spatial_grid`` and ``--tp_devices`` serve over
+several devices (one sharding axis at a time): on ``--device cuda`` the
+distinct local cards, and asking for more than there are exits; on
+``--device cpu`` the CPU stands for as many shards as asked.
 """
 
 from __future__ import annotations
@@ -42,13 +45,34 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
     parser.add_argument("--spatial_devices", type=int, default=1,
-                        help="multi-GPU sharding: slice 5")
+                        help="shard large images over N devices (halo exchange); "
+                             "applies to the single-image/folder path — for "
+                             "video/batch throughput use --data_devices")
     parser.add_argument("--spatial_grid", type=int, nargs=2, default=None,
-                        metavar=("NY", "NX"), help="multi-GPU sharding: slice 5")
+                        metavar=("NY", "NX"),
+                        help="2-D generalization of --spatial_devices: shard "
+                             "one image over an NYxNX device grid with halo "
+                             "exchange in both dimensions (less halo overhead "
+                             "than 1-D row bands at 8+ devices)")
     parser.add_argument("--data_devices", type=int, default=1,
-                        help="multi-GPU sharding: slice 5")
+                        help="shard tile/frame batches over N devices (data "
+                             "axis) — multi-device serving throughput for the "
+                             "tiled image, folder, and video paths; 0 = all "
+                             "local devices. Mutually exclusive with "
+                             "--spatial_devices")
     parser.add_argument("--tp_devices", type=int, default=1,
-                        help="tensor parallelism: slice 5")
+                        help="tensor parallelism: channel-shard the fast "
+                             "families' trunk over N local devices (0 = "
+                             "all), one reduction per residual block — the "
+                             "latency-bound serving axis for single images "
+                             "when the batch is too small for "
+                             "--data_devices. Covers fast AND denoise_fast "
+                             "(downshuffle front + refine tail included); "
+                             "the sr/denoise reference topologies serve via "
+                             "--data_devices/--spatial_devices. The four "
+                             "sharding flags count the distinct local cards "
+                             "on --device cuda; on --device cpu the CPU "
+                             "stands for as many devices as asked")
     parser.add_argument("--int8", action="store_true",
                         help="serve the fast-family trunk in int8 (PTQ "
                              "self-calibrated on the input; fast and "
@@ -78,16 +102,31 @@ def main(argv=None):
     return result
 
 
-def _refuse_unported(spatial_devices, data_devices, spatial_grid, tp_devices, int8,
-                     int8_percentile) -> None:
-    if int8 and tp_devices != 1:
+def _check_sharding_flags(spatial_devices, data_devices, spatial_grid, tp_devices,
+                          int8, int8_percentile) -> bool:
+    """The JAX CLI's checks of the sharding and int8 flags, made before the
+    artifact loads; returns whether tensor parallelism is asked for."""
+    if tp_devices < 0:
+        raise SystemExit(
+            f"--tp_devices must be >= 0 (0 = all local devices), got {tp_devices}")
+    use_tp = tp_devices == 0 or tp_devices > 1
+    # != 1, not > 1: 0 means "all local devices" for both axes and must
+    # conflict too
+    if use_tp and (spatial_devices != 1 or data_devices != 1 or spatial_grid):
+        raise SystemExit("--tp_devices is mutually exclusive with --spatial_devices/"
+                         "--spatial_grid/--data_devices: pick ONE sharding axis")
+    if int8 and use_tp:
         raise SystemExit("--int8 is mutually exclusive with --tp_devices (the "
                          "TP wrapper shards the bf16 graph; an int8-TP path "
                          "is not built)")
     if int8 and (spatial_devices != 1 or spatial_grid):
+        # requantization at every conv input turns the halo's sub-LSB
+        # differences into whole int8 steps; --data_devices stays allowed
+        # (the same per-shard shapes: bit-equal)
         raise SystemExit("--int8 is mutually exclusive with --spatial_devices/"
                          "--spatial_grid: requantization amplifies "
-                         "band-boundary differences")
+                         "band-boundary differences; use --data_devices for "
+                         "multi-chip int8 serving")
     if int8_percentile is not None:
         from ..models.quantized import check_percentile
 
@@ -95,12 +134,7 @@ def _refuse_unported(spatial_devices, data_devices, spatial_grid, tp_devices, in
             check_percentile(int8_percentile)
         except ValueError as e:
             raise SystemExit(f"--int8_percentile: {e}") from None
-    if tp_devices != 1 or spatial_devices != 1 or data_devices != 1 or (
-        spatial_grid and tuple(spatial_grid) != (1, 1)
-    ):
-        raise SystemExit("multi-device serving (--tp_devices, "
-                         "--spatial_devices, --spatial_grid, --data_devices) "
-                         "is not ported yet: it comes with slice 5 (multi-GPU)")
+    return use_tp
 
 
 def run(
@@ -126,9 +160,16 @@ def run(
 
     src_path = Path(src)
     out_path = Path(save_dir)
-    _refuse_unported(spatial_devices, data_devices, spatial_grid, tp_devices, int8,
-                     int8_percentile)
+    use_tp = _check_sharding_flags(spatial_devices, data_devices, spatial_grid,
+                                   tp_devices, int8, int8_percentile)
     deployed = load_artifact(model, device=device)
+    if (spatial_devices != 1 or spatial_grid) and (deployed.spec.downshuffle or 1) > 1:
+        raise SystemExit(
+            "--spatial_devices/--spatial_grid cannot serve a downshuffle>1 "
+            "artifact (denoise_fast): band offsets shift the model's "
+            "space_to_depth grid, so the output would depend on the device "
+            "count; use --data_devices (x1 images are small per-tile anyway)"
+        )
     if int8:
         from ..models.quantized import quantize_deployed
 
@@ -138,15 +179,31 @@ def run(
                 percentile=int8_percentile)
         except ValueError as e:
             raise SystemExit(str(e)) from None
+    if use_tp:
+        # channel-shard the model itself; the engine tiles through it
+        from ..core.mesh import local_devices
+        from ..parallel.tensor import TPFastUpscaler
+
+        local = local_devices(device, tp_devices)
+        n_tp = tp_devices or len(local)
+        if n_tp > len(local):
+            raise SystemExit(f"--tp_devices {n_tp}: only {len(local)} local devices")
+        try:
+            deployed = TPFastUpscaler(deployed, local[:n_tp])
+        except ValueError as e:
+            raise SystemExit(str(e))
     try:
         engine = TiledUpscaler(deployed, window=window_size, overlap=overlap,
-                               batch_size=batch_size)
+                               batch_size=batch_size, spatial_devices=spatial_devices,
+                               data_devices=data_devices, spatial_grid=spatial_grid)
     except ValueError as e:
+        # mode exclusivity, device counts, downshuffle grid alignment
         raise SystemExit(str(e))
     if src_path.is_dir():
         return _run_folder(engine, src_path, out_path)
     if src_path.suffix.lower() in VID_FORMATS:
-        return _run_video(engine, src_path, out_path, batch_size, codec=codec)
+        # the engine's batch: under --data_devices a multiple of the devices
+        return _run_video(engine, src_path, out_path, engine.batch_size, codec=codec)
     return _run_image(engine, src_path, out_path)
 
 
@@ -299,18 +356,28 @@ def _fetch_async(out):
     """Enqueue the device -> host copy of a result behind its compute (into
     pinned memory, without blocking) and return a function that waits for
     that copy alone and gives the frames as numpy. Launched before the next
-    batch, the copy does not wait for that batch's compute."""
-    if out.device.type != "cuda":
-        return out.numpy
+    batch, the copy does not wait for that batch's compute. ``out`` is a
+    tensor, or the shards of a batch split over several devices (each
+    copied behind its own device's compute, concatenated in order)."""
     import torch
 
-    host = out.to("cpu", non_blocking=True)  # pinned: the copy is asynchronous
-    copied = torch.cuda.Event()
-    copied.record()
+    shards = [out] if isinstance(out, torch.Tensor) else list(out)
+    copies = []
+    for s in shards:
+        if s.device.type != "cuda":
+            copies.append((s, None))
+            continue
+        host = s.to("cpu", non_blocking=True)  # pinned: the copy is asynchronous
+        copied = torch.cuda.Event()
+        copied.record(torch.cuda.current_stream(s.device))
+        copies.append((host, copied))
 
     def wait():
-        copied.synchronize()
-        return host.numpy()
+        for _, copied in copies:
+            if copied is not None:
+                copied.synchronize()
+        frames = [host.numpy() for host, _ in copies]
+        return frames[0] if len(frames) == 1 else np.concatenate(frames)
 
     return wait
 

@@ -12,10 +12,22 @@ non-overlap tiling. The scale is read from the first output batch.
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Tuple
+from typing import Callable, List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+
+from ..core.mesh import gather
+
+Result = Union[torch.Tensor, Sequence[torch.Tensor]]
+
+
+def fetch(out: Result) -> np.ndarray:
+    """A result as one host array: a tensor on its device, or the shards
+    of a batch split over several devices, concatenated in order."""
+    if isinstance(out, torch.Tensor):
+        return out.cpu().numpy()
+    return gather(out, "cpu").numpy()
 
 
 def plan_tiles(
@@ -34,7 +46,7 @@ def plan_tiles(
 
 
 def upscale_tiled(
-    apply_fn: Callable[[np.ndarray], torch.Tensor],
+    apply_fn: Callable[[np.ndarray], Result],
     image: np.ndarray,
     window: int = 96,
     overlap: int = 8,
@@ -44,10 +56,13 @@ def upscale_tiled(
     """Tile -> batch -> model -> stitch. image: HWC uint8; returns HWC uint8.
 
     ``apply_fn`` maps a uint8 NHWC batch of ``window``-sized tiles to uint8
-    NHWC outputs (a ``DeployedModel``). Batches are padded to a fixed size
+    NHWC outputs (a ``DeployedModel``), or to their shards on several
+    devices: the engine's data-sharded apply splits each batch across
+    devices, the counterpart of the JAX function's ``sharding=``, and the
+    output equals the unsharded path's. Batches are padded to a fixed size
     by repeating the last tile, and each batch comes back to the host in
-    one copy. ``grid`` > 1 keeps the shrunk small-image window on the
-    model's downshuffle grid.
+    one copy per device. ``grid`` > 1 keeps the shrunk small-image window
+    on the model's downshuffle grid.
     """
     h, w = image.shape[:2]
     window = min(window, max(h, w) + 2 * overlap)
@@ -69,7 +84,7 @@ def upscale_tiled(
     if pad_n:
         tiles = np.concatenate([tiles, np.repeat(tiles[-1:], pad_n, axis=0)])
     out_tiles = np.concatenate([
-        apply_fn(tiles[i * batch_size:(i + 1) * batch_size]).cpu().numpy()
+        fetch(apply_fn(tiles[i * batch_size:(i + 1) * batch_size]))
         for i in range(n_chunks)
     ])[:n_tiles]
     if out_tiles.shape[1] % window:

@@ -204,6 +204,14 @@ class DeployedModel:
         self.model = model.eval()
         self._mean = tuple(float(v) for v in spec.mean)
         self._std = tuple(float(v) for v in spec.std)
+        self._build = (fused_params, optimize, tail_fold)
+
+    def replica(self, device) -> "DeployedModel":
+        """The same model on ``device``, built from the same fused params
+        (the serving paths over several devices hold one per device)."""
+        fused_params, optimize, tail_fold = self._build
+        return DeployedModel(self.spec, fused_params, self.dtype, device, optimize,
+                             tail_fold)
 
     @torch.inference_mode()
     def __call__(self, u8_batch) -> torch.Tensor:

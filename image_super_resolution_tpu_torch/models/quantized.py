@@ -255,6 +255,16 @@ class Int8DeployedFast:
         self._mean = tuple(float(v) for v in spec.mean)
         self._std = tuple(float(v) for v in spec.std)
 
+    def replica(self, device) -> "Int8DeployedFast":
+        """The same int8 server on ``device``: the same calibrated scales
+        and quantized weights, with its own K-major ``w_k`` there. Calibrate
+        once and replicate, so that the output does not depend on the
+        device count."""
+        params = {k: ({kk: vv for kk, vv in v.items() if kk != "w_k"}
+                      if isinstance(v, dict) else v)
+                  for k, v in self.params.items()}
+        return Int8DeployedFast(self.spec, params, device)
+
     @torch.inference_mode()
     def __call__(self, u8_batch) -> torch.Tensor:
         """uint8 NHWC (numpy or tensor) -> uint8 NHWC tensor on the device."""

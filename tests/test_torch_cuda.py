@@ -647,3 +647,86 @@ def test_native_batches_through_the_prefetcher_to_the_card(card, tmp_path):
     for g, w in zip(got, want):
         assert g.device.type == "cuda" and g.dtype == torch.uint8
         np.testing.assert_array_equal(g.cpu().numpy(), w)
+
+
+# ------------------------------------------------ multi-device serving --
+
+def _devices(n):
+    """n devices: the local cards in turn (cuda:0 n times on one card)."""
+    return [torch.device("cuda", i % torch.cuda.device_count()) for i in range(n)]
+
+
+def test_data_and_spatial_serving_on_card(card):
+    """sr x4 d1 w64 bf16: tiles split over two devices within 1 LSB of one
+    device (cuDNN may pick another algorithm at the shard's batch); row
+    bands over two devices launch K1 three times per band and stay within
+    BF16_MAX_LSB of the CPU's fp32 spatial run."""
+    from image_super_resolution_tpu_torch.infer.engine import TiledUpscaler
+    from image_super_resolution_tpu_torch.models.deploy import BF16_MAX_LSB
+
+    spec = DeploySpec(family="sr", depth=1, width=64, scale=4)
+    params = init_fused_params(spec, seed=3)
+    dep = DeployedModel(spec, params, dtype=torch.bfloat16, device=card)
+    cpu = DeployedModel(spec, params, dtype=torch.float32, device="cpu")
+    image = np.random.default_rng(4).integers(0, 256, (70, 52, 3), dtype=np.uint8)
+    one = TiledUpscaler(dep, window=32, overlap=8, batch_size=8).upscale_image(image)
+    two = TiledUpscaler(dep, window=32, overlap=8, batch_size=8, data_devices=2,
+                        devices=_devices(2)).upscale_image(image)
+    assert np.abs(one.astype(int) - two.astype(int)).max() <= 1
+    before = k1.scatter_rdb.launches
+    got = TiledUpscaler(dep, overlap=16, spatial_devices=2,
+                        devices=_devices(2)).upscale_image(image)
+    torch.cuda.synchronize()
+    assert k1.scatter_rdb.launches == before + 2 * 3
+    want = TiledUpscaler(cpu, overlap=16, spatial_devices=2).upscale_image(image)
+    assert got.shape == want.shape == (280, 208, 3)
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= BF16_MAX_LSB
+
+
+def test_int8_data_axis_and_tp_on_card(card):
+    """fast x4 d2 w128: int8 frames split over two devices launch K2 five
+    times per shard and stay within 1 LSB of one device; TP over two and
+    four devices in bf16 within 1 LSB of the single-device graph."""
+    from image_super_resolution_tpu_torch.infer.engine import TiledUpscaler
+    from image_super_resolution_tpu_torch.models.quantized import quantize_deployed
+    from image_super_resolution_tpu_torch.ops.kernels.matmul import conv3x3_int8
+    from image_super_resolution_tpu_torch.parallel.tensor import TPFastUpscaler
+
+    spec = DeploySpec(family="fast", depth=2, width=128, scale=4)
+    dep = DeployedModel(spec, init_fused_params(spec, seed=4), dtype=torch.bfloat16,
+                        device=card)
+    x = np.random.default_rng(5).integers(0, 256, (6, 24, 24, 3), dtype=np.uint8)
+    quant = quantize_deployed(dep, [x])
+    before = conv3x3_int8.launches
+    two = TiledUpscaler(quant, data_devices=2, devices=_devices(2)).upscale_batch(x)
+    torch.cuda.synchronize()
+    assert conv3x3_int8.launches == before + 2 * 5
+    one = quant(x).cpu().numpy()
+    assert np.abs(one.astype(int) - two.astype(int)).max() <= 1
+    want = dep(x[:1]).cpu().numpy()
+    for n in (2, 4):
+        got = TPFastUpscaler(dep, _devices(n))(x[:1]).cpu().numpy()
+        assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+
+def test_rs_refuses_more_devices_than_cards(card, tmp_path):
+    """On cuda the device list is the distinct cards: asking for one more
+    exits with the JAX message, whatever the flag."""
+    from image_super_resolution_tpu_torch.cli import rs
+    from image_super_resolution_tpu_torch.models.deploy import save_artifact
+    from image_super_resolution_tpu_torch.utils.png import write_png
+
+    spec = DeploySpec(family="fast", depth=1, width=128, scale=2)
+    model = tmp_path / "m.isr"
+    save_artifact(model, spec, init_fused_params(spec, seed=6))
+    write_png(tmp_path / "a.png", np.zeros((40, 40, 3), np.uint8))
+    n = torch.cuda.device_count() + 1
+    base = ["--model", str(model), "--src", str(tmp_path / "a.png"),
+            "--save_dir", str(tmp_path / "out.png")]
+    for flags, message in (
+        (["--data_devices", str(n)], f"data_devices={n} but only {n - 1} local devices"),
+        (["--spatial_devices", str(n)], f"requested {n} devices, only {n - 1} available"),
+        (["--tp_devices", str(n)], f"--tp_devices {n}: only {n - 1} local devices"),
+    ):
+        with pytest.raises(SystemExit, match=message):
+            rs.main(base + flags)

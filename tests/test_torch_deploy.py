@@ -230,14 +230,25 @@ def test_plan_tiles_covers_image():
 
 
 def test_engine_rejects_bad_geometry_and_multi_device(small):
+    """Bad overlap geometry raises; the multi-device modes, which once
+    raised here, now serve on the CPU standing for two devices, and two of
+    them at once are refused as JAX refuses them."""
     _, _, deployed = small
     with pytest.raises(ValueError, match="overlap"):
         TiledUpscaler(deployed, window=16, overlap=8)
     with pytest.raises(ValueError, match="overlap"):
         TiledUpscaler(deployed, overlap=-1)
+    image = _u8((40, 30, 3), 12)
+    want = TiledUpscaler(deployed, window=32, overlap=8, batch_size=4).upscale_image(image)
     for kw in ({"spatial_devices": 2}, {"data_devices": 2}, {"spatial_grid": (2, 1)}):
-        with pytest.raises(NotImplementedError, match="slice 5"):
-            TiledUpscaler(deployed, **kw)
+        engine = TiledUpscaler(deployed, window=32, overlap=8, batch_size=4, **kw)
+        assert len(engine._replicas) == 2
+        out = engine.upscale_image(image)
+        assert out.shape == want.shape == (160, 120, 3)
+        if "data_devices" in kw:
+            np.testing.assert_array_equal(out, want)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        TiledUpscaler(deployed, spatial_devices=2, data_devices=2)
 
 
 def test_cuda_requested_without_cuda_raises(x4, monkeypatch):
@@ -299,18 +310,34 @@ def test_rs_cli_folder_on_cpu(small, tmp_path):
     np.testing.assert_array_equal(b, engine.upscale_image(rs._read_image_rgb(src / "b.png")))
 
 
-@pytest.mark.parametrize("flag,slice_name", [
-    (["--spatial_grid", "2", "1"], "slice 5"),
-    (["--tp_devices", "2"], "slice 5"),
-    (["--data_devices", "2"], "slice 5"),
-    (["--spatial_devices", "2"], "slice 5"),
+@pytest.mark.parametrize("flag,engine", [
+    (["--spatial_grid", "2", "1"], {"spatial_grid": (2, 1)}),
+    (["--tp_devices", "2"], None),
+    (["--data_devices", "2"], {"data_devices": 2}),
+    (["--spatial_devices", "2"], {"spatial_devices": 2}),
 ])
-def test_rs_cli_refuses_unported_flags(flag, slice_name, tmp_path):
+def test_rs_cli_refuses_unported_flags(flag, engine, small, tmp_path):
+    """The four multi-device flags, which once exited here, now serve on
+    --device cpu: each writes what the library's engine computes with the
+    same sharding; --tp_devices, which takes the fast families only, exits
+    on this sr artifact with the JAX CLI's message."""
     from image_super_resolution_tpu_torch.cli import rs
 
-    with pytest.raises(SystemExit, match=slice_name):
-        rs.main(["--model", str(tmp_path / "m.isr"), "--src", str(tmp_path / "a.png"),
-                 "--device", "cpu", *flag])
+    spec, params, _ = small
+    model = tmp_path / "m.isr"
+    save_artifact(model, spec, params)
+    _write_png(tmp_path / "a.png", _u8((40, 32, 3), 13))
+    argv = ["--model", str(model), "--src", str(tmp_path / "a.png"), "--device", "cpu",
+            "--save_dir", str(tmp_path / "out.png"), "--window_size", "32", *flag]
+    if engine is None:
+        with pytest.raises(SystemExit, match="fast families"):
+            rs.main(argv)
+        return
+    got = rs._read_image_rgb(rs.main(argv))
+    want = TiledUpscaler(load_artifact(model, device="cpu"), window=32,
+                         **engine).upscale_image(rs._read_image_rgb(tmp_path / "a.png"))
+    assert got.shape == (160, 128, 3)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_sr_x2_bf16_drift_matches_jax():

@@ -236,7 +236,7 @@ def test_denoise_eval_keys_and_severity_order(val_set, denoiser):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--data_devices", "2"], "slice 5"),
+    (["--data_devices", "3"], "must be divisible by --data_devices 3"),
     (["--denoise_eval"], "needs an x1 artifact"),
     (["--int8"], "fast families only"),
 ])

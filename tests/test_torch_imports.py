@@ -47,3 +47,6 @@ def test_importing_every_module_loads_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert len(names) >= 20
+    # the multi-device serving modules are among them
+    assert {f"{PKG.name}.core.mesh", f"{PKG.name}.parallel.spatial",
+            f"{PKG.name}.parallel.tensor"} <= set(names)
