@@ -126,19 +126,40 @@ Phases, each of which raises on failure:
     ``data_devices=2``: ``sr`` tiles (K1), ``fast`` x4 int8 b256 t24 frames
     (K2 29 per shard forward, by variant) and ``denoise_fast`` d14 w128 int8
     tiled (K2), each equal to one device or within 1 LSB with the share
-    printed. Every path of (a) and (b) is also run again on the card with
-    its kernels swapped for their plain versions, so each kernel is held at
-    the shapes that path gives it (the 96-row bands, the 160x128 blocks,
+    printed; for ``sr``, 8 tiles in one forward against two shards of 4,
+    stage by stage (hooks), with the default cuDNN settings and with
+    ``deterministic=True``: the first stage that differs and the cuDNN
+    kernels only one of the two batch sizes runs. Every path of (a) and
+    (b) is also run again on the card with its kernels swapped for their
+    plain versions, so each kernel is held at the shapes that path gives
+    it (the 96-row bands, the 160x128 blocks,
     4x96x96 tiles, b128 t24 frames, the denoiser's tile shards): within
     ``BF16_MAX_LSB`` (K1) or ``INT8_CARD_MAX_LSB`` (K2), no launch there; (c)
     ``TPFastUpscaler`` over 2 and 4 on ``fast`` x4 and a ``denoise_fast``
     with a refine tail, bf16, b1 96x96, within 1 LSB of the single-device
     graph; (d) ``rs --data_devices 0`` equal to one device, and
     ``--data_devices 2`` exiting on a one-card machine with the JAX
-    message. Request times by CUDA events beside one device's.
+    message. Request times by CUDA events beside one device's;
+16. data-parallel training: run (a)'s flags (``sr`` x2 d16 w64 BN,
+    ``--resnet``, one epoch at batch 16 on phase 9's PNGs) in one process,
+    then (a) the same at world size 1 over NCCL in this process (every
+    collective runs), (b) two ranks sharing ``cuda:0`` over gloo (this
+    script started twice with ``--dp-rank``): the pixel run, then the GAN
+    phase in its work dir, held against one process (the GAN against a
+    one-process GAN from the same pixel checkpoint) within
+    ``DP_LOSS_RTOL``/``DP_GAN_LOSS_RTOL``, ``DP_STEP_ATOL`` and
+    ``DP_STATS_RTOL``, the ranks bit-equal by a hash of their state and
+    rank 0 the only writer; (c) (b)'s pixel checkpoint through
+    ``cli.export`` -> ``.isr`` -> ``load_artifact`` as ``sr`` x2 through K1
+    (48 per forward, counted), held against the kernels' plain versions;
+    (d) ``python -m torch.distributed.run --nproc_per_node 2 -m
+    ...cli.train`` on this machine: on one card it must exit non-zero with
+    ``distributed_init``'s message, on two or more it trains on distinct
+    cards. Step times by CUDA events: one process, world size 1, two ranks
+    on one card.
 
 It prints one JSON line of per-kernel numbers (each kernel's launches
-summed over the counted runs of phases 5/6 and 9-15, and given by path),
+summed over the counted runs of phases 5/6 and 9-16, and given by path),
 the training timings and the loader's rates, the ``nvidia-smi`` line, and
 last ``{"ok": true,
 "device": {...}}``. Without CUDA, or outside a
@@ -149,6 +170,8 @@ from __future__ import annotations
 
 import contextlib
 import json
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2749,6 +2772,71 @@ def _against_plain(what: str, got, plain_run, bound: int) -> str:
             f"{worst} LSB (bound {bound}), {share:.4f} differ")
 
 
+def _stage_outputs(deployed, x):
+    """One forward of ``deployed`` on ``x``: each top-level stage's output
+    (host fp32 copies, in the order the stages ran) and the uint8 result."""
+    outs = {}
+    handles = [child.register_forward_hook(
+        lambda _m, _i, o, name=name: outs.__setitem__(name, o.detach().float().cpu()))
+        for name, child in deployed.model.named_children()]
+    try:
+        y = deployed(x).cpu()
+    finally:
+        for h in handles:
+            h.remove()
+    return outs, y
+
+
+def _kernel_names(fn) -> set:
+    """The CUDA kernels one call of ``fn`` runs (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")}
+
+
+def _data_axis_stages(deployed, x, device: str) -> str:
+    """Where the data axis parts from one device: ``x`` (8 tiles) in one
+    forward against its two halves in two (the shards of data_devices=2),
+    stage by stage (hooks on the model's top-level children), under the
+    default cuDNN settings and under deterministic=True, benchmark=False;
+    and the kernels that only one of the two batch sizes runs."""
+    import numpy as np
+    import torch
+
+    def compare():
+        whole, y = _stage_outputs(deployed, x)
+        parts = [_stage_outputs(deployed, np.ascontiguousarray(h)) for h in np.split(x, 2)]
+        first = None
+        for name, want in whole.items():
+            got = torch.cat([pt[0][name] for pt in parts])
+            if first is None and not torch.equal(got, want):
+                first = f"{name} ({float((got != want).float().mean()):.4%} of its values)"
+        got_y = torch.cat([pt[1] for pt in parts])
+        worst, share = _lsb(got_y, y)
+        return (f"first stage that differs: {first or 'none'}; output max {worst} LSB on "
+                f"{share:.4%}"), y
+
+    default, y_default = compare()
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        det, y_det = compare()
+    same = _lsb(y_det, y_default)
+    line = (f"batch {len(x)} vs two shards of {len(x) // 2}: default cuDNN: {default}; "
+            f"deterministic=True, benchmark=False: {det} (its batch-{len(x)} output vs the "
+            f"default's: max {same[0]} LSB on {same[1]:.4%})")
+    if device == "cuda":
+        k8 = _kernel_names(lambda: deployed(x))
+        k4 = _kernel_names(lambda: deployed(np.ascontiguousarray(x[: len(x) // 2])))
+        line += (f"; kernels only at batch {len(x)}: {sorted(k8 - k4)[:4]}; only at "
+                 f"batch {len(x) // 2}: {sorted(k4 - k8)[:4]}")
+    return line
+
+
 def phase_multi(work: Path, sr_isr: Path, fast_isr: Path, card: str,
                 device: str = "cuda") -> dict:
     """Multi-device serving at full width: (a) sr x4 spatial 1-D and 2-D
@@ -2850,6 +2938,9 @@ def phase_multi(work: Path, sr_isr: Path, fast_isr: Path, card: str,
     _log(f"[multi] sr x4 data_devices=2, {chunks} tile batches of {multi.batch_size} "
          f"(window 96, {multi.batch_size // 2} tiles per shard): {same} to one device; "
          f"{plain}; fused_rdb launches {launches}")
+    tiles = np.stack([image[y:y + 96, x0:x0 + 96] for y in (0, 53, 106, 160)
+                      for x0 in (0, 96)])
+    _log(f"[multi] sr x4 data axis, 8 tiles 96x96: {_data_axis_stages(sr, tiles, device)}")
     timed("sr x4 data_devices=2 tiles", lambda: multi.upscale_image(image),
           lambda: single.upscale_image(image))
 
@@ -2953,7 +3044,389 @@ def phase_multi(work: Path, sr_isr: Path, fast_isr: Path, card: str,
     return counts
 
 
+# ----------------------------------------------------------------- phase 16 --
+
+# Data-parallel training of run (a) (sr x2 d16 w64 BN, --resnet; then the
+# GAN phase in the same work dir) at the CLI defaults on phase 9's 64 PNGs,
+# held against the one-process run of the same flags (--epochs 1, so the
+# same schedule). bf16 compute: the global BatchNorm sums in another order
+# than torch.native_batch_norm, and two ranks run each conv at half the
+# batch, where cuDNN may pick another algorithm, so bf16 roundings flip.
+# Bounds: each pixel step's loss, and the first GAN step's loss/content
+# (both GAN runs start from one state and batch), within DP_LOSS_RTOL
+# relative; the later GAN steps within DP_GAN_LOSS_RTOL, since GAN
+# trajectories part step by step (measured on an H100: 3.6e-4, 1.2e-3,
+# 7.9e-3, 1.1e-2 over four steps; the CPU tests hold the GAN one step at a
+# time for that reason); every param within DP_STEP_ATOL per step (the
+# most two Adam runs part: lr per step on each side, at --lr 1e-4); every
+# BN running statistic within DP_STATS_RTOL of max(1, |stat|); the
+# relative L2 of the params' difference to the one-process run's own
+# update is printed beside them. Ranks equal bit for bit (a hash of their
+# state). Measured values: PERF.md §2.
+DP_LOSS_RTOL = 2e-3
+DP_GAN_LOSS_RTOL = 3e-2
+DP_STEP_ATOL = 2e-4
+DP_STATS_RTOL = 5e-2
+DP_EXTRA: tuple = ()  # flags appended to every phase-16 run (a CPU rehearsal's sizes)
+DP_FLAGS = TRAIN_RUNS[0][2]
+DP_GAN_FLAGS = TRAIN_RUNS[3][2]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _params_hash(states) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for st in states:
+        for t in st.model.state_dict().values():
+            h.update(t.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _dp_train(argv) -> dict:
+    """cli.train on ``argv`` as a user's process runs it (``Run(opt).train()``,
+    in whatever process group this process joined), with the checkpoints it
+    writes counted: its per-step losses (the data group's means), a hash of
+    its state, and the final state dicts on the host."""
+    from image_super_resolution_tpu_torch.cli import train as cli_train
+
+    saves = []
+    orig = cli_train.save_checkpoint
+    cli_train.save_checkpoint = lambda *a, **kw: (saves.append(1), orig(*a, **kw))
+    try:
+        opt = cli_train.build_parser().parse_args(argv)
+        opt.argv = list(argv)
+        run = cli_train.Run(opt)
+        history = run.train()
+    finally:
+        cli_train.save_checkpoint = orig
+    states = [run.state] + ([run.d_state] if run.d_state is not None else [])
+    return {"losses": history[-1]["losses"], "saves": len(saves),
+            "hash": _params_hash(states), "device": str(run.device),
+            "state": [{k: t.detach().cpu() for k, t in st.model.state_dict().items()}
+                      for st in states], "steps": run.state.step}
+
+
+def _dp_step_ms(argv, what: str = "", card: str = "", n: int = 5) -> float:
+    """One rank's step of ``argv``'s run on one batch of its rows, by CUDA
+    events (mean of ``n`` after 2 warm-up; every rank runs the same steps,
+    so they meet at each collective). With ``what``, then where a step goes
+    (torch.profiler over 3 more, which adds its own cost to the host side):
+    device kernel time per step and the host ops with the most self time."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from image_super_resolution_tpu_torch.cli import train as cli_train
+
+    run = cli_train.Run(cli_train.build_parser().parse_args(argv))
+    u8 = torch.from_numpy(np.ascontiguousarray(next(iter(run.loader)))).to(run.device)
+    if run.device.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(n):
+            run.step(u8)
+        ms = (time.perf_counter() - t0) * 1e3 / n
+    else:
+        ms = _cuda_ms(lambda: run.step(u8), warmup=2, iters=n)
+    if not what:
+        return ms
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if run.device.type == "cuda"
+                                     else [])
+    with profile(activities=acts) as prof:
+        for _ in range(3):
+            run.step(u8)
+        run.sync()
+    events = prof.key_averages()
+    busy = sum(getattr(e, "self_device_time_total", 0) for e in events
+               if str(getattr(e, "device_type", "")).endswith("CUDA")) / 1e3 / 3
+    host = sorted(events, key=lambda e: -e.self_cpu_time_total)[:6]
+    _log(f"[breakdown] dp {what} on {card}: device kernel time {busy:.3f} ms per step; "
+         f"host ops by self time per step: "
+         + "; ".join(f"{e.key[:48]} {e.self_cpu_time_total / 1e3 / 3:.2f} ms "
+                     f"({e.count // 3} calls)" for e in host))
+    return ms
+
+
+def _content_split_gap(argv) -> float:
+    """One process, the GAN run's first batch and starting G: loss/content
+    with VGG on the whole batch against VGG on its two halves (features
+    concatenated, then the same RMS and MSE), relative. In bf16 the halves'
+    convs may run other cuDNN kernels; this is what that alone moves."""
+    import numpy as np
+    import torch
+
+    from image_super_resolution_tpu_torch.cli import train as cli_train
+    from image_super_resolution_tpu_torch.data.transforms import tanh_to_norm
+
+    run = cli_train.Run(cli_train.build_parser().parse_args(argv))
+    run.resume()
+    u8 = torch.from_numpy(np.ascontiguousarray(next(iter(run.loader)))).to(run.device)
+    hr, lr = run.step_fn.batch_fn(u8)
+    vgg = run.step_fn.perceptual.vgg
+
+    def content(fs, fh):
+        scale = torch.sqrt(torch.mean(torch.square(fh))) + 1e-6
+        return float(torch.mean(torch.square(fs / scale - fh / scale)))
+
+    with torch.no_grad():
+        sr = tanh_to_norm(run.state.model(lr), run.mean, run.std)
+        whole = content(vgg(sr), vgg(hr))
+        halves = content(torch.cat([vgg(t) for t in sr.chunk(2)]),
+                         torch.cat([vgg(t) for t in hr.chunk(2)]))
+    return abs(halves - whole) / whole
+
+
+def _dp_rank_main(rank: int, port: int, spec_path: str) -> int:
+    """One of phase 16 (b)'s two ranks (``chip_smoke.py --dp-rank``): joins
+    a gloo group of two with the other rank, both on ``cuda:0`` (or the
+    CPU), and runs the spec's phases through ``_dp_train``, printing one
+    ``DP {json}`` line per phase; rank 0 also saves its final state."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    from image_super_resolution_tpu_torch.core.mesh import distributed_init
+
+    spec = json.loads(Path(spec_path).read_text())
+    device = spec["device"]
+    shared = [torch.device("cuda", 0)] * 2 if device == "cuda" else None
+    distributed_init(device, "gloo", rank=rank, world_size=2, local_rank=rank,
+                     local_world_size=2, init_method=f"tcp://127.0.0.1:{port}",
+                     devices=shared)
+    for phase in spec["phases"]:
+        got = _dp_train(phase["argv"])
+        if rank == 0:
+            torch.save(got["state"], phase["dump"])
+        got.pop("state")
+        if phase.get("time"):
+            got["step_ms"] = _dp_step_ms(phase["argv"])
+        print("DP " + json.dumps({"rank": rank, "phase": phase["name"], **got}), flush=True)
+    return 0
+
+
+def _dp_gap(what: str, got: dict, want: dict, steps: int, init=None,
+            later_rtol: float = DP_LOSS_RTOL) -> str:
+    """``got`` against the one-process ``want``: the first step's loss
+    within DP_LOSS_RTOL, the later ones within ``later_rtol``; every param
+    within DP_STEP_ATOL x ``steps``; every BN running statistic within
+    DP_STATS_RTOL of max(1, |statistic|) (they follow the activations, not
+    Adam's bounded step); with ``init`` (the params both started from), the
+    relative L2 of the params' difference to the one-process update."""
+    import numpy as np
+
+    rels = [abs(a - b) / abs(b) for a, b in zip(got["losses"], want["losses"])]
+    bounds = [DP_LOSS_RTOL] + [later_rtol] * (len(rels) - 1)
+    worst = {"param": (0.0, ""), "stat": (0.0, "")}
+    for g_sd, w_sd in zip(got["state"], want["state"]):
+        for k, w in w_sd.items():
+            kind = "stat" if "running" in k else "param"
+            d = (g_sd[k].float() - w.float()).abs()
+            if kind == "stat":
+                d = d / w.float().abs().clamp_min(1.0)
+            d = float(d.max())
+            if d > worst[kind][0]:
+                worst[kind] = (d, k)
+    extra = ""
+    if init is not None:
+        num = sum(float(((got["state"][0][k] - w).double() ** 2).sum())
+                  for k, w in want["state"][0].items() if k in init and "running" not in k)
+        den = sum(float(((w - init[k]).double() ** 2).sum())
+                  for k, w in want["state"][0].items() if k in init and "running" not in k)
+        extra = (f"; params' difference {np.sqrt(num / max(den, 1e-30)):.3g} of the "
+                 f"one-process run's own update (relative L2)")
+    bound = DP_STEP_ATOL * steps
+    (p_gap, p_name), (s_gap, s_name) = worst["param"], worst["stat"]
+    line = (f"{what}: per-step losses {', '.join(f'{r:.3g}' for r in rels)} relative "
+            f"from one process (bound {DP_LOSS_RTOL}, then {later_rtol}); params max diff "
+            f"{p_gap:.3g} ({p_name}; bound {bound:.3g} = {DP_STEP_ATOL} x {steps} steps); "
+            f"BN running statistics max diff {s_gap:.3g} of max(1, |stat|) ({s_name}; "
+            f"bound {DP_STATS_RTOL}){extra}")
+    if (len(got["losses"]) != len(want["losses"]) or any(map(float.__gt__, rels, bounds))
+            or p_gap > bound or s_gap > DP_STATS_RTOL):
+        raise AssertionError(line)
+    return line
+
+
+def phase_dp(work: Path, manifest: Path, card: str, device: str = "cuda") -> dict:
+    """Data-parallel training: (a) run (a)'s flags at world size 1 over
+    NCCL in this process, (b) two ranks on cuda:0 over gloo (this script
+    started twice with ``--dp-rank``): the pixel run, then the GAN phase in
+    its work dir, (c) (b)'s pixel checkpoint exported and served as sr x2
+    through K1, (d) torchrun with two processes on this machine. Each run
+    held to the one-process run of its flags. Returns K1's launches on the
+    serve leg."""
+    import numpy as np
+    import torch
+
+    from image_super_resolution_tpu_torch.cli import export
+    from image_super_resolution_tpu_torch.cli import train as cli_train
+    from image_super_resolution_tpu_torch.core.mesh import (distributed_init,
+                                                            distributed_teardown)
+    from image_super_resolution_tpu_torch.models.deploy import BF16_MAX_LSB, load_artifact
+    from image_super_resolution_tpu_torch.ops.kernels.fused_rdb import scatter_rdb
+    from image_super_resolution_tpu_torch.utils.image_io import read_image_rgb
+
+    def argv(flags, sub, *more):
+        return _train_argv(flags, manifest, work / sub, device, "--epochs", "1", *DP_EXTRA,
+                           *more)
+
+    cards = torch.cuda.device_count() if device == "cuda" else 0
+    px = argv(DP_FLAGS, "one")
+    opt = cli_train.build_parser().parse_args(px)
+    cli_train.check_options(opt)
+    init = {k: t.detach().cpu() for k, t in
+            cli_train.build_model(opt, torch.device(device)).state_dict().items()}
+    one = _dp_train(px)
+    steps = one["steps"]
+    times = {"one process": _dp_step_ms(px, "one process", card)}
+
+    # (a) world size 1 over NCCL (gloo on a CPU rehearsal), in this process
+    distributed_init(device, "nccl" if device == "cuda" else "gloo", rank=0, world_size=1,
+                     local_rank=0, local_world_size=1,
+                     init_method=f"tcp://127.0.0.1:{_free_port()}")
+    try:
+        nccl = _dp_train(argv(DP_FLAGS, "nccl1"))
+        times["world 1 over NCCL"] = _dp_step_ms(argv(DP_FLAGS, "nccl1"),
+                                                 "world 1 over NCCL", card)
+    finally:
+        distributed_teardown()
+    line = _dp_gap("(a)", nccl, one, steps, init)
+    _log(f"[dp] (a) sr x2 d16 w64 BN --resnet, world size 1 over "
+         f"{'NCCL' if device == 'cuda' else 'gloo'} on {nccl['device']} (GlobalBatchNorm, "
+         f"the gradient all-reduce, the epoch's loss all-reduce and the state broadcast "
+         f"all run), {steps} steps vs one process: {line.split(': ', 1)[1]}; "
+         f"{nccl['saves']} checkpoint written")
+    if nccl["saves"] != 1:
+        raise AssertionError("(a) wrote no checkpoint")
+
+    # (b) two ranks sharing cuda:0 over gloo: pixel, then GAN in its work dir
+    spec = work / "dp_spec.json"
+    spec.write_text(json.dumps({"device": device, "phases": [
+        {"name": "pixel", "argv": argv(DP_FLAGS, "gloo2"), "dump": str(work / "dp_px.pt"),
+         "time": True},
+        {"name": "gan", "argv": argv(DP_GAN_FLAGS, "gloo2"), "dump": str(work / "dp_gan.pt")}]}))
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--dp-rank",
+                               str(r), str(port), str(spec)], cwd=str(ROOT),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=600)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    secs = time.perf_counter() - t0
+    for r, (proc, out) in enumerate(zip(procs, outs)):
+        if proc.returncode != 0:
+            raise AssertionError(f"(b) rank {r} exited {proc.returncode}:\n{out[-3000:]}")
+    res = {}
+    for out in outs:
+        for ln in out.splitlines():
+            if ln.startswith("DP "):
+                d = json.loads(ln[3:])
+                res[(d["rank"], d["phase"])] = d
+    # the one-process GAN run from (b)'s pixel checkpoint: both GAN runs
+    # start from the same G (and the same seeded D)
+    ckpt = next((work / "gloo2").glob("res_*.ckpt"))
+    (work / "one_gan").mkdir()
+    shutil.copy(ckpt, work / "one_gan" / ckpt.name)
+    one_gan = _dp_train(argv(DP_GAN_FLAGS, "one_gan"))
+    for name, dump, ref, from_ in (("pixel", "dp_px.pt", one, init),
+                                   ("gan", "dp_gan.pt", one_gan, None)):
+        r0, r1 = res[(0, name)], res[(1, name)]
+        if r0["hash"] != r1["hash"]:
+            raise AssertionError(f"(b) {name}: ranks' params differ ({r0['hash']} vs "
+                                 f"{r1['hash']})")
+        if (r0["saves"], r1["saves"]) != (1, 0):
+            raise AssertionError(f"(b) {name}: checkpoints written by rank 0 / 1: "
+                                 f"{r0['saves']} / {r1['saves']}, want 1 / 0")
+        got = dict(r0, state=torch.load(work / dump))
+        line = _dp_gap(f"(b) {name}", got, ref, steps, from_,
+                       DP_LOSS_RTOL if name == "pixel" else DP_GAN_LOSS_RTOL)
+        if name == "gan":
+            line += (f"; one process, VGG on the batch's two halves instead of the whole: "
+                     f"loss/content {_content_split_gap(argv(DP_GAN_FLAGS, 'one_gan')):.3g} "
+                     f"relative")
+        title = ("(sr x2 d16 w64 BN --resnet)" if name == "pixel" else
+                 "(G warm-started from the two-rank pixel checkpoint, as is the "
+                 "one-process run held against it; D 3-64-8-1024, VGG19 (5, 4) random "
+                 "features)")
+        _log(f"[dp] (b) {name} {title}, "
+             f"two ranks on {r0['device']} / {r1['device']} over gloo, 8 rows each of "
+             f"every batch of 16: {line.split(': ', 1)[1]}; ranks bit-equal (params hash "
+             f"{r0['hash']}); checkpoints written by rank 0 / 1: {r0['saves']} / "
+             f"{r1['saves']}")
+    times["two ranks on one card over gloo"] = res[(0, "pixel")]["step_ms"]
+    _log(f"[dp] (b) two processes, start to exit: {secs:.1f} s")
+
+    # (c) (b)'s pixel checkpoint -> .isr -> served as sr x2 through K1
+    isr = work / "dp.isr"
+    spec_out = export.main(["--checkpoint", str(ckpt), "--out", str(isr), "--scale", "2",
+                            "--device", device])
+    paths = json.loads(manifest.read_text())
+    x = np.stack([read_image_rgb(p)[8:56, 16:64] for p in paths[:16]])  # b16 48x48
+    model = load_artifact(isr, device=device)
+    n = 3
+    scatter_rdb.launches = 0
+    for _ in range(n):
+        out = model(x)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    launches = scatter_rdb.launches
+    want = 3 * spec_out.depth * n if device == "cuda" else 0
+    if launches != want or tuple(out.shape) != (len(x), 96, 96, 3):
+        raise AssertionError(f"(c) served {tuple(out.shape)} with {launches} fused_rdb "
+                             f"launches, want {want}")
+    plain = _against_plain("(c) sr x2 from the two-rank checkpoint", out.cpu(),
+                           lambda: model(x).cpu(), BF16_MAX_LSB)
+    _log(f"[dp] (c) the two-rank pixel checkpoint -> cli.export -> .isr -> load_artifact, "
+         f"sr x2 d{spec_out.depth} w{spec_out.width} bf16 b{len(x)} t48 on {card}: fused_rdb "
+         f"launches {launches} ({3 * spec_out.depth} per forward, {n} forwards); {plain}")
+
+    # (d) torchrun, two processes on this machine
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2",
+           "--master_port", str(_free_port()), "-m", f"{PACKAGE}.cli.train",
+           *argv(DP_FLAGS, "torchrun")]
+    t0 = time.perf_counter()
+    res_d = subprocess.run(cmd, cwd=str(ROOT), capture_output=True, text=True, timeout=600)
+    text = res_d.stdout + res_d.stderr
+    if device == "cuda" and cards < 2:
+        if res_d.returncode == 0 or "one process per card" not in text:
+            raise AssertionError(f"(d) torchrun with 2 processes on {cards} card exited "
+                                 f"{res_d.returncode}:\n{text[-3000:]}")
+        msg = next(ln for ln in text.splitlines() if "one process per card" in ln)
+        _log(f"[dp] (d) torchrun --nproc_per_node 2 on {cards} card: exit code "
+             f"{res_d.returncode} in {time.perf_counter() - t0:.1f} s with "
+             f"{msg.strip()[msg.strip().find('distributed_init'):][:200]!r}")
+    else:
+        used = sorted(set(re.findall(r"device=(\S+),", text)))
+        if res_d.returncode != 0 or (device == "cuda" and len(used) < 2):
+            raise AssertionError(f"(d) torchrun exited {res_d.returncode}, devices {used}:"
+                                 f"\n{text[-3000:]}")
+        _log(f"[dp] (d) torchrun --nproc_per_node 2 trained on {used}"
+             + (" (distinct cards)" if device == "cuda" else ""))
+    _log(f"[dp] step times, sr x2 d16 w64 BN batch 16 (per rank: its rows), CUDA events, "
+         f"mean of 5 after 2, on {card}: "
+         + "; ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+         + " (one card: the cost of the collectives, not scaling)")
+    return {"launches": launches, "step_ms": times}
+
+
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == "--dp-rank":  # phase 16 (b)'s ranks
+        return _dp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     import torch
 
     if not torch.cuda.is_available():
@@ -2991,6 +3464,10 @@ def main() -> int:
         t0 = time.perf_counter()
         multi = phase_multi(Path(tmp), sr_isr, fast_isr, card)
         _log(f"[multi] phase 15 in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        dp = phase_dp(Path(tmp) / "dp", Path(tmp) / "train" / "data" / "train_images.json",
+                      card)
+        _log(f"[dp] phase 16 in {time.perf_counter() - t0:.1f} s")
     # launches: every counted main-path run, by path
     k1["launches_by_path"] = {"serve sr x4 (phase 5)": k1_serve,
                               "train -> checkpoint -> serve sr x2 (phase 9)":
@@ -3009,12 +3486,15 @@ def main() -> int:
     for path, n in {**evals, **videos}.items():
         if n:  # the Denoiser's eval runs neither kernel
             (k2 if "int8" in path else k1)["launches_by_path"][path] = n
+    k1["launches_by_path"]["two ranks train -> checkpoint -> export -> serve sr x2 "
+                           "(phase 16)"] = dp["launches"]
     for path, (kernel, n) in multi.items():
         if not n:
             raise AssertionError(f"{path}: {kernel} was launched no time")
         (k1 if kernel == "fused_rdb" else k2)["launches_by_path"][path] = n
     for k in (k1, k2):
         k["launches"] = sum(k["launches_by_path"].values())
+    trained["timings"]["data-parallel step ms (phase 16)"] = dp["step_ms"]
     print(json.dumps({"kernels": [k1, k2], "training": trained["timings"],
                       "loader": loader["rates"]}))
     print(smi)

@@ -25,14 +25,35 @@ first 10 hr/lr batches as images (``images/hr``, ``images/lr``; not in the
 denoise phase). ``--profile_dir`` writes a ``torch.profiler`` trace of
 steps 2-4 (closed early if the run has fewer steps).
 
-``--ckpt_backend orbax`` and more than one device exit with a message
-naming the slice that brings them.
+Several cards: one process per card, started by torchrun,
+
+    python -m torch.distributed.run --nproc_per_node 8 \
+        -m image_super_resolution_tpu_torch.cli.train --resnet --train_json m.json
+
+(on several nodes, torchrun's ``--nnodes``/``--node_rank``/``--master_addr``
+as usual). ``--batch_size`` is per node, as it is per host in the JAX CLI:
+each node loads an equal stripe of the manifest and each of its ranks
+``batch_size / ranks`` rows of every node batch, so the global batch is
+``batch_size x nodes``. BatchNorm statistics, gradients and the epoch's
+losses are reduced over the data group, every rank adopts rank 0's state
+after a resume or warm start, and only rank 0 logs, dumps images,
+profiles and saves. On one node a ``--batch_size`` that does not divide
+by the ranks shrinks the data group as the JAX CLI shrinks its mesh; the
+ranks left out exit. One process that sees several cards exits with the
+torchrun command; ``--device cuda:0`` trains on one card. In the denoise
+phase rank 0 draws the one-process noise stream and every other rank its
+own.
+
+``--ckpt_backend orbax`` exits: the port reads and writes msgpack
+checkpoints only.
 """
 
 from __future__ import annotations
 
 import argparse
 import random
+import shlex
+import sys
 import time
 from pathlib import Path
 
@@ -40,6 +61,8 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..core.mesh import (all_reduce_, broadcast_object, distributed_init, local_mesh,
+                         shrink_data_group)
 from ..data import degrade
 from ..data.pipeline import DevicePrefetcher, LoaderConfig, PatchLoader
 from ..losses.perceptual import PerceptualLoss
@@ -51,15 +74,17 @@ from ..models.generator import SRGenerator
 from ..models.vgg import TruncatedVGG19, init_vgg_params
 from ..ops.initializers import init_weights
 from ..train.checkpoint import (checkpoint_exists, checkpoint_name, discriminator_payload,
-                                load_checkpoint, resume_discriminator, resume_state,
-                                save_checkpoint, warm_start_generator)
+                                load_checkpoint, load_state_payload, resume_discriminator,
+                                resume_state, save_checkpoint, state_payload,
+                                warm_start_generator)
 from ..train.state import TrainState
 from ..train.steps import (make_denoise_train_step, make_eval_step, make_gan_train_step,
                            make_pixel_train_step)
 from ..utils.logging import MetricsLogger
 from ..utils.profiling import trace
 
-LATER_SLICE = "slice 5 (Orbax, multi-GPU)"
+ORBAX = ("--ckpt_backend orbax is not supported: the port reads and writes msgpack "
+         "checkpoints only (--ckpt_backend msgpack)")
 EVAL_BATCHES = 8
 IMAGE_BATCHES = 10  # hr/lr batches logged as images at the start of a run
 PROFILE_STEPS = (2, 5)  # --profile_dir traces steps [2, 5), past the first
@@ -121,7 +146,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--ckpt_every", type=int, default=1,
                         help="epochs between checkpoint saves")
     parser.add_argument("--ckpt_backend", type=str, default="msgpack",
-                        choices=["msgpack", "orbax"], help=f"orbax: {LATER_SLICE}")
+                        choices=["msgpack", "orbax"], help="orbax: not supported")
     parser.add_argument("--compile_cache", type=str, default=None,
                         help="accepted for parity; the port compiles no XLA programs")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
@@ -129,8 +154,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> list:
-    """Parse the flags, train; returns one dict per epoch run."""
-    return Run(build_parser().parse_args(argv)).train()
+    """Parse the flags, train; returns one dict per epoch run (this rank's
+    view; the losses are the data group's means)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    opt = build_parser().parse_args(argv)
+    opt.argv = argv
+    return Run(opt).train()
 
 
 def _phase(opt) -> str:
@@ -138,9 +167,8 @@ def _phase(opt) -> str:
 
 
 def check_options(opt) -> None:
-    """The JAX CLI's checks and presets, then the refusals of what is not
-    ported yet (each names its slice). Mutates ``opt`` as the JAX CLI
-    does."""
+    """The JAX CLI's checks and presets, and the Orbax refusal. Mutates
+    ``opt`` as the JAX CLI does."""
     if opt.preset == "denoise_fullres":
         opt.train_denoise = True
         opt.family = "fast"
@@ -150,7 +178,7 @@ def check_options(opt) -> None:
             opt.rs_deep = 6
     opt.rs_deep, opt.width = family_defaults(opt.family, opt.rs_deep, opt.width)
     if opt.ckpt_backend == "orbax":
-        raise SystemExit(f"--ckpt_backend orbax is not ported yet: it comes with {LATER_SLICE}")
+        raise SystemExit(ORBAX)
     if opt.family == "fast" and opt.enchant:
         raise SystemExit("--enchant is a reference-topology variant (EResNet); the fast "
                          "family is BN-free by construction -- drop one of the flags")
@@ -163,11 +191,20 @@ def check_options(opt) -> None:
         raise SystemExit("--refine_blocks applies to the fast family only (--family fast)")
     if opt.refine_blocks < 0:
         raise SystemExit(f"--refine_blocks must be >= 0, got {opt.refine_blocks}")
-    if (opt.device == "cuda" and torch.cuda.is_available()
-            and torch.cuda.device_count() > 1):
-        raise SystemExit(f"{torch.cuda.device_count()} CUDA devices: data-parallel "
-                         f"training comes with {LATER_SLICE}; pass --device cuda:0 "
-                         f"to train on one")
+
+
+def check_launch(opt) -> None:
+    """One process (no torchrun) that sees several cards trains on none:
+    it exits with the command that trains on all of them, one process per
+    card (the JAX CLI runs one process over all local devices instead)."""
+    if (not local_mesh().initialized and opt.device == "cuda"
+            and torch.cuda.is_available() and torch.cuda.device_count() > 1):
+        k = torch.cuda.device_count()
+        raise SystemExit(
+            f"{k} CUDA devices: train on all of them with one process per card,\n"
+            f"  python -m torch.distributed.run --nproc_per_node {k} -m "
+            f"{__package__}.train {shlex.join(getattr(opt, 'argv', []))}\n"
+            f"or pass --device cuda:0 to train on one")
 
 
 def build_model(opt, device: torch.device):
@@ -203,8 +240,21 @@ def build_gan(opt, device: torch.device, total_steps: int):
     vgg = TruncatedVGG19(i=5, j=4, before_act=opt.enchant, dtype=torch.bfloat16,
                          device=device)
     vgg, loaded = init_vgg_params(vgg, opt.vgg_weights, with_status=True)
+    if local_mesh().initialized:  # rank 0's weights and choice: one loss program
+        loaded, weights = broadcast_object(
+            (loaded, {k: t.cpu() for k, t in vgg.state_dict().items()}))
+        vgg.load_state_dict(weights)
     # random features: RMS-normalized, so loss/content keeps its scale
     return d_state, PerceptualLoss(vgg, feature_norm=not loaded)
+
+
+def denoise_seed(seed: int, rank: int) -> int:
+    """The denoise phase's noise seed: ``seed + 2`` on rank 0 (the one
+    process's stream), one drawn from (seed + 2, rank) on every other rank,
+    so that ranks draw independent noise."""
+    if rank == 0:
+        return seed + 2
+    return int(np.random.SeedSequence([seed + 2, rank]).generate_state(1)[0])
 
 
 class Run:
@@ -214,11 +264,21 @@ class Run:
 
     def __init__(self, opt):
         check_options(opt)
+        mesh = distributed_init(opt.device)  # before anything touches the card
+        check_launch(opt)
+        n_data = shrink_data_group(opt.batch_size)
+        if mesh.initialized and mesh.nodes == 1 and n_data != mesh.world:
+            print(f"Train: batch_size={opt.batch_size} not divisible by {mesh.world} "
+                  f"devices; using a {n_data}-device data mesh")
+            if mesh.rank >= n_data:
+                print(f"Train: rank {mesh.rank} is outside the data mesh; exiting")
+                raise SystemExit(0)
+        self.mesh = mesh = local_mesh()
         random.seed(opt.seed)
         np.random.seed(opt.seed)
         torch.manual_seed(opt.seed)
         self.opt = opt
-        self.device = resolve_device(opt.device)
+        self.device = mesh.device if mesh.initialized else resolve_device(opt.device)
         self.phase = _phase(opt)
         self.work_dir = Path(opt.work_dir)
         self.work_dir.mkdir(parents=True, exist_ok=True)
@@ -228,14 +288,21 @@ class Run:
         self.loader_config = LoaderConfig(
             batch_size=opt.batch_size, patch_size=opt.shape, scale=scale,
             workers=opt.worker, seed=opt.seed, backend=opt.loader_backend)
-        self.loader = PatchLoader(opt.train_json, self.loader_config)
+        self.loader = PatchLoader(opt.train_json, self.loader_config,
+                                  process_index=mesh.node, process_count=mesh.nodes,
+                                  local_rank=mesh.local_rank,
+                                  local_world=mesh.ranks_per_node)
         if opt.mean:
             self.loader.calculate_stats()
         self.mean, self.std = list(self.loader.mean), list(self.loader.std)
         steps_per_epoch = len(self.loader)
         total_steps = opt.epochs * steps_per_epoch
+        self.global_batch = opt.batch_size * mesh.nodes
         print(f"Train: {len(self.loader.samples)} images, {steps_per_epoch} steps/epoch, "
               f"phase={self.phase}, device={self.device}, loader={self.loader.backend}")
+        if mesh.nodes > 1:
+            print(f"Train: multi-host {mesh.nodes} processes, global batch "
+                  f"{self.global_batch}")
         model = build_model(opt, self.device)
         self.state = TrainState(
             model, lr=opt.lr, lr2=opt.lr2, total_steps=total_steps,
@@ -244,7 +311,8 @@ class Run:
         self.d_state, self.gen = None, None
         if self.phase == "denoise":
             self.step_fn = make_denoise_train_step(self.mean, self.std)
-            self.gen = torch.Generator(self.device).manual_seed(opt.seed + 2)
+            self.gen = torch.Generator(self.device).manual_seed(
+                denoise_seed(opt.seed, mesh.rank))
         elif self.phase == "gan":
             self.d_state, perceptual = build_gan(opt, self.device, total_steps)
             self.step_fn = make_gan_train_step(opt.scale, perceptual, self.mean, self.std)
@@ -290,7 +358,25 @@ class Run:
             resume_discriminator(self.d_state, ckpt)
         return start_epoch
 
+    def adopt_first_rank(self, start_epoch: int) -> int:
+        """Every rank takes rank 0's state and first epoch (nodes need not
+        share a file system, so a resume or warm start may have loaded
+        different files, or none); returns the first epoch."""
+        if not self.mesh.initialized:
+            return start_epoch
+        states = [self.state] + ([self.d_state] if self.d_state is not None else [])
+        payload = broadcast_object(
+            (start_epoch, [state_payload(st) for st in states])
+            if self.mesh.rank == 0 else None)
+        if self.mesh.rank != 0:
+            for st, pl in zip(states, payload[1]):
+                load_state_payload(st, pl)
+        return payload[0]
+
     def save(self, epoch: int, losses, final: bool) -> None:
+        """Rank 0 writes the checkpoint; the other ranks write nothing."""
+        if self.mesh.rank != 0:
+            return
         extra = (discriminator_payload(self.d_state, final)
                  if self.d_state is not None else None)
         save_checkpoint(self.ckpt_path, self.state, epoch, self.mean, self.std, losses,
@@ -301,12 +387,13 @@ class Run:
         patches/s, substituted patches, and the eval metrics of an epoch
         that ran the eval)."""
         opt = self.opt
+        first = self.mesh.rank == 0
         logger = MetricsLogger(self.work_dir, opt.save_name,
-                               use_tensorboard=not opt.no_tensorboard)
+                               use_tensorboard=not opt.no_tensorboard, enabled=first)
         history = []
         try:
-            start_epoch = self.resume()
-            if not opt.resume and self.phase != "denoise":
+            start_epoch = self.adopt_first_rank(self.resume())
+            if not opt.resume and self.phase != "denoise" and first:
                 self.log_images(logger)
             n_params = sum(p.numel() for p in self.state.params)
             print(f"Train: {opt.epochs} epochs, {n_params:,} parameters")
@@ -342,7 +429,9 @@ class Run:
 
     def evaluate(self, epoch: int, logger) -> dict:
         """The eval metrics averaged over the eval loader's first
-        ``EVAL_BATCHES`` batches, logged as ``eval/*``."""
+        ``EVAL_BATCHES`` batches, logged as ``eval/*``. In data-parallel
+        training every rank runs it on the same unstriped batches in
+        lockstep, and rank 0 logs it."""
         ms = [self.eval_fn(self.state, torch.from_numpy(b).to(self.device))
               for _, b in zip(range(EVAL_BATCHES), iter(self.eval_loader))]
         agg = {k: float(torch.stack([m[k] for m in ms]).mean()) for k in ms[0]}
@@ -356,7 +445,8 @@ class Run:
         pending, t0 = [], None
         with DevicePrefetcher(iter(self.loader), self.device) as batches:
             for batch in batches:
-                if self.opt.profile_dir and self.global_step == PROFILE_STEPS[0]:
+                if (self.opt.profile_dir and self.global_step == PROFILE_STEPS[0]
+                        and self.mesh.rank == 0):
                     self.profiler = trace(self.opt.profile_dir)
                     self.profiler.__enter__()
                 out = self.step(batch)
@@ -372,9 +462,11 @@ class Run:
                                "pipeline is broken")
         keys = list(pending[0])
         fetched = torch.stack([torch.stack([m[k] for k in keys]) for m in pending])
+        if self.mesh.initialized:  # the data group's mean losses, once per epoch
+            fetched = all_reduce_(fetched).div_(self.mesh.size)
         fetched = fetched.cpu().tolist()  # the epoch's one fetch
         elapsed = max(time.perf_counter() - t0, 1e-9)
-        bs = self.opt.batch_size
+        bs = self.global_batch
         pps = (len(pending) - 1) * bs / elapsed if len(pending) > 1 else bs / elapsed
         for i, row in enumerate(fetched):
             logger.scalars(dict(zip(keys, row)), start_step + i + 1)

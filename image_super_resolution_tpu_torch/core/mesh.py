@@ -20,11 +20,25 @@ raises. On the CPU the one CPU stands for as many shards as asked (the
 counterpart of the JAX tests' virtual host devices), so every sharded path
 runs its whole logic there. Only a caller that passes ``devices=`` itself
 repeats a card (tests, and ``chip_smoke.py`` on a one-card machine).
+
+Training over several devices runs one process per card, started by
+``torch.distributed.run`` (torchrun), where JAX runs one process per host
+over a mesh of its devices. ``distributed_init`` reads torchrun's
+environment and joins the process group; ``local_mesh`` is this process's
+place in it (a JAX host is a node, a JAX local device a rank on that
+node); ``shrink_data_group`` is the JAX CLI's data-mesh shrink; and
+``all_reduce_``, ``gather_rows`` and ``broadcast_object`` are the
+collectives training needs over the data group, each a no-op in one
+process. ``torch.distributed`` is reached only inside the functions that
+use a process group, so a one-process run calls nothing of it and runs
+on a torch built without it.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import os
+from dataclasses import dataclass, replace
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 
@@ -122,3 +136,196 @@ def replicate(model, devices: Sequence[torch.device]) -> list:
             built[key] = model.replica(key)
         out.append(built[key])
     return out
+
+
+# ------------------------------------------------------ data-parallel training --
+
+@dataclass(frozen=True)
+class DataMesh:
+    """This process's place in data-parallel training: ``rank`` of ``world``
+    processes, ``local_rank`` of the ``local_world`` on its node, the card
+    it trains on, and the data group that BatchNorm statistics, gradients
+    and losses are reduced over (``size`` ranks; ``group`` None in one
+    process, or on a rank the shrink left out)."""
+
+    rank: int = 0
+    world: int = 1
+    local_rank: int = 0
+    local_world: int = 1
+    device: Optional[torch.device] = None
+    group: Any = None
+    size: int = 1
+    initialized: bool = False
+
+    @property
+    def node(self) -> int:
+        """The JAX process index: ranks are numbered node by node."""
+        return self.rank // self.local_world
+
+    @property
+    def nodes(self) -> int:
+        """The JAX process count."""
+        return self.world // self.local_world
+
+    @property
+    def ranks_per_node(self) -> int:
+        """Ranks of the data group on each node (``local_world``, or fewer
+        after the shrink)."""
+        return self.size // self.nodes
+
+
+_MESH = DataMesh()
+_GROUPS: Dict[int, Any] = {}  # data groups by size: the world's, and shrunk ones
+
+
+def local_mesh() -> DataMesh:
+    """The data mesh of training as ``distributed_init`` and
+    ``shrink_data_group`` left it (one process: rank 0 of 1, no group)."""
+    return _MESH
+
+
+def _launched() -> bool:
+    """True under torchrun (which sets this even for one process)."""
+    return "TORCHELASTIC_RUN_ID" in os.environ
+
+
+def distributed_init(device="cuda", backend: Optional[str] = None, *,
+                     rank: Optional[int] = None, world_size: Optional[int] = None,
+                     local_rank: Optional[int] = None,
+                     local_world_size: Optional[int] = None,
+                     init_method: Optional[str] = None,
+                     devices: Optional[Sequence[torch.device]] = None) -> DataMesh:
+    """Join the process group of data-parallel training; returns
+    ``local_mesh()``. Arguments left None come from torchrun's environment
+    (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``, and
+    ``MASTER_ADDR``/``MASTER_PORT`` through ``init_method="env://"``).
+
+    Without ``WORLD_SIZE``, or with ``WORLD_SIZE=1`` outside torchrun, it
+    does nothing: one process. Otherwise it joins with NCCL on ``cuda`` and
+    gloo on ``cpu`` (or ``backend``), on ``cuda:LOCAL_RANK``, and raises
+    when the node runs more ranks than it has cards: two ranks never share
+    a card unless ``devices`` (one entry per local rank) says so. Calling it
+    again returns the group already joined."""
+    global _MESH
+    if _MESH.initialized:
+        return _MESH
+    if world_size is None:
+        if "WORLD_SIZE" not in os.environ:
+            return _MESH
+        world_size = int(os.environ["WORLD_SIZE"])
+        if world_size == 1 and not _launched():
+            return _MESH
+    env = os.environ
+    rank = int(env.get("RANK", 0)) if rank is None else rank
+    local_rank = int(env.get("LOCAL_RANK", rank)) if local_rank is None else local_rank
+    local_world = (int(env.get("LOCAL_WORLD_SIZE", world_size)) if local_world_size is None
+                   else local_world_size)
+    if world_size % local_world or not 0 <= local_rank < local_world:
+        raise ValueError(f"rank {rank}: local rank {local_rank} of {local_world} per node "
+                         f"does not fit a world of {world_size}")
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        if devices is not None:
+            dev = canonical(devices[local_rank])
+        else:
+            cards = torch.cuda.device_count()
+            if local_world > cards:
+                raise RuntimeError(
+                    f"distributed_init: {local_world} processes on this node but "
+                    f"torch.cuda.device_count() = {cards}: data-parallel training runs "
+                    f"one process per card (--nproc_per_node {cards} at most)")
+            dev = torch.device("cuda", local_rank)
+        torch.cuda.set_device(dev)
+    import torch.distributed as dist
+
+    dist.init_process_group(backend or ("nccl" if dev.type == "cuda" else "gloo"),
+                            init_method=init_method or "env://", rank=rank,
+                            world_size=world_size)
+    _GROUPS[world_size] = dist.group.WORLD
+    _MESH = DataMesh(rank, world_size, local_rank, local_world, dev, dist.group.WORLD,
+                     world_size, True)
+    return _MESH
+
+
+def distributed_teardown() -> None:
+    """Leave the process group (a no-op in one process)."""
+    global _MESH
+    if _MESH.initialized:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+    _MESH = DataMesh()
+    _GROUPS.clear()
+
+
+def largest_divisible_device_count(batch_size: int, n_devices: int) -> int:
+    """Largest device count <= n_devices that divides batch_size: the JAX
+    CLI's data-mesh shrink (keep the user's batch, drop devices only as
+    needed)."""
+    return max(d for d in range(1, max(n_devices, 1) + 1) if batch_size % d == 0)
+
+
+def shrink_data_group(batch_size: int) -> int:
+    """The JAX CLI's data mesh for a per-node ``batch_size``: on several
+    nodes every rank, and the batch must divide by the ranks per node
+    (raises SystemExit with JAX's message); on one node the first
+    ``largest_divisible_device_count(batch_size, local_world)`` ranks,
+    which become the data group (every rank takes part in making it; the
+    others are left with no group). Returns that count."""
+    global _MESH
+    mesh = _MESH
+    if not mesh.initialized:
+        return 1
+    if mesh.nodes > 1:
+        if batch_size % mesh.local_world:
+            raise SystemExit(f"multi-host: per-host --batch_size {batch_size} must be "
+                             f"divisible by the local device count {mesh.local_world}")
+        return mesh.world
+    k = largest_divisible_device_count(batch_size, mesh.world)
+    if k not in _GROUPS:
+        import torch.distributed as dist
+
+        _GROUPS[k] = dist.new_group(list(range(k)))
+    _MESH = replace(mesh, group=_GROUPS[k] if mesh.rank < k else None, size=k)
+    return k
+
+
+def data_group():
+    """The process group data-parallel training reduces over; None in one
+    process."""
+    return _MESH.group
+
+
+def all_reduce_(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the data group, in place (no-op in one process)."""
+    if _MESH.group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(t, group=_MESH.group)
+    return t
+
+
+def gather_rows(t: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``t`` stacked in rank order, (size, *t.shape), on every
+    rank: a zero table holding this rank's ``t`` in its row, summed over
+    the group. Adding zeros is exact, so each row is that rank's ``t`` bit
+    for bit, and it takes only an all-reduce, which gloo also runs on CUDA
+    tensors. (The data group is the first ``size`` ranks, so a rank's row
+    is its rank.)"""
+    if _MESH.group is None:
+        return t[None]
+    table = torch.zeros((_MESH.size, *t.shape), dtype=t.dtype, device=t.device)
+    table[_MESH.rank] = t
+    return all_reduce_(table)
+
+
+def broadcast_object(obj):
+    """Rank 0's ``obj`` (picklable; tensors on the host) on every rank of
+    the data group (``obj`` itself in one process)."""
+    if _MESH.group is None:
+        return obj
+    import torch.distributed as dist
+
+    box = [obj]
+    dist.broadcast_object_list(box, src=0, group=_MESH.group)
+    return box[0]

@@ -14,6 +14,10 @@
   Python one. Images smaller than the patch are reflect-padded. A file that
   cannot be decoded becomes a black patch, as in the JAX package, and is
   counted in ``substituted`` (per epoch), which the training CLI prints.
+  In data-parallel training each node (a JAX host) loads an equal stripe of
+  the manifest, the remainder dropped, and each rank of a node cuts only
+  its rows of every node batch: the crops the one-process loader cuts for
+  those rows, since a crop is keyed by (seed, epoch, batch, index).
 - Transfer (``DevicePrefetcher``): a thread copies each batch from pinned
   memory to the card with ``non_blocking=True`` while the previous step
   runs.
@@ -36,6 +40,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..core.mesh import broadcast_object
 from ..utils.general import ground_up
 from ..utils.image_io import read_image_rgb
 from . import degrade
@@ -91,16 +96,36 @@ BACKENDS = ("auto", "native", "python")
 class PatchLoader:
     """Epoch-based uint8 patch loader over a manifest: iterating yields
     (B, patch, patch, 3) uint8 arrays, ``len`` full batches per epoch (one,
-    filled by cycling the samples, when there are fewer than a batch)."""
+    filled by cycling the samples, when there are fewer than a batch).
+
+    Data-parallel training: ``process_index`` of ``process_count`` nodes
+    loads the node's stripe (JAX's ``PatchLoader(process_index=,
+    process_count=)``; ``samples`` is the stripe, ``full_samples`` the
+    manifest), and ``local_rank`` of ``local_world`` ranks on the node
+    yields rows ``[local_rank * B / local_world, (local_rank + 1) * B /
+    local_world)`` of each node batch of ``batch_size`` B."""
 
     mean: Tuple[float, float, float] = IMAGENET_MEAN
     std: Tuple[float, float, float] = IMAGENET_STD
 
-    def __init__(self, manifest: str | Path | Sequence[str], config: LoaderConfig):
+    def __init__(self, manifest: str | Path | Sequence[str], config: LoaderConfig,
+                 process_index: int = 0, process_count: int = 1,
+                 local_rank: int = 0, local_world: int = 1):
         self.samples = (load_manifest(manifest) if isinstance(manifest, (str, Path))
                         else list(manifest))
         if not self.samples:
             raise ValueError("empty manifest")
+        self.full_samples = list(self.samples)
+        if process_count > 1:  # equal stripes: every node runs the same steps
+            per_node = len(self.samples) // process_count
+            if per_node == 0:
+                raise ValueError(f"manifest smaller than process_count={process_count}")
+            self.samples = self.samples[:per_node * process_count][process_index::process_count]
+        if config.batch_size % local_world:
+            raise ValueError(f"batch_size {config.batch_size} does not divide over "
+                             f"{local_world} ranks")
+        rows = config.batch_size // local_world
+        self.rows = slice(local_rank * rows, (local_rank + 1) * rows)
         self.config = config
         self.patch = ground_up(config.patch_size, max(config.scale, 1))
         self._epoch = 0
@@ -116,9 +141,11 @@ class PatchLoader:
 
     def calculate_stats(self, max_images: int = 512) -> Tuple[list, list]:
         """Dataset mean/std from running sums over up to ``max_images``
-        readable images; they replace the ImageNet defaults."""
+        readable images of the whole manifest (not the node's stripe); they
+        replace the ImageNet defaults. In data-parallel training rank 0's
+        result is every rank's (nodes may read different files)."""
         s, ss, count, skipped = np.zeros(3), np.zeros(3), 0, 0
-        for path in self.samples[:max_images]:
+        for path in self.full_samples[:max_images]:
             img = _read_rgb(path)
             if img is None:
                 skipped += 1
@@ -135,6 +162,7 @@ class PatchLoader:
             self.mean = tuple(float(v) for v in mean)
             self.std = tuple(float(v) for v in np.sqrt(np.maximum(ss / count - mean ** 2,
                                                                   1e-12)))
+        self.mean, self.std = broadcast_object((self.mean, self.std))
         return list(self.mean), list(self.std)
 
     def _load_patch(self, path: str, rng: np.random.Generator) -> np.ndarray:
@@ -146,11 +174,12 @@ class PatchLoader:
         return _random_crop(img, self.patch, rng)
 
     def _batch_indices(self, order: np.ndarray, b: int) -> np.ndarray:
+        """This rank's rows of node batch ``b``: sample indices."""
         bs = self.config.batch_size
         idx = order[b * bs:(b + 1) * bs]
         if len(idx) < bs:  # fewer samples than a batch: cycle the permutation
             idx = np.concatenate([idx, np.resize(order, bs - len(idx))])
-        return idx
+        return idx[self.rows]
 
     @property
     def backend(self) -> str:

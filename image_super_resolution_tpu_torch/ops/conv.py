@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.device import resolve_device
+from ..core.mesh import data_group, gather_rows
 from ..utils.general import autopad
 from .activations import ActSpec, PReLU, apply_act, is_prelu
 
@@ -46,6 +47,59 @@ def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
                           conv.dilation, conv.groups)
 
 
+def _channels(v: torch.Tensor) -> torch.Tensor:
+    return v[None, :, None, None]
+
+
+class GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over the global batch of data-parallel training
+    (flax's statistics over a batch sharded across the data mesh), on NCHW
+    views of CPU or CUDA tensors; returns (y, mean, invstd).
+
+    Forward: each rank's per-channel count, mean and M2 (sum of squared
+    deviations) in fp32, every rank's gathered in rank order
+    (``core.mesh.gather_rows``) and combined in that order (Chan et al.),
+    so each rank holds the same statistics bit for bit; the batch is
+    normalized with the global mean and biased variance, as flax does.
+    Backward: the two per-channel sums (dy, dy * xhat) gathered and summed
+    the same way. Each rank's loss is the mean over its own rows, so its
+    dx is the group size times its share of the global one, and the grad
+    all-reduce of ``train.state`` divides that out. The weight and bias
+    gradients stay local: that all-reduce sums them."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias):
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        n = xf.numel() // xf.shape[1]
+        mean = xf.mean((0, 2, 3))
+        m2 = (xf - _channels(mean)).square().sum((0, 2, 3))
+        table = gather_rows(torch.stack([torch.full_like(mean, n), mean, m2]))
+        count, mean, m2 = table[0].unbind(0)
+        for other in table[1:]:
+            n_b, mean_b, m2_b = other.unbind(0)
+            total = count + n_b
+            delta = mean_b - mean
+            mean = mean + delta * (n_b / total)
+            m2 = m2 + m2_b + delta.square() * (count * n_b / total)
+            count = total
+        invstd = torch.rsqrt(m2 / count + BN_EPS)
+        y = (xf - _channels(mean)) * _channels(invstd * weight) + _channels(bias)
+        ctx.save_for_backward(x, weight, mean, invstd, count)
+        ctx.mark_non_differentiable(mean, invstd)
+        return y.to(x.dtype), mean, invstd
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dinvstd):
+        x, weight, mean, invstd, count = ctx.saved_tensors
+        dy = dy.to(mean.dtype)
+        xhat = (x.to(mean.dtype) - _channels(mean)) * _channels(invstd)
+        sum_dy, sum_dy_xhat = dy.sum((0, 2, 3)), (dy * xhat).sum((0, 2, 3))
+        g_dy, g_dy_xhat = gather_rows(torch.stack([sum_dy, sum_dy_xhat])).sum(0).unbind(0)
+        dx = _channels(weight * invstd) * (dy - _channels(g_dy / count)
+                                           - xhat * _channels(g_dy_xhat / count))
+        return dx.to(x.dtype), sum_dy_xhat, sum_dy
+
+
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the channels
     of an NHWC tensor. Parameters ``weight``/``bias`` (flax ``bn/scale``,
@@ -60,6 +114,10 @@ class BatchNorm(nn.Module):
     from a step. ``torch.nn.BatchNorm2d`` would fold in the unbiased
     variance instead, at every forward (and again when a checkpointed block
     recomputes its forward in backward).
+
+    Under data-parallel training (a data group from ``core.mesh``) the
+    statistics are the global batch's (``GlobalBatchNorm``); in one process
+    the forward is ``torch.native_batch_norm``'s, unchanged.
     """
 
     def __init__(self, features: int, device="cuda"):
@@ -75,8 +133,11 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xn = x.permute(0, 3, 1, 2)
         if self.training:
-            y, mean, invstd = torch.native_batch_norm(
-                xn, self.weight, self.bias, None, None, True, 0.0, BN_EPS)
+            if data_group() is None:
+                y, mean, invstd = torch.native_batch_norm(
+                    xn, self.weight, self.bias, None, None, True, 0.0, BN_EPS)
+            else:
+                y, mean, invstd = GlobalBatchNorm.apply(xn, self.weight, self.bias)
             self.batch_stats = (mean.detach(), invstd.detach())
         else:
             y = F.batch_norm(xn, self.running_mean, self.running_var, self.weight,

@@ -25,6 +25,9 @@ package resumes the other's checkpoints, optimizer included.
   (``resume_state``; the discriminator: ``resume_discriminator``).
 - The GAN phase starts its generator from the pixel phase's EMA weights
   (``warm_start_generator``).
+- Data-parallel training gives every rank rank 0's whole state after a
+  resume or warm start: ``state_payload`` on rank 0 (every tensor in fp32
+  or its own dtype, on the host), ``load_state_payload`` on the others.
 """
 
 from __future__ import annotations
@@ -158,8 +161,8 @@ def load_checkpoint(path: str | Path) -> Dict[str, Any]:
     """The payload with fp32 trees and ``meta`` parsed."""
     p = Path(path)
     if p.is_dir() or (not p.exists() and p.with_name(p.name + ".old").is_dir()):
-        raise ValueError(f"{p} is an Orbax checkpoint directory; reading Orbax "
-                         f"comes with slice 5")
+        raise ValueError(f"{p} is an Orbax checkpoint directory; the port reads "
+                         f"msgpack checkpoints only")
     raw = msgpack_restore(p.read_bytes())
     raw["meta"] = json.loads(raw["meta"])
     for key in ("params", "batch_stats", "ema_params", "ema_batch_stats"):
@@ -254,3 +257,37 @@ def warm_start_generator(g_state: TrainState, pretrain_ckpt_path: str | Path,
     if verbose:
         print(f"loaded pre-trained generator ({matched}/{total} leaves)")
     return g_state
+
+
+def state_payload(state: TrainState) -> Dict[str, Any]:
+    """The whole in-memory state of one network, on the host and exact:
+    params and BN statistics, the EMA and its update count, Adam's moments
+    and step per param, and the step count."""
+    cpu = lambda sd: {k: t.detach().cpu() for k, t in sd.items()}  # noqa: E731
+    names = {p: k for k, p in state.model.named_parameters()}
+    out: Dict[str, Any] = {
+        "model": cpu(state.model.state_dict()), "step": int(state.step),
+        "adam": {names[p]: cpu(st) for p, st in state.optimizer.state.items()}}
+    if state.ema is not None:
+        out["ema"], out["ema_updates"] = cpu(state.ema.state_dict()), int(state.ema.updates)
+    return out
+
+
+def load_state_payload(state: TrainState, payload: Dict[str, Any]) -> None:
+    """Make ``state`` the one ``state_payload`` was taken of: the same
+    tensors bit for bit, Adam's state where that one had any and none
+    elsewhere."""
+    state.model.load_state_dict(payload["model"])
+    state.step = int(payload["step"])
+    fused = bool(state.optimizer.defaults.get("fused"))
+    state.optimizer.state.clear()
+    for name, p in state.model.named_parameters():
+        if name in payload["adam"]:
+            state.optimizer.state[p] = {
+                k: v.to(p.device if (k != "step" or fused) else "cpu")
+                for k, v in payload["adam"][name].items()}
+    if state.ema is not None:
+        with torch.no_grad():
+            for k, t in payload["ema"].items():
+                state.ema.state_dict()[k].copy_(t)
+        state.ema.updates = int(payload["ema_updates"])

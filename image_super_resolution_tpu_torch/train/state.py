@@ -14,6 +14,11 @@ One step after ``loss.backward()`` runs, in the JAX package's order:
    over the params and the BN running statistics, in fp32 (none for the
    GAN phase's discriminator, ``with_ema=False``).
 
+Under data-parallel training (a data group from ``core.mesh``), step 1
+starts with the gradients averaged over the group: one flat fp32 buffer in
+parameter order, one all-reduce, divided by the group size, so every rank
+applies the same update (JAX's gradient ``psum`` over the data mesh).
+
 Nothing here reads a value back from the device.
 """
 
@@ -26,6 +31,7 @@ from typing import Dict, List, Optional
 import torch
 from torch import nn
 
+from ..core.mesh import all_reduce_, data_group, local_mesh
 from ..ops.conv import batch_norms, commit_batch_stats
 
 EMA_DECAY = 0.9999
@@ -97,8 +103,25 @@ class TrainState:
             # fused Adam requires
             p.grad = None if g is None else g.contiguous()
 
+    def average_grads(self) -> None:
+        """Each gradient averaged over the data group (no-op in one
+        process). A param without a gradient adds zeros, so every rank's
+        buffer lines up, and keeps no gradient."""
+        if data_group() is None:
+            return
+        flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
+                          .reshape(-1).float() for p in self.params])
+        all_reduce_(flat).div_(local_mesh().size)
+        offset = 0
+        for p in self.params:
+            if p.grad is not None:
+                p.grad.copy_(flat[offset:offset + p.numel()].view_as(p.grad))
+            offset += p.numel()
+
     def clip_and_adam(self) -> None:
-        """Steps 1-3: global-norm clip, coupled L2 + Adam at this step's lr."""
+        """Steps 1-3: global-norm clip, coupled L2 + Adam at this step's lr
+        (after ``average_grads``)."""
+        self.average_grads()
         grads = [p.grad for p in self.params if p.grad is not None]
         norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         torch._foreach_mul_(grads, (CLIP_NORM / norm).clamp(max=1.0))

@@ -12,10 +12,16 @@ import numpy as np
 
 
 class MetricsLogger:
+    """``enabled=False`` makes every method a no-op: data-parallel training
+    passes True on rank 0 only, so one process writes the streams."""
+
     def __init__(self, work_dir: str | Path, run_name: str = "run",
-                 use_tensorboard: bool = True):
+                 use_tensorboard: bool = True, enabled: bool = True):
         self.work_dir = Path(work_dir)
-        self._tb = None
+        self.enabled = bool(enabled)
+        self._tb = self._jsonl = None
+        if not self.enabled:
+            return
         self.work_dir.mkdir(parents=True, exist_ok=True)
         self._jsonl = open(self.work_dir / f"{run_name}_metrics.jsonl", "a")
         if use_tensorboard:
@@ -28,6 +34,8 @@ class MetricsLogger:
                                          flush_secs=30, max_queue=200)
 
     def scalar(self, tag: str, value: float, step: int) -> None:
+        if not self.enabled:
+            return
         self._jsonl.write(json.dumps({"t": time.time(), "tag": tag, "value": float(value),
                                       "step": int(step)}) + "\n")
         if self._tb is not None:
@@ -44,11 +52,15 @@ class MetricsLogger:
             self._tb.add_images(tag, np.asarray(batch_u8), step, dataformats="NHWC")
 
     def flush(self) -> None:
+        if not self.enabled:
+            return
         self._jsonl.flush()
         if self._tb is not None:
             self._tb.flush()
 
     def close(self) -> None:
+        if not self.enabled:
+            return
         self.flush()
         self._jsonl.close()
         if self._tb is not None:

@@ -730,3 +730,58 @@ def test_rs_refuses_more_devices_than_cards(card, tmp_path):
     ):
         with pytest.raises(SystemExit, match=message):
             rs.main(base + flags)
+
+
+# ------------------------------------------------ data-parallel training --
+
+@pytest.mark.parametrize("backend,world", [("nccl", 1), ("gloo", 2)])
+def test_data_parallel_steps_on_card(card, tmp_path, backend, world):
+    """tests/torch_dist_worker.py's library-level steps (three pixel steps
+    of the BN generator x2 d2 w64, without and with remat, and one GAN
+    step; fp32, TF32 off) in ``world`` processes on the card: over NCCL at
+    world size 1 (every collective runs, through GlobalBatchNorm and the
+    gradient all-reduce), and as two ranks sharing cuda:0 over gloo (NCCL
+    refuses two ranks on one card). Against one process on the card: the
+    ranks' mean losses within 1e-5 relative and every gradient the
+    optimizers took within 1e-3 of the largest (the card's own bound
+    against the CPU, test_bn_pixel_step_on_card_matches_cpu: cuDNN sums in
+    another order at another batch); two ranks bit-equal."""
+    import torch_dist_worker as worker
+
+    spec = worker.seeded_spec(width=64)
+    torch.save(spec, tmp_path / "spec.pt")
+    (tmp_path / "out").mkdir()
+    rcs, outs = worker.Group(tmp_path, "steps", [
+        {"phase": "steps", "spec": str(tmp_path / "spec.pt"), "out": str(tmp_path / "out"),
+         "device": "cuda", "backend": backend, "shared": True}], world, world).outs()
+    assert rcs == [0] * world, outs
+    ranks = [torch.load(tmp_path / "out" / f"rank{r}.pt") for r in range(world)]
+    assert {r["device"] for r in ranks} == {"cuda:0"}
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        one = worker.run_steps(spec, slice(None), card)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+    def grads_close(got, want):
+        scale = max(float(g.abs().max()) for g in want.values())
+        for k, w in want.items():
+            assert float((got[k] - w).abs().max()) <= 1e-3 * scale, k
+
+    for key in ("pixel", "remat"):
+        np.testing.assert_allclose(np.mean([r[key]["losses"] for r in ranks], axis=0),
+                                   one["pixel"]["losses"], rtol=1e-5)
+        for got, want in zip(ranks[0][key]["grads"], one["pixel"]["grads"]):
+            grads_close(got, want)
+    for k, want in one["gan"]["losses"].items():
+        np.testing.assert_allclose(np.mean([r["gan"]["losses"][k] for r in ranks]), want,
+                                   rtol=1e-5, err_msg=k)
+    grads_close(ranks[0]["gan"]["g_grads"], one["gan"]["g_grads"])
+    grads_close(ranks[0]["gan"]["d_grads"], one["gan"]["d_grads"])
+    for other in ranks[1:]:
+        for key in ("pixel", "remat"):
+            for k, t in ranks[0][key]["model"].items():
+                assert torch.equal(t, other[key]["model"][k]), k
+        for k, t in ranks[0]["gan"]["g"].items():
+            assert torch.equal(t, other["gan"]["g"][k]), k
