@@ -156,10 +156,20 @@ Phases, each of which raises on failure:
     ...cli.train`` on this machine: on one card it must exit non-zero with
     ``distributed_init``'s message, on two or more it trains on distinct
     cards. Step times by CUDA events: one process, world size 1, two ranks
-    on one card.
+    on one card;
+17. the quality experiments: ``scripts/torch_flagship_quality_experiment.py``
+    (arms R and F, x4) and ``scripts/torch_denoise_quality_experiment.py``
+    (arms R, F and N, refine 2 x 64) through their ``run()`` at full width
+    and depth for one epoch each (240 training images, 15 steps; the cuts
+    are printed): every result finite, the bicubic baseline within
+    ``BASELINE_DB`` of the JAX package's reading, K1 counted on the R eval
+    and K2 on every ``--int8`` eval (per forward as the artifact says, and
+    nothing outside the evals), then each counted eval's first batch run
+    again under the plain versions within ``BF16_MAX_LSB`` /
+    ``INT8_CARD_MAX_LSB``; each arm's wall and ms per step printed.
 
 It prints one JSON line of per-kernel numbers (each kernel's launches
-summed over the counted runs of phases 5/6 and 9-16, and given by path),
+summed over the counted runs of phases 5/6 and 9-17, and given by path),
 the training timings and the loader's rates, the ``nvidia-smi`` line, and
 last ``{"ok": true,
 "device": {...}}``. Without CUDA, or outside a
@@ -1769,14 +1779,14 @@ EVAL_CARD_ATOL = {"psnr": 0.05, "psnr_y": 0.05, "ssim": 1e-3, "hf_ratio": 5e-3,
 
 def _per_forward(isr: Path, int8: bool = True) -> dict:
     """The kernel launches one forward of the artifact makes: K1 three per
-    RRDB of an sr artifact; K2 by variant in a fast artifact's int8 trunk
+    RRDB of an sr artifact; K2 by variant in a fast family's int8 trunk
     (none in bf16); none in any other family."""
     from image_super_resolution_tpu_torch.models.deploy import read_artifact
 
     spec, _ = read_artifact(isr)
     if spec.family == "sr":
         return {"fused_rdb": 3 * spec.depth}
-    if spec.family == "fast" and int8:
+    if spec.family in ("fast", "denoise_fast") and int8:
         return {"fp32 -> int8": spec.depth, "int8 -> fp32": spec.depth, "fp32 -> fp32": 1}
     return {"fused_rdb": 0}
 
@@ -3424,6 +3434,150 @@ def phase_dp(work: Path, manifest: Path, card: str, device: str = "cuda") -> dic
     return {"launches": launches, "step_ms": times}
 
 
+# ----------------------------------------------------------------- phase 17 --
+
+# Both quality experiments' run() at full width and depth with a cut budget:
+# one epoch per arm. The flagship keeps its 240 training images: make_dataset
+# draws the val split after the train split from one generator, so another
+# --n_train would score other val images than the JAX package's readings.
+QUALITY_FLAGSHIP = ("--arms", "R,F", "--epochs", "1")
+QUALITY_DENOISE = ("--epochs", "1", "--refine_blocks", "2", "--refine_width", "64")
+# The JAX package's bicubic PSNR-Y on that val split at x4
+# (docs/results/flagship_gan_results.json); the baseline sees no model, so
+# the port must read it to the eval protocol's resolution.
+JAX_BICUBIC_X4, BASELINE_DB = 24.7477, 0.01
+
+
+def _experiment(name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "scripts" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@contextlib.contextmanager
+def _first_eval_batches():
+    """Within: each call of the port's eval CLI keeps its first served batch
+    under the tag the experiments give that eval (the artifact's stem, and
+    ``_int8`` under ``--int8``): the model object the CLI served, its uint8
+    LR on the device and the output it produced, on the host."""
+    from unittest import mock
+
+    import torch
+
+    from image_super_resolution_tpu_torch.cli import evaluate
+    from image_super_resolution_tpu_torch.models.deploy import DeployedModel
+    from image_super_resolution_tpu_torch.models.quantized import Int8DeployedFast
+
+    firsts, current, eval_main = {}, [], evaluate.main
+
+    def counted_main(argv=None):
+        opt = evaluate.build_parser().parse_args(argv)
+        current[:] = [Path(opt.model).stem + ("_int8" if opt.int8 else "")]
+        try:
+            return eval_main(argv)
+        finally:
+            current.clear()
+
+    def keep_first(cls):
+        serve = cls.__call__
+
+        def call(self, u8_batch):
+            out = serve(self, u8_batch)
+            if current and current[0] not in firsts:
+                firsts[current[0]] = (self, torch.as_tensor(u8_batch).to(self.device),
+                                      out.cpu().numpy())
+            return out
+        return mock.patch.object(cls, "__call__", call)
+
+    with mock.patch.object(evaluate, "main", counted_main), keep_first(DeployedModel), \
+            keep_first(Int8DeployedFast):
+        yield firsts
+
+
+def phase_quality(work: Path, card: str, device: str = "cuda") -> dict:
+    """Phase 17: the flagship (arms R, F) and denoise (R, F, N) experiments
+    through their run() on the card, every result finite, the bicubic
+    baseline at JAX's reading; K1 counted on the R eval and K2 on every
+    --int8 eval (from each script's timings.json, and the run's totals set
+    to 0 before and read after), each per forward as the artifact says; the
+    first batch each counted eval served, and the output it gave there, held
+    against the same model under the plain versions. Returns the launches
+    by path."""
+    import math
+
+    from image_super_resolution_tpu_torch.models.deploy import BF16_MAX_LSB
+    from image_super_resolution_tpu_torch.models.quantized import INT8_CARD_MAX_LSB
+    from image_super_resolution_tpu_torch.ops.kernels.fused_rdb import scatter_rdb
+    from image_super_resolution_tpu_torch.ops.kernels.matmul import conv3x3_int8
+
+    runs = (("flagship", "torch_flagship_quality_experiment", QUALITY_FLAGSHIP,
+             "x4, 240 training images (15 steps), depth and width of the JAX protocol, "
+             "epochs 120 -> 1"),
+            ("denoise", "torch_denoise_quality_experiment", QUALITY_DENOISE,
+             "x1 --denoise_eval, 240 training images (15 steps), full depth and width, "
+             "epochs 120 -> 1, no W arm"))
+    counts = {}
+    for title, script, argv, cuts in runs:
+        ws = work / title
+        scatter_rdb.launches = conv3x3_int8.launches = 0
+        t0 = time.perf_counter()
+        with _first_eval_batches() as firsts:
+            results = _experiment(script).run([*argv, "--workdir", str(ws), "--device", device])
+        secs = time.perf_counter() - t0
+        totals = {"scatter_rdb": scatter_rdb.launches, "conv3x3_int8": conv3x3_int8.launches}
+        timings = json.loads((ws / "timings.json").read_text())
+        bad = [f"{tag}.{k}" for tag, res in results.items()
+               for k, v in (res.items() if isinstance(res, dict) else [("", res)])
+               if not isinstance(v, bool) and not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"quality {title}: non-finite results {bad}")
+        counted = {}
+        for arm, t in timings.items():
+            for tag, ev in t.items():
+                if tag not in results:
+                    continue
+                res = results[tag]
+                if title == "flagship" and abs(res["bicubic_psnr_y"] - JAX_BICUBIC_X4) > \
+                        BASELINE_DB:
+                    raise AssertionError(f"quality {tag}: bicubic_psnr_y {res['bicubic_psnr_y']}"
+                                         f", JAX's {JAX_BICUBIC_X4} (bound {BASELINE_DB} dB)")
+                int8 = tag.endswith("_int8")
+                isr = ws / f"{tag.removesuffix('_int8')}.isr"
+                kernel = "conv3x3_int8" if int8 else "scatter_rdb"
+                per_forward = sum(_per_forward(isr, int8).values())
+                want = per_forward * res["n_batches"] if device == "cuda" else 0
+                other = "scatter_rdb" if int8 else "conv3x3_int8"
+                if ev[kernel] != want or ev[other]:
+                    raise AssertionError(f"quality eval {tag}: launches {ev}, want {kernel} "
+                                         f"{want}")
+                _log(f"[quality] eval {tag} on {card}: {res['n_images']} images, "
+                     f"{ev['wall_s']:.3f} s wall, {kernel} {ev[kernel]} launches "
+                     f"({per_forward} per forward); psnr_y {res['psnr_y']}, "
+                     + ", ".join(f"{k} {v}" for k, v in res.items()
+                                 if k.startswith(("bicubic_psnr", "noisy_psnr"))))
+                if not per_forward:
+                    continue
+                counted[kernel] = counted.get(kernel, 0) + ev[kernel]
+                path = f"quality {title} train -> export -> evaluate {tag} (phase 17)"
+                counts[path] = (kernel.replace("scatter_rdb", "fused_rdb"), ev[kernel])
+                # the counted eval's first batch again, under the plain versions
+                model, lr, got = firsts[tag]
+                _log(f"[quality] {tag}, first eval batch {tuple(lr.shape)}: "
+                     + _against_plain(f"quality {tag}", got, lambda: model(lr).cpu().numpy(),
+                                      INT8_CARD_MAX_LSB if int8 else BF16_MAX_LSB))
+            _log(f"[quality] {title} arm {arm}: {t['wall_s']:.1f} s wall (train "
+                 f"{t['train']['wall_s']:.1f} s, {t['train']['ms_per_step']} ms per step)")
+        if totals != {k: counted.get(k, 0) for k in totals}:
+            raise AssertionError(f"quality {title}: {totals} launched in run(), "
+                                 f"{counted} in its evals")
+        _log(f"[quality] {title} run() on {card} in {secs:.1f} s; cuts: {cuts}; "
+             f"flags {' '.join(argv)}; gate {json.dumps(results.get('gate'))}")
+    return counts
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--dp-rank":  # phase 16 (b)'s ranks
         return _dp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
@@ -3468,6 +3622,9 @@ def main() -> int:
         dp = phase_dp(Path(tmp) / "dp", Path(tmp) / "train" / "data" / "train_images.json",
                       card)
         _log(f"[dp] phase 16 in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        quality = phase_quality(Path(tmp) / "quality", card)
+        _log(f"[quality] phase 17 in {time.perf_counter() - t0:.1f} s")
     # launches: every counted main-path run, by path
     k1["launches_by_path"] = {"serve sr x4 (phase 5)": k1_serve,
                               "train -> checkpoint -> serve sr x2 (phase 9)":
@@ -3488,7 +3645,7 @@ def main() -> int:
             (k2 if "int8" in path else k1)["launches_by_path"][path] = n
     k1["launches_by_path"]["two ranks train -> checkpoint -> export -> serve sr x2 "
                            "(phase 16)"] = dp["launches"]
-    for path, (kernel, n) in multi.items():
+    for path, (kernel, n) in {**multi, **quality}.items():
         if not n:
             raise AssertionError(f"{path}: {kernel} was launched no time")
         (k1 if kernel == "fused_rdb" else k2)["launches_by_path"][path] = n

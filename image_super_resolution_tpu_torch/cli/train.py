@@ -45,7 +45,8 @@ phase rank 0 draws the one-process noise stream and every other rank its
 own.
 
 ``--ckpt_backend orbax`` exits: the port reads and writes msgpack
-checkpoints only.
+checkpoints only; ``scripts/orbax_to_msgpack.py`` (run under JAX) rewrites
+a JAX Orbax checkpoint as the msgpack file ``--resume`` reads.
 """
 
 from __future__ import annotations
@@ -84,7 +85,8 @@ from ..utils.logging import MetricsLogger
 from ..utils.profiling import trace
 
 ORBAX = ("--ckpt_backend orbax is not supported: the port reads and writes msgpack "
-         "checkpoints only (--ckpt_backend msgpack)")
+         "checkpoints only (--ckpt_backend msgpack); rewrite a JAX Orbax checkpoint "
+         "directory as one with `python scripts/orbax_to_msgpack.py DIR FILE` under JAX")
 EVAL_BATCHES = 8
 IMAGE_BATCHES = 10  # hr/lr batches logged as images at the start of a run
 PROFILE_STEPS = (2, 5)  # --profile_dir traces steps [2, 5), past the first

@@ -162,7 +162,8 @@ def load_checkpoint(path: str | Path) -> Dict[str, Any]:
     p = Path(path)
     if p.is_dir() or (not p.exists() and p.with_name(p.name + ".old").is_dir()):
         raise ValueError(f"{p} is an Orbax checkpoint directory; the port reads "
-                         f"msgpack checkpoints only")
+                         f"msgpack checkpoints only: rewrite it with `python "
+                         f"scripts/orbax_to_msgpack.py DIR FILE` under JAX")
     raw = msgpack_restore(p.read_bytes())
     raw["meta"] = json.loads(raw["meta"])
     for key in ("params", "batch_stats", "ema_params", "ema_batch_stats"):

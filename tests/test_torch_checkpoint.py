@@ -1,6 +1,7 @@
 """Checkpoints and the training CLI of the port against the JAX package on
 the CPU: files written by each package resumed by the other with the
 optimizer, the per-phase epoch policies, saving over an Orbax directory,
+a JAX Orbax checkpoint resumed through ``scripts/orbax_to_msgpack.py``,
 ``cli/train --device cpu`` (phases, options, resume, the substitution
 count, the native loader, refusals) and its GAN phase (warm start, eval,
 resume with the discriminator across the packages). Tiny generators
@@ -330,10 +331,67 @@ def test_cli_trains_with_the_native_loader(tmp_path, capsys):
     (["--train_denoise", "--ckpt_backend", "orbax"], "msgpack checkpoints only"),
 ])
 def test_cli_refuses_what_is_not_ported(flags, message, tmp_path):
-    """Orbax is refused, by a message that promises nothing."""
+    """Orbax is refused, by a message that promises nothing and names the
+    script that rewrites a JAX Orbax checkpoint as msgpack."""
     with pytest.raises(SystemExit, match=message) as e:
         _cli(tmp_path, tmp_path / "missing.json", *flags)
     assert "slice" not in str(e.value)
+    assert "scripts/orbax_to_msgpack.py" in str(e.value)
+
+
+def test_orbax_checkpoint_resumes_in_the_port_through_the_bridge(tmp_path, capsys):
+    """A JAX state after one pixel step saved with the Orbax backend,
+    rewritten by scripts/orbax_to_msgpack.py: the port's training CLI
+    resumes it with --resume (epoch 1, step 1) from params, EMA, BN
+    statistics and Adam's state equal, bit for bit, to what the JAX package
+    resumes from the Orbax directory itself; then it trains on. The port
+    refuses the directory, naming the script."""
+    pytest.importorskip("orbax.checkpoint")
+    import importlib.util
+
+    from image_super_resolution_tpu.train.orbax_io import save_checkpoint_orbax
+
+    spec = importlib.util.spec_from_file_location(
+        "orbax_to_msgpack", Path(__file__).resolve().parent.parent / "scripts"
+        / "orbax_to_msgpack.py")
+    bridge = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bridge)
+
+    jm = JaxSRGenerator(depth=1, width=8, scale=2, dtype=jnp.float32)
+    jstate, _ = jax_make_pixel_train_step(2)(_jax_state(jm), jnp.asarray(_u8((2, 16, 16, 3), 0)))
+    name = "res_checkpoint_1_0.2.ckpt"
+    orbax_dir = tmp_path / "orbax" / name
+    save_checkpoint_orbax(orbax_dir, jstate, 0, (0.4, 0.5, 0.6), (0.2, 0.2, 0.2), [0.3])
+    with pytest.raises(ValueError, match="scripts/orbax_to_msgpack.py"):
+        ckpt.load_checkpoint(orbax_dir)
+    meta = bridge.main([str(orbax_dir), str(tmp_path / "w" / name)])
+    assert (meta["epoch"], meta["step"]) == (0, 1)
+
+    m = _manifest(tmp_path)
+    argv = ["--resnet", "--train_json", str(m), "--work_dir", str(tmp_path / "w"),
+            "--batch_size", "2", "--shape", "16", "--device", "cpu", "--no_tensorboard",
+            "--rs_deep", "1", "--width", "8", "--epochs", "2", "--resume"]
+    run = cli_train.Run(cli_train.build_parser().parse_args(argv))
+    assert run.resume() == 1 and run.state.step == 1 and run.state.ema.updates == 1
+
+    jresumed, jstart = jax_ckpt.resume_state(
+        _jax_state(jm), jax_ckpt.load_any_checkpoint(orbax_dir), epoch_policy="matched")
+    assert jstart == 1
+    params, stats = variables_to_jax(run.state.model.state_dict())
+    e_params, e_stats = variables_to_jax(run.state.ema.state_dict())
+    _assert_trees_close(params, jresumed.params, 0, "params")
+    _assert_trees_close(stats, jresumed.batch_stats, 0, "batch_stats")
+    _assert_trees_close(e_params, jresumed.ema.params, 0, "ema params")
+    _assert_trees_close(e_stats, jresumed.ema.batch_stats, 0, "ema batch_stats")
+    adam = ckpt.opt_state_to_jax(run.state)["1"]["0"]
+    jadam = serialization.to_state_dict(jresumed.opt_state)["1"]["0"]
+    assert int(adam["count"]) == int(jadam["count"]) == 1
+    _assert_trees_close(adam["mu"], jadam["mu"], 0, "Adam mu")
+    _assert_trees_close(adam["nu"], jadam["nu"], 0, "Adam nu")
+
+    history = cli_train.main(argv)
+    assert [h["epoch"] for h in history] == [1] and np.isfinite(history[0]["mean_loss"])
+    assert "Loaded pre-trained 54/54 model" in capsys.readouterr().out
 
 
 def test_cli_refuses_more_than_one_device(tmp_path, monkeypatch):

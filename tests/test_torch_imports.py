@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``image_super_resolution_tpu_torch``
-imports JAX, flax or the JAX package."""
+"""The port stands alone: no module of ``image_super_resolution_tpu_torch``,
+no script that runs it on the card (``chip_smoke.py``, the quality
+experiments) imports JAX, flax, the JAX package or a JAX script."""
 
 import ast
 import subprocess
@@ -10,6 +11,13 @@ import image_super_resolution_tpu_torch
 
 PKG = Path(image_super_resolution_tpu_torch.__file__).parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "image_super_resolution_tpu")
+# what runs on the card's machine, which has no JAX, besides the package
+CARD_SCRIPTS = (PKG.parent / "chip_smoke.py",
+                PKG.parent / "scripts" / "torch_flagship_quality_experiment.py",
+                PKG.parent / "scripts" / "torch_denoise_quality_experiment.py")
+# the JAX package's scripts (the port's own are torch_*)
+JAX_SCRIPTS = tuple(p.stem for p in (PKG.parent / "scripts").glob("*.py")
+                    if not p.stem.startswith("torch_"))
 
 
 def _modules():
@@ -20,12 +28,13 @@ def _modules():
 
 
 def _forbidden(name: str) -> bool:
-    return name.split(".")[0] in FORBIDDEN
+    return name.split(".")[0] in FORBIDDEN + JAX_SCRIPTS
 
 
 def test_no_jax_import_in_source():
+    assert {"flagship_quality_experiment", "denoise_quality_experiment"} <= set(JAX_SCRIPTS)
     bad = []
-    for path, _ in _modules():
+    for path in [p for p, _ in _modules()] + list(CARD_SCRIPTS):
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 bad += [f"{path}: {a.name}" for a in node.names if _forbidden(a.name)]

@@ -1,6 +1,6 @@
 """Training in the port against the JAX package on the CPU: BatchNorm, the
 initializers, the optimizer chain, and three pixel and three denoise steps
-(checkpoints and the CLI: tests/test_torch_checkpoint.py). Models are tiny
+(the Denoiser and the fast denoisers; checkpoints and the CLI: tests/test_torch_checkpoint.py). Models are tiny
 (depth 1-2, width 8) and run in fp32 on both sides unless a test says
 bf16; each tolerance is stated where it is used."""
 
@@ -13,6 +13,7 @@ import jax.numpy as jnp
 
 from image_super_resolution_tpu.models import Denoiser as JaxDenoiser
 from image_super_resolution_tpu.models import SRGenerator as JaxSRGenerator
+from image_super_resolution_tpu.models.fast import FastDenoiser as JaxFastDenoiser
 from image_super_resolution_tpu.models.fast import FastSRGenerator as JaxFastSRGenerator
 from image_super_resolution_tpu.ops.conv import ConvBlock as JaxConvBlock
 from image_super_resolution_tpu.ops.fuse import fuse_conv_bn as jax_fuse_conv_bn
@@ -27,7 +28,7 @@ from image_super_resolution_tpu_torch.interop.from_jax import (
     variables_to_jax,
 )
 from image_super_resolution_tpu_torch.models.denoiser import Denoiser
-from image_super_resolution_tpu_torch.models.fast import FastSRGenerator
+from image_super_resolution_tpu_torch.models.fast import FastDenoiser, FastSRGenerator
 from image_super_resolution_tpu_torch.models.generator import SRGenerator
 from image_super_resolution_tpu_torch.ops.conv import ConvBlock, batch_norms, commit_batch_stats
 from image_super_resolution_tpu_torch.ops.fuse import fuse_conv_bn
@@ -325,14 +326,10 @@ def test_three_pixel_steps_match_jax(family):
     _assert_states_close(state, jstate)
 
 
-def test_three_denoise_steps_match_jax():
-    """Three denoise steps (Denoiser depth 2, width 8, fp32, tau 2000) with
-    the degradation replaced by a fixed noisy image on both sides: loss,
-    params, BN statistics and EMA as in the pixel test."""
-    jm = JaxDenoiser(depth=2, width=8, dtype=jnp.float32)
-    jstate = _jax_state(jm, ema_tau=2000.0)
-    state = _port_state(Denoiser(depth=2, width=8, fused=False, device="cpu"), jstate,
-                        ema_tau=2000.0)
+def _three_denoise_steps(jstate, state):
+    """Three denoise steps on both sides with the degradation replaced by a
+    fixed noisy image: each loss within LOSS_RTOL, then the states as in
+    the pixel test."""
     rng = np.random.default_rng(9)
 
     @jax.jit
@@ -356,6 +353,34 @@ def test_three_denoise_steps_match_jax():
         loss = step(state, torch.from_numpy(u8), torch.Generator())
         np.testing.assert_allclose(float(loss), float(jloss), rtol=LOSS_RTOL)
     _assert_states_close(state, jstate)
+
+
+def test_three_denoise_steps_match_jax():
+    """Three denoise steps (Denoiser depth 2, width 8, fp32, tau 2000) with
+    the degradation replaced by a fixed noisy image on both sides: loss,
+    params, BN statistics and EMA as in the pixel test."""
+    jm = JaxDenoiser(depth=2, width=8, dtype=jnp.float32)
+    jstate = _jax_state(jm, ema_tau=2000.0)
+    state = _port_state(Denoiser(depth=2, width=8, fused=False, device="cpu"), jstate,
+                        ema_tau=2000.0)
+    _three_denoise_steps(jstate, state)
+
+
+@pytest.mark.parametrize("downshuffle,depth,refine", [(1, 2, 0), (2, 1, 2)],
+                         ids=["fullres", "refine"])
+def test_three_fast_denoise_steps_match_jax(downshuffle, depth, refine):
+    """The denoise quality experiment's fast arms take the same steps as
+    JAX's: the trunk at full resolution (its W arm, downshuffle 1) and at
+    half resolution with a refinement tail (its N arm), width 16 (the
+    refinement's too, so that each kernel has over 1,000 elements, as
+    NOISY_SHARE presumes), fp32, tau 2000, three steps as in
+    test_three_denoise_steps_match_jax."""
+    kw = dict(depth=depth, width=16, downshuffle=downshuffle, refine_blocks=refine,
+              refine_width=16)
+    jstate = _jax_state(JaxFastDenoiser(**kw, dtype=jnp.float32), ema_tau=2000.0)
+    state = _port_state(FastDenoiser(**kw, param_dtype=torch.float32, device="cpu"), jstate,
+                        ema_tau=2000.0)
+    _three_denoise_steps(jstate, state)
 
 
 def test_denoise_gradients_match_jax():
