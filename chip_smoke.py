@@ -166,10 +166,29 @@ Phases, each of which raises on failure:
     and K2 on every ``--int8`` eval (per forward as the artifact says, and
     nothing outside the evals), then each counted eval's first batch run
     again under the plain versions within ``BF16_MAX_LSB`` /
-    ``INT8_CARD_MAX_LSB``; each arm's wall and ms per step printed.
+    ``INT8_CARD_MAX_LSB``; each arm's wall and ms per step printed. Then
+    ``scripts/torch_denoise_severity_sweep.py`` over the denoise work dir
+    (light and heavy, N also in int8: K2 counted per eval) and
+    ``scripts/torch_gan_vs_pixel_experiment.py`` for one epoch per phase
+    (x2, depth 2: A, B, C through train, export and evaluate, K1 counted per
+    eval and each eval's first batch held against the plain versions);
+18. the Winograd trunk and the headline bench: phase 5's ``sr`` x4 d16 w64
+    artifact served at b256 t24 by the K1 path (bf16), ``wino_m=2`` (bf16)
+    and ``wino_m=4`` (fp32): K1 launches counted (48 per forward on the
+    first, none on the others), request ms by CUDA events and peak memory
+    for each, a 96x96 crop held against the port's CPU fp32 direct path
+    within ``BF16_MAX_LSB`` / ``WINO_BF16_MAX_LSB`` / ``WINO_FP32_MAX_LSB``,
+    both Winograd outputs against the K1 path's on the card (crop and batch)
+    within ``BF16_MAX_LSB``; a depth-2 ``wino_m=2`` model through
+    ``export_program`` -> ``load_program`` bit-equal to eager; then
+    ``cli.bench.main`` in each configuration (the default ``fast`` line
+    with the ``sr`` diagnostic, ``--int8``, ``--family sr``, ``--family
+    denoise_fast``, ``--preset denoise_fullres``) with its chains cut to 1
+    and 2: stdout exactly one JSON line with the JAX bench's keys, K1 and
+    K2 counted over each run against the forwards it makes.
 
 It prints one JSON line of per-kernel numbers (each kernel's launches
-summed over the counted runs of phases 5/6 and 9-17, and given by path),
+summed over the counted runs of phases 5/6 and 9-18, and given by path),
 the training timings and the loader's rates, the ``nvidia-smi`` line, and
 last ``{"ok": true,
 "device": {...}}``. Without CUDA, or outside a
@@ -179,6 +198,7 @@ checkout, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import re
 import shutil
@@ -3578,6 +3598,235 @@ def phase_quality(work: Path, card: str, device: str = "cuda") -> dict:
     return counts
 
 
+def _sweep_and_gan_vs_pixel(work: Path, card: str, device: str) -> dict:
+    """Phase 17's last two scripts: the severity sweep over the denoise
+    experiment's work dir (N also in int8) and the GAN-vs-pixel protocol
+    for one epoch per phase; every result finite; each eval's launches
+    against its artifact's per-forward count; the GAN-vs-pixel evals' first
+    batches again under the plain versions. Returns the launches by path."""
+    import math
+
+    from image_super_resolution_tpu_torch.models.deploy import BF16_MAX_LSB
+    from image_super_resolution_tpu_torch.ops.kernels.fused_rdb import scatter_rdb
+    from image_super_resolution_tpu_torch.ops.kernels.matmul import conv3x3_int8
+
+    def finite(title, results):
+        bad = [f"{tag}.{k}" for tag, res in results.items() for k, v in res.items()
+               if not isinstance(v, bool) and not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{title}: non-finite results {bad}")
+
+    def check(tag, isr, int8, ev, n_batches):
+        kernel, other = (("conv3x3_int8", "scatter_rdb") if int8 else
+                         ("scatter_rdb", "conv3x3_int8"))
+        want = sum(_per_forward(isr, int8).values()) * n_batches if device == "cuda" else 0
+        if ev[kernel] != want or ev[other]:
+            raise AssertionError(f"{tag}: launches {ev}, want {kernel} {want}")
+        return kernel, ev[kernel]
+
+    counts = {}
+    ws = work / "denoise"
+    scatter_rdb.launches = conv3x3_int8.launches = 0
+    t0 = time.perf_counter()
+    results = _experiment("torch_denoise_severity_sweep").run(
+        ["--workdir", str(ws), "--severities", "light,heavy", "--int8_arms", "N",
+         "--device", device])
+    secs = time.perf_counter() - t0
+    finite("severity sweep", results)
+    timings = json.loads((ws / "severity_sweep_timings.json").read_text())
+    k2 = 0
+    for key, res in results.items():
+        int8 = key.endswith("_int8")
+        kernel, n = check(key, ws / f"{key.split('@')[0]}.isr", int8, timings[key],
+                          res["n_batches"])
+        k2 += n if int8 else 0
+        _log(f"[quality] sweep {key} on {card}: psnr_y {res['psnr_y']}, noisy_psnr_y "
+             f"{res['noisy_psnr_y']}, {timings[key]['wall_s']:.3f} s, {kernel} {n}")
+    if (scatter_rdb.launches, conv3x3_int8.launches) != (0, k2):
+        raise AssertionError(f"severity sweep: {scatter_rdb.launches} K1 and "
+                             f"{conv3x3_int8.launches} K2 launches, {k2} K2 in its evals")
+    _log(f"[quality] severity sweep light,heavy (N int8) on {card} in {secs:.1f} s")
+    counts["denoise severity sweep light,heavy, N --int8 evals (phase 17)"] = (
+        "conv3x3_int8", k2)
+
+    ws = work / "gan_vs_pixel"
+    scatter_rdb.launches = conv3x3_int8.launches = 0
+    t0 = time.perf_counter()
+    with _first_eval_batches() as firsts:
+        results = _experiment("torch_gan_vs_pixel_experiment").run(
+            ["--workdir", str(ws), "--e1", "1", "--e2", "1", "--device", device])
+    secs = time.perf_counter() - t0
+    finite("GAN vs pixel", {k: v for k, v in results.items() if k != "content_loss"})
+    timings = json.loads((ws / "timings.json").read_text())
+    k1 = 0
+    for arm, t in timings.items():
+        tag = next(k for k in t if k != "train")
+        res = results[arm]
+        kernel, n = check(arm, ws / f"{tag}.isr", False, t[tag], res["n_batches"])
+        k1 += n
+        model, lr, got = firsts[tag]
+        _log(f"[quality] gan-vs-pixel {arm} on {card}: psnr_y {res['psnr_y']}, train "
+             f"{t['train']['wall_s']:.1f} s ({t['train']['epochs']} epochs), eval "
+             f"{t[tag]['wall_s']:.3f} s, {kernel} {n}; first eval batch "
+             f"{tuple(lr.shape)} "
+             + _against_plain(f"gan-vs-pixel {arm}", got, lambda: model(lr).cpu().numpy(),
+                              BF16_MAX_LSB))
+    if (scatter_rdb.launches, conv3x3_int8.launches) != (k1, 0):
+        raise AssertionError(f"GAN vs pixel: {scatter_rdb.launches} K1 launches, {k1} in "
+                             f"its evals")
+    _log(f"[quality] GAN vs pixel --e1 1 --e2 1 on {card} in {secs:.1f} s; content loss "
+         f"{json.dumps(results.get('content_loss'))}")
+    counts["GAN vs pixel x2 d2 A/B/C train -> export -> evaluate (phase 17)"] = (
+        "fused_rdb", k1)
+    return counts
+
+
+# ----------------------------------------------------------------- phase 18 --
+
+WINO_BATCH = (256, 24)  # the bench's batch and tile
+WINO_CROP = 96  # side of the crop held against the CPU's fp32 direct path
+WINO_PROGRAM = (2, (2, 24, 24))  # depth and (batch, H, W) of the exported program
+# (label, argv, sr x4 benches, fast int8 benches) of each CLI run
+BENCH_RUNS = (("default (fast, then the sr diagnostic)", (), 1, 0),
+              ("--int8", ("--int8",), 1, 1),
+              ("--family sr", ("--family", "sr"), 1, 0),
+              ("--family denoise_fast", ("--family", "denoise_fast"), 0, 0),
+              ("--preset denoise_fullres", ("--preset", "denoise_fullres"), 0, 0))
+BENCH_CHAINS = (1, 2)  # k_short, k_long: the CLI's are 1 and 6
+JAX_BENCH_KEYS = ["metric", "value", "unit", "vs_baseline"]
+
+
+def _winograd_serving(sr_isr: Path, card: str, device: str) -> dict:
+    import numpy as np
+    import torch
+
+    from image_super_resolution_tpu_torch.models.deploy import (
+        BF16_MAX_LSB, WINO_BF16_MAX_LSB, WINO_FP32_MAX_LSB, DeployedModel, export_program,
+        load_program, read_artifact)
+    from image_super_resolution_tpu_torch.ops.kernels.fused_rdb import scatter_rdb
+    from image_super_resolution_tpu_torch.utils.serialization import map_tree, to_fp32
+
+    spec, params = read_artifact(sr_isr)
+    params = map_tree(to_fp32, params)
+    b, t = WINO_BATCH
+    rng = np.random.default_rng(SEED + 18)
+    x = torch.from_numpy(rng.integers(0, 256, (b, t, t, 3), dtype=np.uint8)).to(device)
+    crop = rng.integers(0, 256, (1, WINO_CROP, WINO_CROP, 3), dtype=np.uint8)
+    cpu_ref = DeployedModel(spec, params, dtype=torch.float32, device="cpu")(crop).numpy()
+    paths = (("K1 direct bf16", 0, torch.bfloat16, BF16_MAX_LSB),
+             ("Winograd F(2,3) bf16", 2, torch.bfloat16, WINO_BF16_MAX_LSB),
+             ("Winograd F(4,3) fp32", 4, torch.float32, WINO_FP32_MAX_LSB))
+    outs, counts = {}, {}
+    for name, m, dtype, bound in paths:
+        deployed = DeployedModel(spec, params, dtype=dtype, device=device, wino_m=m)
+        torch.cuda.reset_peak_memory_stats()
+        out, _, launches, _ = _counted(scatter_rdb, lambda: deployed(x))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = 3 * spec.depth if m == 0 and device == "cuda" else 0
+        if launches != want:
+            raise AssertionError(f"{name}: fused_rdb launched {launches} times in one "
+                                 f"forward, want {want}")
+        if m == 0:
+            counts["serve sr x4 K1 beside the Winograd paths (phase 18)"] = ("fused_rdb",
+                                                                            launches)
+        if out.dtype != torch.uint8 or tuple(out.shape) != (b, 4 * t, 4 * t, 3):
+            raise AssertionError(f"{name}: bad output {out.dtype} {tuple(out.shape)}")
+        ms = _cuda_ms(lambda: deployed(x), warmup=1, iters=5)
+        got = deployed(torch.from_numpy(crop).to(device)).cpu().numpy()
+        worst, share = _lsb(got, cpu_ref)
+        if worst > bound:
+            raise AssertionError(f"{name}: {WINO_CROP}x{WINO_CROP} crop max {worst} LSB "
+                                 f"from the CPU fp32 direct path (bound {bound})")
+        outs[name] = (out.cpu().numpy(), got)
+        _log(f"[wino] {name} sr x{spec.scale} d{spec.depth} w{spec.width} b{b} t{t} on "
+             f"{card}: {ms:.3f} ms per request "
+             f"(CUDA events, 5 after 1), {b * (4 * t) ** 2 / ms / 1e3:.2f} output MPix/s, "
+             f"peak memory {peak:.2f} GiB, fused_rdb {launches} launches per forward; "
+             f"{WINO_CROP}x{WINO_CROP} crop vs CPU fp32 direct: max {worst} LSB "
+             f"(bound {bound}), {share:.4f} differ")
+        del deployed, out
+    k1_batch, k1_crop = outs["K1 direct bf16"]
+    for name, (batch_out, crop_out) in outs.items():
+        if name == "K1 direct bf16":
+            continue
+        (wb, sb), (wc, sc) = _lsb(batch_out, k1_batch), _lsb(crop_out, k1_crop)
+        if max(wb, wc) > BF16_MAX_LSB:
+            raise AssertionError(f"{name}: max {max(wb, wc)} LSB from the K1 path on the "
+                                 f"card (bound {BF16_MAX_LSB})")
+        _log(f"[wino] {name} vs the K1 path on the card: batch max {wb} LSB ({sb:.4f} "
+             f"differ), crop max {wc} ({sc:.4f}); bound {BF16_MAX_LSB}")
+
+    depth, shape = WINO_PROGRAM
+    small = dataclasses.replace(spec, depth=depth)
+    small_params = {k: v for k, v in params.items()
+                    if not k.startswith("rrdb") or int(k[4:]) < depth}
+    deployed = DeployedModel(small, small_params, dtype=torch.bfloat16, device=device,
+                             wino_m=2)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        export_program(deployed, *shape, Path(tmp) / "wino.pt2")
+        program = load_program(Path(tmp) / "wino.pt2")
+        secs = time.perf_counter() - t0
+    xs = torch.from_numpy(rng.integers(0, 256, (*shape, 3), dtype=np.uint8)).to(device)
+    before = scatter_rdb.launches
+    same = torch.equal(program(xs), deployed(xs))
+    if not same or scatter_rdb.launches != before:
+        raise AssertionError("Winograd program: not bit-equal to eager, or K1 launched")
+    _log(f"[wino] export_program sr x4 d{depth} wino_m=2 bf16 {shape} -> load_program on "
+         f"{card} in {secs:.1f} s: bit-equal to eager, no K1 launch")
+    return counts
+
+
+def _bench_runs(card: str, device: str) -> dict:
+    import functools
+    import io
+    import math
+    from unittest import mock
+
+    from image_super_resolution_tpu_torch.cli import bench as bench_cli
+    from image_super_resolution_tpu_torch.ops.kernels.fused_rdb import scatter_rdb
+    from image_super_resolution_tpu_torch.ops.kernels.matmul import conv3x3_int8
+
+    k_short, k_long = BENCH_CHAINS
+    # per bench() call: a warm call and 3 timed ones of each chain, the
+    # CUDA-event pass over the long chain, one forward counting launches
+    forwards = 4 * k_short + 4 * k_long + k_long + 1
+    counts, cut = {}, functools.partial(bench_cli.bench, k_short=k_short, k_long=k_long)
+    for label, argv, sr_benches, int8_benches in BENCH_RUNS:
+        out, err = io.StringIO(), io.StringIO()
+        scatter_rdb.launches = conv3x3_int8.launches = 0
+        t0 = time.perf_counter()
+        with mock.patch.object(bench_cli, "bench", cut), contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(err):
+            result = bench_cli.main([*argv, "--device", device])
+        secs = time.perf_counter() - t0
+        k1, k2 = scatter_rdb.launches, conv3x3_int8.launches
+        for line in err.getvalue().splitlines():
+            _log(f"[bench] {line}")
+        lines = out.getvalue().splitlines()
+        if len(lines) != 1 or json.loads(lines[0]) != result or \
+                list(result) != JAX_BENCH_KEYS or result["vs_baseline"] is not None or \
+                not math.isfinite(result["value"]):
+            raise AssertionError(f"bench {label}: stdout {out.getvalue()!r}")
+        want = (48 * forwards * sr_benches, 29 * forwards * int8_benches) \
+            if device == "cuda" else (0, 0)
+        if (k1, k2) != want:
+            raise AssertionError(f"bench {label}: K1 {k1}, K2 {k2} launches, want {want}")
+        _log(f"[bench] {label} on {card}, chains {k_short} and {k_long}, {secs:.1f} s: "
+             f"{lines[0]}; K1 {k1}, K2 {k2} launches ({forwards} forwards per bench)")
+        if k1:
+            counts[f"bench {label}: sr x4 (phase 18)"] = ("fused_rdb", k1)
+        if k2:
+            counts[f"bench {label}: fast x4 int8 (phase 18)"] = ("conv3x3_int8", k2)
+    return counts
+
+
+def phase_winograd_bench(sr_isr: Path, card: str, device: str = "cuda") -> dict:
+    """Phase 18: the Winograd serving paths beside K1's, then the bench CLI.
+    Returns the launches by path."""
+    return {**_winograd_serving(sr_isr, card, device), **_bench_runs(card, device)}
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--dp-rank":  # phase 16 (b)'s ranks
         return _dp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
@@ -3624,7 +3873,11 @@ def main() -> int:
         _log(f"[dp] phase 16 in {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         quality = phase_quality(Path(tmp) / "quality", card)
+        quality.update(_sweep_and_gan_vs_pixel(Path(tmp) / "quality", card, "cuda"))
         _log(f"[quality] phase 17 in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        wino_bench = phase_winograd_bench(sr_isr, card)
+        _log(f"[wino] phase 18 in {time.perf_counter() - t0:.1f} s")
     # launches: every counted main-path run, by path
     k1["launches_by_path"] = {"serve sr x4 (phase 5)": k1_serve,
                               "train -> checkpoint -> serve sr x2 (phase 9)":
@@ -3645,7 +3898,7 @@ def main() -> int:
             (k2 if "int8" in path else k1)["launches_by_path"][path] = n
     k1["launches_by_path"]["two ranks train -> checkpoint -> export -> serve sr x2 "
                            "(phase 16)"] = dp["launches"]
-    for path, (kernel, n) in {**multi, **quality}.items():
+    for path, (kernel, n) in {**multi, **quality, **wino_bench}.items():
         if not n:
             raise AssertionError(f"{path}: {kernel} was launched no time")
         (k1 if kernel == "fused_rdb" else k2)["launches_by_path"][path] = n

@@ -62,6 +62,13 @@ BF16_MAX_LSB = 4
 # fp32 one by the same 7 (tests/test_torch_deploy.py); one more for the
 # card.
 BF16_X2_MAX_LSB = 8
+# The same for the Winograd trunk (``wino_m``) of an sr x4 artifact at full
+# depth 16, against the fp32 direct path: bf16 F(2,3) measured on the CPU
+# at most 4 on one 96x96 input for each of weight seeds 0-2 (the direct
+# bf16 path 3-4 there; tests/test_torch_deploy.py pins seed 0), one more for
+# the card; fp32 F(4,3) at most 1 there, one more for the card.
+WINO_BF16_MAX_LSB = 5
+WINO_FP32_MAX_LSB = 2
 # The same for a fast x4 artifact at full depth 14, width 128: measured on
 # the CPU at most 2 (tests/test_torch_fast.py), one more for the card.
 FAST_BF16_MAX_LSB = 3
@@ -177,26 +184,32 @@ class DeployedModel:
     ``optimize=True`` (the default) builds the optimized graph for ``sr``
     at x2/x4 (``tail_fold`` 0 = auto: 2 for x4, 1 for x2). Artifacts store
     the standard fused layout; the transform happens here, once. On the card
-    the scatter-form RDBs need ``dtype=torch.bfloat16``. The other families
-    have no rewrite; their params are committed in ``dtype`` once, here.
+    the scatter-form RDBs need ``dtype=torch.bfloat16``. ``wino_m`` 2 or 4
+    runs the optimized graph's RDB convs as Winograd F(wino_m, 3) on any
+    device and dtype, the JAX option of that name (F(4,3) is for fp32: its
+    transforms amplify bf16 rounding); the fused kernel is then not
+    launched. The other families have no rewrite; their params are
+    committed in ``dtype`` once, here.
     """
 
     def __init__(self, spec: DeploySpec, fused_params: Mapping[str, Any],
                  dtype=torch.bfloat16, device="cuda", optimize: bool = True,
-                 tail_fold: int = 0):
+                 wino_m: int = 0, tail_fold: int = 0):
         _check_family(spec.family)
         self.spec = spec
         self.dtype = dtype
         self.device = resolve_device(device)
         self.optimized = bool(optimize and spec.family == "sr"
                               and spec.scale in (2, 4))
+        self.wino_m = wino_m if self.optimized else 0
         if self.optimized:
             tail_fold = tail_fold or (2 if spec.scale == 4 else 1)
-            params = optimize_generator_params(fused_params, tail_fold=tail_fold)
+            params = optimize_generator_params(fused_params, wino_m=wino_m,
+                                               tail_fold=tail_fold)
             model = OptimizedSRGenerator(
                 depth=spec.depth, add_rate=spec.add_rate, scale=spec.scale,
-                width=spec.width, enchant=spec.enchant, tail_fold=tail_fold,
-                dtype=dtype, device=self.device)
+                width=spec.width, enchant=spec.enchant, wino_m=wino_m,
+                tail_fold=tail_fold, dtype=dtype, device=self.device)
         else:
             params = fused_params
             model = spec.build_model(dtype, self.device)
@@ -204,14 +217,15 @@ class DeployedModel:
         self.model = model.eval()
         self._mean = tuple(float(v) for v in spec.mean)
         self._std = tuple(float(v) for v in spec.std)
-        self._build = (fused_params, optimize, tail_fold)
+        self._build = (fused_params, optimize, wino_m, tail_fold)
 
     def replica(self, device) -> "DeployedModel":
         """The same model on ``device``, built from the same fused params
-        (the serving paths over several devices hold one per device)."""
-        fused_params, optimize, tail_fold = self._build
+        and options (the serving paths over several devices hold one per
+        device)."""
+        fused_params, optimize, wino_m, tail_fold = self._build
         return DeployedModel(self.spec, fused_params, self.dtype, device, optimize,
-                             tail_fold)
+                             wino_m, tail_fold)
 
     @torch.inference_mode()
     def __call__(self, u8_batch) -> torch.Tensor:
@@ -246,10 +260,13 @@ def export_program(deployed: DeployedModel, batch: int, height: int, width: int,
     constrained to multiples of the factor, as JAX constrains them: the
     edge pad of other sizes is shape arithmetic an export cannot keep
     symbolic. The ``denoise`` family's H and W are even: its stride-2 trunk
-    comes back through a x2 pixel shuffle onto the full-size skip. Load
-    with ``load_program``.
+    comes back through a x2 pixel shuffle onto the full-size skip. A
+    Winograd model's (``wino_m``) are multiples of ``wino_m``: the program
+    keeps the tiling of the size it was traced at. Load with
+    ``load_program``.
     """
     f = 2 if deployed.spec.family == "denoise" else deployed.spec.downshuffle or 1
+    f = deployed.wino_m or f
     dynamic = None
     if polymorphic:
         Dim = torch.export.Dim

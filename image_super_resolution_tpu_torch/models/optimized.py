@@ -3,7 +3,8 @@ package's ``models/optimized.py``): an exact rewrite of the fused
 ``SRGenerator`` up to float reassociation.
 
 1. every RDB in scatter form (ops/scatter.py), computed on the card by the
-   fused kernel ``ops/kernels/fused_rdb.py``;
+   fused kernel ``ops/kernels/fused_rdb.py``, or, with ``wino_m`` 2 or 4,
+   through Winograd F(wino_m, 3) convs (ops/winograd.py);
 2. the 9x9 HR tail conv folded through the final pixel shuffle
    (``tail_fold=1``: 5x5 conv, 12 outputs) or through both shuffles of a x4
    generator (``tail_fold=2``: 6x6 stride-2 conv, padding 2, 48 outputs).
@@ -20,7 +21,7 @@ import torch
 from torch import nn
 
 from ..core.device import resolve_device
-from ..ops.activations import apply_act
+from ..ops.activations import apply_act, dtype_scalar
 from ..ops.blocks import Upsampler
 from ..ops.conv import ConvBlock, conv_nhwc
 from ..ops.fold_tail import fold_tail_params, fold_tail_params_x4
@@ -29,16 +30,18 @@ from ..ops.scatter import ScatterRDB, rdb_params_to_scatter
 
 
 class ScatterRRDB(nn.Module):
-    """3 x ScatterRDB with the RRDB residual scale-add."""
+    """3 x ScatterRDB with the RRDB residual scale-add. With ``wino_m`` the
+    rate is rounded to the activations' dtype first, as the JAX module
+    scales by it."""
 
-    def __init__(self, features: int = 64, add_rate: float = 0.2,
+    def __init__(self, features: int = 64, add_rate: float = 0.2, wino_m: int = 0,
                  dtype=torch.bfloat16, device="cuda"):
         super().__init__()
-        self.add_rate = add_rate
+        self.add_rate = dtype_scalar(add_rate, dtype) if wino_m else add_rate
         for j in range(3):
             self.add_module(f"rdb{j}", ScatterRDB(
-                features, ("leaky_relu", 0.01), add_rate, dtype=dtype,
-                device=device))
+                features, ("leaky_relu", 0.01), add_rate, wino_m=wino_m,
+                dtype=dtype, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.rdb2(self.rdb1(self.rdb0(x)))
@@ -76,8 +79,8 @@ class OptimizedSRGenerator(nn.Module):
     fp32 NHWC in [-1, 1] out."""
 
     def __init__(self, depth: int = 16, add_rate: float = 0.2, scale: int = 2,
-                 width: int = 64, enchant: bool = False, tail_fold: int = 1,
-                 dtype=torch.bfloat16, device="cuda"):
+                 width: int = 64, enchant: bool = False, wino_m: int = 0,
+                 tail_fold: int = 1, dtype=torch.bfloat16, device="cuda"):
         super().__init__()
         if scale not in (2, 4):
             raise ValueError("optimized generator supports scale 2 or 4")
@@ -92,7 +95,7 @@ class OptimizedSRGenerator(nn.Module):
         head_act = ("leaky_relu", 0.01 if enchant else 0.2)
         self.head = ConvBlock(3, width, 9, act=head_act, **kw)
         for i in range(depth):
-            self.add_module(f"rrdb{i}", ScatterRRDB(width, add_rate, **kw))
+            self.add_module(f"rrdb{i}", ScatterRRDB(width, add_rate, wino_m, **kw))
         self.trunk_conv = ConvBlock(width, width, 3, act=None, **kw)
         # all but the last x2 stage run in full (conv -> d2s -> act)
         self.n_full = scale // 2 - 1
@@ -119,15 +122,16 @@ class OptimizedSRGenerator(nn.Module):
         return pixel_shuffle(self.tail_folded(x), 2).float()
 
 
-def optimize_generator_params(fused: Dict[str, Any],
+def optimize_generator_params(fused: Dict[str, Any], wino_m: int = 0,
                               tail_fold: int = 1) -> Dict[str, Any]:
     """Fused standard SRGenerator params -> OptimizedSRGenerator params
-    (flax trees of numpy arrays)."""
+    (flax trees of numpy arrays; the RDB kernels in the Winograd domain when
+    ``wino_m`` is 2 or 4)."""
     out: Dict[str, Any] = {}
     for name, node in fused.items():
         if name.startswith("rrdb"):
             out[name] = {
-                rdb_name: rdb_params_to_scatter(rdb_node)
+                rdb_name: rdb_params_to_scatter(rdb_node, wino_m)
                 for rdb_name, rdb_node in node.items()
             }
         elif name == "tail":

@@ -13,6 +13,13 @@ largest single tensor's share, the port-JAX gap on the same scale, and the
 three losses' relative gaps. An order-of-sum difference puts both fp32
 sides about equally far from float64, spread over the tensors; a defect in
 one side puts that side far off, on a few tensors.
+
+Then the same in bf16 for the denoise experiment's W configuration (the
+fast denoiser with its trunk at full resolution, depth 2, width 16, as
+``test_three_fast_denoise_steps_match_bf16_jax``), where the CLIs train:
+each bf16 side (fp32 params, bf16 compute) against the float64 port, the
+share of step-1 gradient elements whose sign differs from float64 (an
+Adam update that may part by up to 2 lr), and the port-JAX gaps.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from image_super_resolution_tpu.data.transforms import to_tanh as jax_to_tanh
 from image_super_resolution_tpu.losses import mse_loss as jax_mse_loss
 from image_super_resolution_tpu.models import Denoiser as JaxDenoiser
 from image_super_resolution_tpu.models import SRGenerator as JaxSRGenerator
+from image_super_resolution_tpu.models.fast import FastDenoiser as JaxFastDenoiser
 from image_super_resolution_tpu.models.fast import FastSRGenerator as JaxFastSRGenerator
 from image_super_resolution_tpu.train.state import build_optimizer, create_train_state
 from image_super_resolution_tpu.train.steps import _apply_train
@@ -36,7 +44,7 @@ from image_super_resolution_tpu_torch.data.pipeline import make_sr_batch_fn
 from image_super_resolution_tpu_torch.data.transforms import normalize, to_tanh
 from image_super_resolution_tpu_torch.interop.from_jax import params_from_jax, variables_from_jax
 from image_super_resolution_tpu_torch.models.denoiser import Denoiser
-from image_super_resolution_tpu_torch.models.fast import FastSRGenerator
+from image_super_resolution_tpu_torch.models.fast import FastDenoiser, FastSRGenerator
 from image_super_resolution_tpu_torch.models.generator import SRGenerator
 from image_super_resolution_tpu_torch.train.state import TrainState
 
@@ -139,7 +147,64 @@ def main() -> None:
               + ", ".join(f"{r:.3e}" for r in rel) + " relative")
 
 
-def _report_grads(name, g32, g64, g_jax) -> None:
+def bf16_w_case() -> None:
+    """The W configuration in bf16 (module docstring)."""
+    kw = dict(depth=2, width=16, downshuffle=1, refine_blocks=0, refine_width=16)
+    tx = build_optimizer(lr=1e-3, total_steps=30)
+    jstate = create_train_state(JaxFastDenoiser(**kw, dtype=jnp.bfloat16), (1, 16, 16, 3), tx,
+                                jax.random.PRNGKey(0), ema_tau=2000.0)
+    sd = variables_from_jax(_np(jstate.params), _np(jstate.batch_stats))
+    models = []
+    for _ in range(2):
+        model = FastDenoiser(**kw, dtype=torch.bfloat16, param_dtype=torch.float32,
+                             device="cpu")
+        model.load_state_dict(sd)
+        models.append(model.train())
+    m64, out64 = _port_model(models[1], torch.float64)
+    # (model, its output as the loss sees it, compute dtype, state) per side
+    ports = {key: (m, out, dt, TrainState(m, lr=1e-3, total_steps=30, ema_tau=2000.0))
+             for key, m, out, dt in (("port", models[0], lambda y: y, torch.bfloat16),
+                                     ("f64", m64, lambda y: out64(), torch.float64))}
+    denoise_batches = next(_cases())[3]
+    losses = {"port": [], "jax": [], "f64": []}
+    for i in range(3):
+        lr, hr = denoise_batches(i)
+
+        def jloss(params, s=jstate):
+            out, stats = _apply_train(s, params, jnp.asarray(lr))
+            return jax_mse_loss(out, jnp.asarray(hr)), stats
+
+        (l_jax, stats), g_jax = jax.value_and_grad(jloss, has_aux=True)(jstate.params)
+        losses["jax"].append(float(l_jax))
+        grads = {}
+        for key, (model, out, dt, state) in ports.items():
+            loss = _mse(out(model(torch.from_numpy(lr).to(dt))), hr)
+            loss.backward()
+            losses[key].append(float(loss))
+            grads[key] = {k: p.grad.double().clone() for k, p in model.named_parameters()}
+            state.clip_and_adam()
+            state.commit_and_ema()
+        if i == 0:
+            g_j = {k: v.double() for k, v in params_from_jax(_np(g_jax)).items()}
+            _report_grads("fast denoise W d2 w16 (full resolution), bf16", grads["port"],
+                          grads["f64"], g_j, "bf16")
+            for side, g in (("port bf16", grads["port"]), ("JAX bf16 ", g_j)):
+                flips = sum(int((torch.sign(g[k]) != torch.sign(grads["f64"][k])).sum())
+                            for k in g)
+                n = sum(v.numel() for v in g.values())
+                print(f"  {side} vs float64: gradient signs differ on {flips} of {n} "
+                      f"elements ({flips / n:.3e})")
+        jstate = jstate.apply_gradients(g_jax, stats)
+    for key in ("port", "jax"):
+        rel = [abs(a - b) / b for a, b in zip(losses[key], losses["f64"])]
+        print(f"  {key} bf16 loss vs float64, steps 1-3: "
+              + ", ".join(f"{r:.3e}" for r in rel) + " relative")
+    rel = [abs(a - b) / b for a, b in zip(losses["port"], losses["jax"])]
+    print("  port vs JAX bf16 loss, steps 1-3:   "
+          + ", ".join(f"{r:.3e}" for r in rel) + " relative")
+
+
+def _report_grads(name, g32, g64, g_jax, kind="fp32") -> None:
     scale = max(float(g.abs().max()) for g in g64.values())
 
     def worst(g):
@@ -148,13 +213,14 @@ def _report_grads(name, g32, g64, g_jax) -> None:
         return errs[k] / scale, k, sorted(errs.values())[len(errs) // 2] / scale
 
     print(f"== {name}: {len(g64)} tensors, largest float64 gradient {scale:.4g}")
-    for side, g in (("port fp32", g32), ("JAX fp32 ", g_jax)):
+    for side, g in ((f"port {kind}", g32), (f"JAX {kind} ", g_jax)):
         w, k, med = worst(g)
         print(f"  {side} vs float64: gradients max {w:.3e} of the largest ({k}), "
               f"median tensor {med:.3e}")
     gap = max(float((g32[k] - g_jax[k]).abs().max()) for k in g64) / scale
-    print(f"  port vs JAX fp32:   gradients max {gap:.3e} of the largest")
+    print(f"  port vs JAX {kind}:   gradients max {gap:.3e} of the largest")
 
 
 if __name__ == "__main__":
     main()
+    bf16_w_case()

@@ -33,6 +33,7 @@ from image_super_resolution_tpu_torch.train import checkpoint as ckpt
 from image_super_resolution_tpu_torch.train.state import TrainState
 from image_super_resolution_tpu_torch.train.steps import make_pixel_train_step
 from image_super_resolution_tpu_torch.utils.png import write_png
+import torch_threads  # noqa: F401  (shares the CPU cores among the test workers)
 
 # As in tests/test_torch_train.py: one fp32 step from the same checkpoint,
 # losses within 1e-6 relative (a first step's loss is one forward of the

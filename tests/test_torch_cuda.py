@@ -96,6 +96,31 @@ def test_deployed_model_on_card_launches_three_per_rrdb(card):
     assert diff.max().item() <= BF16_MAX_LSB
 
 
+@pytest.mark.parametrize("m,dtype", [(2, torch.bfloat16), (4, torch.float32)])
+def test_winograd_deployment_on_card_launches_no_k1(card, m, dtype, monkeypatch):
+    """``wino_m`` on the card (F(2,3) in bf16, F(4,3) in fp32): no K1 launch;
+    within WINO_BF16_MAX_LSB / WINO_FP32_MAX_LSB of the port's fp32 direct
+    CPU path, and within 1 LSB of the same Winograd graph on the CPU (the
+    card's bf16 products keep fp32 sums through ``bmm``'s ``out_dtype``)."""
+    from image_super_resolution_tpu_torch.models.deploy import (WINO_BF16_MAX_LSB,
+                                                                WINO_FP32_MAX_LSB)
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    spec = DeploySpec(family="sr", depth=2, width=64, scale=4)
+    params = init_fused_params(spec, seed=3)
+    x = np.random.default_rng(3).integers(0, 256, (2, 24, 20, 3), dtype=np.uint8)
+    before = k1.scatter_rdb.launches
+    got = DeployedModel(spec, params, dtype=dtype, device="cuda", wino_m=m)(x).cpu().int()
+    assert k1.scatter_rdb.launches == before
+    direct = DeployedModel(spec, params, dtype=torch.float32, device="cpu")(x).int()
+    same = DeployedModel(spec, params, dtype=dtype, device="cpu", wino_m=m)(x).int()
+    bound = WINO_BF16_MAX_LSB if m == 2 else WINO_FP32_MAX_LSB
+    assert got.shape == (2, 96, 80, 3)
+    assert (got - direct).abs().max().item() <= bound
+    assert (got - same).abs().max().item() <= 1
+
+
 # --------------------------------------------------------------- K2 (matmul) --
 
 from image_super_resolution_tpu_torch.ops.kernels import matmul as k2  # noqa: E402

@@ -31,6 +31,7 @@ from image_super_resolution_tpu_torch.data.pipeline import (
 )
 from image_super_resolution_tpu_torch.utils.general import ground_up, intersect_trees
 from image_super_resolution_tpu_torch.utils.png import write_png
+import torch_threads  # noqa: F401  (shares the CPU cores among the test workers)
 
 
 def _x01(shape, seed=0):

@@ -35,6 +35,7 @@ from image_super_resolution_tpu_torch.models.deploy import (
 from image_super_resolution_tpu_torch.ops.activations import PReLU
 from image_super_resolution_tpu_torch.ops.conv import ConvBlock
 from image_super_resolution_tpu_torch.train.checkpoint import load_checkpoint
+import torch_threads  # noqa: F401  (shares the CPU cores among the test workers)
 
 # fp32 forwards: the same convs in another library, so sums differ in
 # order only (as tests/test_torch_models.py): rtol/atol 1e-4.

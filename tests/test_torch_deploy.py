@@ -32,6 +32,7 @@ from image_super_resolution_tpu_torch.models.deploy import (
     read_artifact,
     save_artifact,
 )
+import torch_threads  # noqa: F401  (shares the CPU cores among the test workers)
 
 
 def _jax_spec(spec):
@@ -342,7 +343,19 @@ def test_rs_cli_refuses_unported_flags(flag, engine, small, tmp_path):
     np.testing.assert_array_equal(got, want)
 
 
-def test_sr_x4_bf16_drift_matches_jax():
+@pytest.fixture(scope="module")
+def x4_d16_96():
+    """sr x4 at full depth 16, width 64 (weight seed 0) on one 96x96 input:
+    the params, the input, and the port's fp32 and bf16 outputs."""
+    spec = DeploySpec(family="sr", depth=16, width=64, scale=4)
+    params = init_fused_params(spec, seed=0)
+    x = _u8((1, 96, 96, 3), 2)
+    f32, b16 = (DeployedModel(spec, params, dtype=dt, device="cpu")(x).numpy().astype(int)
+                for dt in (torch.float32, torch.bfloat16))
+    return spec, params, x, f32, b16
+
+
+def test_sr_x4_bf16_drift_matches_jax(x4_d16_96):
     """sr x4 at full depth 16, width 64 on one 96x96 input: the port's bf16
     drift from its fp32 path is within 1 LSB of the JAX package's bf16
     drift from its fp32 graph, and the two fp32 paths agree within 1 LSB.
@@ -350,11 +363,7 @@ def test_sr_x4_bf16_drift_matches_jax():
     (on other inputs of weight seeds 0-2 JAX reaches 4): bf16 in this
     model reaches BF16_MAX_LSB by itself, which leaves the card no
     headroom."""
-    spec = DeploySpec(family="sr", depth=16, width=64, scale=4)
-    params = init_fused_params(spec, seed=0)
-    x = _u8((1, 96, 96, 3), 2)
-    f32 = DeployedModel(spec, params, dtype=torch.float32, device="cpu")(x).numpy().astype(int)
-    b16 = DeployedModel(spec, params, dtype=torch.bfloat16, device="cpu")(x).numpy().astype(int)
+    spec, params, x, f32, b16 = x4_d16_96
     jspec = JaxDeploySpec(family="sr", depth=16, width=64, scale=4)
     jp = jax.tree_util.tree_map(jnp.asarray, params)
     j32, j16 = (np.asarray(JaxDeployedModel(jspec, jp, dtype=dt)(jnp.asarray(x))).astype(int)
@@ -362,6 +371,22 @@ def test_sr_x4_bf16_drift_matches_jax():
     ours, theirs = np.abs(f32 - b16).max(), np.abs(j32 - j16).max()
     assert np.abs(f32 - j32).max() <= 1
     assert abs(int(ours) - int(theirs)) <= 1 and ours <= BF16_MAX_LSB
+
+
+def test_sr_x4_winograd_full_depth_bound(x4_d16_96):
+    """The Winograd trunk (``wino_m``) at full depth on the same input,
+    against the fp32 direct path: bf16 F(2,3) within WINO_BF16_MAX_LSB - 1
+    (measured 4 here, 3-4 over weight seeds 0-2, where the direct bf16 path
+    reads 3-4), fp32 F(4,3) within WINO_FP32_MAX_LSB - 1 (measured 1); the
+    one LSB left is the card's."""
+    from image_super_resolution_tpu_torch.models.deploy import (WINO_BF16_MAX_LSB,
+                                                                WINO_FP32_MAX_LSB)
+
+    spec, params, x, f32, _ = x4_d16_96
+    for m, dtype, bound in ((2, torch.bfloat16, WINO_BF16_MAX_LSB),
+                            (4, torch.float32, WINO_FP32_MAX_LSB)):
+        got = DeployedModel(spec, params, dtype=dtype, device="cpu", wino_m=m)(x)
+        assert np.abs(got.numpy().astype(int) - f32).max() <= bound - 1, m
 
 
 def test_sr_x2_bf16_drift_matches_jax():

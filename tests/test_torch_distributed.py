@@ -64,6 +64,7 @@ from image_super_resolution_tpu_torch.utils.logging import MetricsLogger
 from image_super_resolution_tpu_torch.utils.png import write_png
 
 import torch_dist_worker
+import torch_threads  # noqa: F401  (shares the CPU cores among the test workers)
 
 Group = torch_dist_worker.Group
 

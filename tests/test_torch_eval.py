@@ -27,6 +27,7 @@ from image_super_resolution_tpu_torch.models.deploy import (
 )
 from image_super_resolution_tpu_torch.utils import metrics
 from image_super_resolution_tpu_torch.utils.png import write_png
+import torch_threads  # noqa: F401  (shares the CPU cores among the test workers)
 
 
 def _pair(seed=0, shape=(3, 40, 36, 3)):

@@ -32,6 +32,7 @@ from image_super_resolution_tpu_torch.train.state import TrainState
 from image_super_resolution_tpu_torch.train.steps import make_pixel_train_step
 from image_super_resolution_tpu_torch.utils.general import flatten_tree
 from image_super_resolution_tpu_torch.utils.png import write_png
+import torch_threads  # noqa: F401  (shares the CPU cores among the test workers)
 
 MEAN, STD = (0.45, 0.44, 0.40), (0.23, 0.22, 0.21)
 
@@ -80,16 +81,30 @@ def _gan_checkpoint(tmp_path):
     return tmp_path / "gen_checkpoint_2_0.2.ckpt"
 
 
+@pytest.fixture(scope="module")
+def checkpoint(tmp_path_factory):
+    """``checkpoint(source)``: the JAX, port or port GAN checkpoint, each
+    made once for the module (the tests read them and write elsewhere)."""
+    made, makers = {}, {"jax": _jax_checkpoint, "port": _port_checkpoint,
+                        "port gan": _gan_checkpoint}
+
+    def get(source):
+        if source not in made:
+            made[source] = makers[source](tmp_path_factory.mktemp(source.replace(" ", "_")))
+        return made[source]
+
+    return get
+
+
 @pytest.mark.parametrize("no_ema", [False, True])
 @pytest.mark.parametrize("source", ["jax", "port", "port gan"])
-def test_export_matches_jax_export(source, no_ema, tmp_path):
+def test_export_matches_jax_export(source, no_ema, checkpoint, tmp_path):
     """Both CLIs export the same checkpoint with the same flags (depth and
     width read from it): the same spec (the checkpoint's mean/std baked in)
     and fp16 params equal bit for bit (EMA or, with --no_ema, raw weights,
     BN folded in the same fp32 order); JAX's load_artifact serves the
     port's file within 1 LSB of the port's own fp32 serving."""
-    path = {"jax": _jax_checkpoint, "port": _port_checkpoint,
-            "port gan": _gan_checkpoint}[source](tmp_path)
+    path = checkpoint(source)
     flags = ["--checkpoint", str(path), "--scale", "2"] + (["--no_ema"] if no_ema else [])
     ours, theirs = tmp_path / "port.isr", tmp_path / "jax.isr"
     export.main(flags + ["--out", str(ours), "--device", "cpu"])
@@ -110,11 +125,11 @@ def test_export_matches_jax_export(source, no_ema, tmp_path):
     assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
 
 
-def test_export_no_ema_differs_and_smoke_serves(tmp_path, capsys):
+def test_export_no_ema_differs_and_smoke_serves(checkpoint, tmp_path, capsys):
     """--no_ema exports other weights than the default; --smoke serves the
     written file on the chosen device and prints its timing line; the
     parameter count line counts the fused params."""
-    path = _port_checkpoint(tmp_path)
+    path = checkpoint("port")
     export.main(["--checkpoint", str(path), "--out", str(tmp_path / "a.isr"),
                  "--device", "cpu", "--smoke"])
     out = capsys.readouterr().out
@@ -129,7 +144,7 @@ def test_export_no_ema_differs_and_smoke_serves(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flag", ["--torch_state_dict", "--torch_discriminator", "--stablehlo"])
-def test_export_writes_the_other_formats(flag, tmp_path):
+def test_export_writes_the_other_formats(flag, checkpoint, tmp_path):
     """--torch_state_dict and --torch_discriminator write the JAX export's
     file from the same checkpoint (a GAN checkpoint for D): the same keys
     in order, fp32 values bit for bit, the same meta. --stablehlo writes a
@@ -137,7 +152,7 @@ def test_export_writes_the_other_formats(flag, tmp_path):
     bit, and --hlo_dynamic one that serves another shape too."""
     from image_super_resolution_tpu_torch.models.deploy import build_deployed, load_program
 
-    path = _gan_checkpoint(tmp_path) if flag == "--torch_discriminator" else _port_checkpoint(tmp_path)
+    path = checkpoint("port gan" if flag == "--torch_discriminator" else "port")
     ours, theirs = tmp_path / "ours.pt", tmp_path / "theirs.pt"
     flags = ["--checkpoint", str(path), "--scale", "2", "--out", str(tmp_path / "m.isr")]
     if flag == "--stablehlo":
@@ -173,8 +188,8 @@ def test_export_refuses_formats_of_a_later_slice(flag, tmp_path):
                      str(tmp_path / "x"), "--device", "cpu", *family])
 
 
-def test_export_checks_downshuffle_like_jax(tmp_path):
-    path = _port_checkpoint(tmp_path)
+def test_export_checks_downshuffle_like_jax(checkpoint):
+    path = checkpoint("port")
     for flags in (["--downshuffle", "2"], ["--family", "denoise_fast", "--downshuffle", "0"]):
         with pytest.raises(SystemExit, match="downshuffle"):
             export.main(["--checkpoint", str(path), "--device", "cpu", *flags])

@@ -30,6 +30,7 @@ from image_super_resolution_tpu_torch.models.deploy import (
 )
 from image_super_resolution_tpu_torch.models.fast import FastSRGenerator
 from image_super_resolution_tpu_torch.models.quantized import fast_forward
+import torch_threads  # noqa: F401  (shares the CPU cores among the test workers)
 
 # name: (depth, width, scale, downshuffle, refine_blocks, refine_width, input HW)
 CONFIGS = {

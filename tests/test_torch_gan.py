@@ -51,6 +51,7 @@ from image_super_resolution_tpu_torch.train.steps import (
     make_gan_train_step,
 )
 from image_super_resolution_tpu_torch.utils import metrics
+import torch_threads  # noqa: F401  (shares the CPU cores among the test workers)
 
 # fp32 forwards of the same convs summed in another order: within FWD_ATOL
 # (+ FWD_RTOL relative). The GAN steps are held as the pixel steps of

@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``image_super_resolution_tpu_torch``,
 no script that runs it on the card (``chip_smoke.py``, the quality
-experiments) imports JAX, flax, the JAX package or a JAX script."""
+experiments, the severity sweep, GAN vs pixel) imports JAX, flax, the JAX package or a JAX script."""
 
 import ast
 import subprocess
@@ -14,7 +14,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "image_super_resolution_tpu")
 # what runs on the card's machine, which has no JAX, besides the package
 CARD_SCRIPTS = (PKG.parent / "chip_smoke.py",
                 PKG.parent / "scripts" / "torch_flagship_quality_experiment.py",
-                PKG.parent / "scripts" / "torch_denoise_quality_experiment.py")
+                PKG.parent / "scripts" / "torch_denoise_quality_experiment.py",
+                PKG.parent / "scripts" / "torch_denoise_severity_sweep.py",
+                PKG.parent / "scripts" / "torch_gan_vs_pixel_experiment.py")
 # the JAX package's scripts (the port's own are torch_*)
 JAX_SCRIPTS = tuple(p.stem for p in (PKG.parent / "scripts").glob("*.py")
                     if not p.stem.startswith("torch_"))

@@ -48,6 +48,7 @@ from image_super_resolution_tpu_torch.models.generator import SRGenerator
 from image_super_resolution_tpu_torch.ops.kernels import fused_rdb as k1
 from image_super_resolution_tpu_torch.ops.scatter import rdb_params_to_scatter
 from image_super_resolution_tpu_torch.utils.general import flatten_tree
+import torch_threads  # noqa: F401  (shares the CPU cores among the test workers)
 
 _spec = importlib.util.spec_from_file_location(
     "reference_layout", Path(__file__).with_name("test_torch_reference_layout.py"))

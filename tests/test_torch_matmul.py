@@ -33,6 +33,7 @@ from image_super_resolution_tpu_torch.ops.kernels.matmul import (
     requantize,
     weights_k_major,
 )
+import torch_threads  # noqa: F401  (shares the CPU cores among the test workers)
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -38,6 +38,7 @@ from image_super_resolution_tpu_torch.ops.fold_tail import (
     fold_tail_params_x4,
 )
 from image_super_resolution_tpu_torch.ops.scatter import ScatterRDB
+import torch_threads  # noqa: F401  (shares the CPU cores among the test workers)
 
 WIDTH = 64
 

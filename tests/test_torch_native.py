@@ -28,6 +28,7 @@ from image_super_resolution_tpu.data.pipeline import (
 )
 from image_super_resolution_tpu_torch import native
 from image_super_resolution_tpu_torch.data.pipeline import LoaderConfig, PatchLoader
+import torch_threads  # noqa: F401  (shares the CPU cores among the test workers)
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -23,6 +23,7 @@ from image_super_resolution_tpu_torch.ops.pixel_shuffle import (
     pixel_shuffle,
     pixel_unshuffle,
 )
+import torch_threads  # noqa: F401  (shares the CPU cores among the test workers)
 
 
 def test_tanh_to_uint8_bit_exact_with_ties():

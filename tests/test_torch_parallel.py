@@ -59,6 +59,7 @@ from image_super_resolution_tpu_torch.parallel.tensor import (
     tp_fast_param_specs,
 )
 from image_super_resolution_tpu_torch.utils.png import read_png, write_png
+import torch_threads  # noqa: F401  (shares the CPU cores among the test workers)
 
 CPU = torch.device("cpu")
 

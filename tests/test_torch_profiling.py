@@ -22,6 +22,7 @@ from image_super_resolution_tpu_torch.models.deploy import (
 from image_super_resolution_tpu_torch.utils import profiling
 from image_super_resolution_tpu_torch.utils.logging import MetricsLogger
 from image_super_resolution_tpu_torch.utils.png import write_png
+import torch_threads  # noqa: F401  (shares the CPU cores among the test workers)
 
 
 def _traces(logdir):

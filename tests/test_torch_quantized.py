@@ -31,6 +31,7 @@ from image_super_resolution_tpu_torch.models.deploy import (
     init_fused_params,
     save_artifact,
 )
+import torch_threads  # noqa: F401  (shares the CPU cores among the test workers)
 
 DEPTH, WIDTH = 2, 128
 CASES = {

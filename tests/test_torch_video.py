@@ -28,6 +28,7 @@ from image_super_resolution_tpu_torch.models.deploy import (
 from image_super_resolution_tpu_torch.video import reader as reader_mod
 from image_super_resolution_tpu_torch.video import recorder
 from image_super_resolution_tpu_torch.video.reader import VideoSource
+import torch_threads  # noqa: F401  (shares the CPU cores among the test workers)
 
 
 def _write_clip(path, n_frames=10, w=64, h=48, fps=10):
