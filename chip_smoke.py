@@ -27,16 +27,13 @@ Phases, each of which raises on failure:
 5. ``sr`` x4 serving at full width: depth 16, width 64, random weights from
    a numpy seed -> ``.isr`` -> ``load_artifact`` -> ``DeployedModel`` in
    bf16 on a b256 t24 uint8 batch; K1's launches are counted over these
-   requests, two tiles are held against the port's fp32 CPU path; then,
-   outside the counted run, the request's time by stage (CUDA events) and
-   by kernel (``torch.profiler``), with the device's idle share;
+   requests, two tiles are held against the port's fp32 CPU path;
 6. ``fast`` x4 serving at full width and depth (14, 128) on the same
    batch shape, in bf16 and then in int8 (``quantize_deployed`` calibrated
    on the batch; each conv0 site hands its conv1 an int8 tensor): K2's
    launches counted (29 per int8 forward, 0 per bf16 one) and by variant
    (14 fp32 -> int8, 14 int8 -> fp32, 1 fp32 -> fp32), two tiles held
-   against the port's CPU paths, and the breakdown of both requests (the
-   int8 one by K2 variant); then the same int8 path calibrated at the 99.9th
+   against the port's CPU paths; then the same int8 path calibrated at the 99.9th
    percentile on that batch (2^24+ values per site), held to bf16;
 7. ``denoise_fast`` (14, 128, downshuffle 2) in int8 through
    ``TiledUpscaler`` on one odd-sized image: output shape and launches;
@@ -720,7 +717,6 @@ def phase_sr(work: Path, card: str):
          f"(bound {BF16_MAX_LSB}), {share:.4f} of values differ")
     if worst > BF16_MAX_LSB:
         raise AssertionError("card bf16 output is outside the recorded bound")
-    _breakdown("sr bf16", lambda: deployed(xd), n, _module_stages(deployed.model))
     return isr, launches
 
 
@@ -730,105 +726,6 @@ def _event():
     ev = torch.cuda.Event(enable_timing=True)
     ev.record()
     return ev
-
-
-def _module_stages(model):
-    """Stage marks from CUDA events on the model's top-level children;
-    numbered repeats (rrdb0.., block0..) are summed as one stage."""
-    import re
-
-    def install(marks):
-        handles = []
-        for name, child in model.named_children():
-            key = re.sub(r"\d+$", " (all)", name) if name.startswith(("rrdb", "block")) \
-                else name
-
-            def pre(_mod, _inp, key=key):
-                marks.setdefault(key, []).append([_event(), None])
-
-            def post(_mod, _inp, _out, key=key):
-                marks[key][-1][1] = _event()
-
-            handles += [child.register_forward_pre_hook(pre),
-                        child.register_forward_hook(post)]
-        return lambda: [h.remove() for h in handles]
-
-    return install
-
-
-def _int8_site_stages(marks):
-    """Stage marks around each int8 trunk site, one stage per K2 variant:
-    conv0 sites (fp32 in, int8 out for their conv1), conv1 sites (int8 in)
-    and trunk_conv (fp32 in and out)."""
-    import torch
-
-    from image_super_resolution_tpu_torch.models import quantized
-
-    orig = quantized.quant_site
-
-    def timed(p, h, leaky, out_inv_x=None):
-        e0 = _event()
-        y = orig(p, h, leaky, out_inv_x)
-        name = (f"conv3x3_int8 {'int8' if h.dtype == torch.int8 else 'fp32'} -> "
-                f"{'int8' if y.dtype == torch.int8 else 'fp32'}")
-        marks.setdefault(name, []).append([e0, _event()])
-        return y
-
-    quantized.quant_site = timed
-    return lambda: setattr(quantized, "quant_site", orig)
-
-
-def _breakdown(title: str, run, iters: int, install):
-    """Where one request's time goes, after the counted run: CUDA events
-    around the stages that ``install`` marks (the rest of the request --
-    input copy, normalize, residual adds, shuffles, uint8 -- is the request
-    less their sum), then device time by kernel name under
-    ``torch.profiler`` and the device's idle share (1 - kernel time / the
-    unprofiled request time)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    marks = {}
-    cleanup = install(marks)
-    try:
-        start = _event()
-        for _ in range(iters):
-            run()
-        end = _event()
-        torch.cuda.synchronize()
-    finally:
-        cleanup()
-    request_ms = start.elapsed_time(end) / iters
-    stages = {f"{name} (x{len(pairs) // iters})":
-              sum(a.elapsed_time(b) for a, b in pairs) / iters
-              for name, pairs in marks.items()}
-    stages["rest"] = request_ms - sum(stages.values())
-    _log(f"[breakdown] {title}: request {request_ms:.4f} ms (CUDA events, mean of {iters})")
-    for name, ms in stages.items():
-        _log(f"[breakdown] {title}: stage {name:34s} {ms:9.4f} ms  {ms / request_ms:6.1%}")
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            run()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / iters
-    kernels = {}
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(evt, "self_cuda_time_total", 0)
-        if dev_us and str(getattr(evt, "device_type", "")).endswith("CUDA"):
-            kernels[evt.key] = kernels.get(evt.key, 0.0) + dev_us / 1e3 / iters
-    busy = sum(kernels.values())
-    idle = (f"{1 - busy / request_ms:.1%} of the {request_ms:.4f} ms request (CUDA events, "
-            f"unprofiled; {1 - busy / wall:.1%} of the {wall:.4f} ms host wall under the "
-            f"profiler)" if busy else "not measured (no device events)")
-    _log(f"[breakdown] {title}: profiler: device kernel time {busy:.4f} ms per request; "
-         f"idle share {idle}")
-    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:12]:
-        _log(f"[breakdown] {title}: kernel {ms:9.4f} ms  {ms / max(busy, 1e-9):6.1%}  "
-             f"{name[:100]}")
 
 
 # ------------------------------------------------------------------ phase 6 --
@@ -900,8 +797,6 @@ def phase_fast(work: Path, card: str):
         raise AssertionError("fast card output is outside its recorded bound")
     if not (diff.mean() < 1.0 and diff.max() <= 8):
         raise AssertionError("fast int8 drifted from bf16 beyond the JAX package's bound")
-    _breakdown("fast bf16", lambda: deployed(xd), n, _module_stages(deployed.model))
-    _breakdown("fast int8", lambda: quant(xd), n, _int8_site_stages)
     _fast_percentile(deployed, quant, xd, out16, spec, card)
     return isr, launches, {k: {"launches": v, "launches_per_forward": v // (n + 1)}
                            for k, v in by_variant.items()}

@@ -19,6 +19,7 @@ import torch
 from ..core.mesh import (local_devices, make_mesh, make_spatial_mesh, replicate,
                          serving_devices, split_batch)
 from ..models.deploy import DeployedModel
+from ..utils.profiling import annotate
 from .tiling import fetch, upscale_tiled
 
 
@@ -162,7 +163,8 @@ class TiledUpscaler:
         gathers either). It returns without waiting for the devices: on the
         card the input goes up from pinned memory without blocking, so the
         caller can fetch and encode the previous batch while this one
-        computes (``cli/rs.py``'s video path)."""
+        computes (``cli/rs.py``'s video path). That copy up is the span
+        ``model/upload``."""
         x = torch.as_tensor(np.ascontiguousarray(batch_u8)
                             if isinstance(batch_u8, np.ndarray) else batch_u8)
         n = x.shape[0]
@@ -172,7 +174,8 @@ class TiledUpscaler:
                 x = torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
             return self._data_apply(x), n
         if self.deployed.device.type == "cuda" and x.device.type == "cpu":
-            x = x.pin_memory().to(self.deployed.device, non_blocking=True)
+            with annotate("model/upload"):
+                x = x.pin_memory().to(self.deployed.device, non_blocking=True)
         return self.deployed(x), n
 
     def upscale_batch(self, batch_u8: np.ndarray) -> np.ndarray:

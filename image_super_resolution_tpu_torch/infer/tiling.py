@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..core.mesh import gather
+from ..utils.profiling import annotate
 
 Result = Union[torch.Tensor, Sequence[torch.Tensor]]
 
@@ -63,6 +64,13 @@ def upscale_tiled(
     by repeating the last tile, and each batch comes back to the host in
     one copy per device. ``grid`` > 1 keeps the shrunk small-image window
     on the model's downshuffle grid.
+
+    The stages are the spans ``tile/cut`` (pad, stack, batch padding),
+    ``tile/fetch`` (each batch's wait for its forward and copy down) and
+    ``tile/stitch`` (``utils.profiling.annotate``). The function's integer
+    attributes count over every call: ``tiles`` cut, ``tiles_run``
+    (with the repeats that pad batches), and output pixels ``out_px_run``
+    (computed by the model) and ``out_px_kept`` (written into results).
     """
     h, w = image.shape[:2]
     window = min(window, max(h, w) + 2 * overlap)
@@ -70,35 +78,49 @@ def upscale_tiled(
         window = -(-window // grid) * grid
     positions, stride, ph, pw = plan_tiles(h, w, window, overlap)
 
-    pad_bottom = ph - overlap - h
-    pad_right = pw - overlap - w
-    padded = np.pad(
-        image,
-        ((overlap, max(pad_bottom, 0)), (overlap, max(pad_right, 0)), (0, 0)),
-        mode="reflect",
-    )
-    tiles = np.stack([padded[y:y + window, x:x + window] for (y, x) in positions])
-    n_tiles = len(tiles)
-    n_chunks = -(-n_tiles // batch_size)
-    pad_n = n_chunks * batch_size - n_tiles
-    if pad_n:
-        tiles = np.concatenate([tiles, np.repeat(tiles[-1:], pad_n, axis=0)])
-    out_tiles = np.concatenate([
-        fetch(apply_fn(tiles[i * batch_size:(i + 1) * batch_size]))
-        for i in range(n_chunks)
-    ])[:n_tiles]
-    if out_tiles.shape[1] % window:
-        raise ValueError(f"non-integer scale: {out_tiles.shape[1]}/{window}")
-    s = out_tiles.shape[1] // window
-    canvas = np.zeros((h * s, w * s, image.shape[2]), out_tiles.dtype)
-    ov = overlap * s
-    st = stride * s
-    for (y, x), tile in zip(positions, out_tiles):
-        core = tile[ov:ov + st, ov:ov + st]
-        oy, ox = y * s, x * s
-        cy = min(st, h * s - oy)
-        cx = min(st, w * s - ox)
-        if cy <= 0 or cx <= 0:
-            continue
-        canvas[oy:oy + cy, ox:ox + cx] = core[:cy, :cx]
+    with annotate("tile/cut"):
+        pad_bottom = ph - overlap - h
+        pad_right = pw - overlap - w
+        padded = np.pad(
+            image,
+            ((overlap, max(pad_bottom, 0)), (overlap, max(pad_right, 0)), (0, 0)),
+            mode="reflect",
+        )
+        tiles = np.stack([padded[y:y + window, x:x + window] for (y, x) in positions])
+        n_tiles = len(tiles)
+        n_chunks = -(-n_tiles // batch_size)
+        pad_n = n_chunks * batch_size - n_tiles
+        if pad_n:
+            tiles = np.concatenate([tiles, np.repeat(tiles[-1:], pad_n, axis=0)])
+    outs = []
+    for i in range(n_chunks):
+        out = apply_fn(tiles[i * batch_size:(i + 1) * batch_size])
+        with annotate("tile/fetch"):
+            outs.append(fetch(out))
+    with annotate("tile/stitch"):
+        out_tiles = np.concatenate(outs)[:n_tiles]
+        if out_tiles.shape[1] % window:
+            raise ValueError(f"non-integer scale: {out_tiles.shape[1]}/{window}")
+        s = out_tiles.shape[1] // window
+        canvas = np.zeros((h * s, w * s, image.shape[2]), out_tiles.dtype)
+        ov = overlap * s
+        st = stride * s
+        for (y, x), tile in zip(positions, out_tiles):
+            core = tile[ov:ov + st, ov:ov + st]
+            oy, ox = y * s, x * s
+            cy = min(st, h * s - oy)
+            cx = min(st, w * s - ox)
+            if cy <= 0 or cx <= 0:
+                continue
+            canvas[oy:oy + cy, ox:ox + cx] = core[:cy, :cx]
+    upscale_tiled.tiles += n_tiles
+    upscale_tiled.tiles_run += len(tiles)
+    upscale_tiled.out_px_run += len(tiles) * (window * s) ** 2
+    upscale_tiled.out_px_kept += h * s * w * s
     return canvas
+
+
+upscale_tiled.tiles = 0
+upscale_tiled.tiles_run = 0
+upscale_tiled.out_px_run = 0
+upscale_tiled.out_px_kept = 0

@@ -41,6 +41,7 @@ from ..data.transforms import (IMAGENET_MEAN, IMAGENET_STD, normalize, tanh_to_u
                                to_float01)
 from ..interop.from_jax import params_from_jax, params_to_jax
 from ..ops.fuse import fuse_conv_bn
+from ..utils.profiling import annotate
 from ..utils.serialization import (map_tree, msgpack_restore, msgpack_serialize,
                                    to_fp16, to_fp32)
 from .denoiser import Denoiser, LegacyDenoiser
@@ -229,9 +230,23 @@ class DeployedModel:
 
     @torch.inference_mode()
     def __call__(self, u8_batch) -> torch.Tensor:
-        """uint8 NHWC (numpy or tensor) -> uint8 NHWC tensor on the device."""
-        x = torch.as_tensor(u8_batch).to(self.device)
-        return tanh_to_uint8(self.model(normalize(x, self._mean, self._std)))
+        """uint8 NHWC (numpy or tensor) -> uint8 NHWC tensor on the device.
+        The spans ``model/upload`` and ``model/forward`` (its host dispatch)."""
+        x = upload(u8_batch, self.device)
+        with annotate("model/forward"):
+            return tanh_to_uint8(self.model(normalize(x, self._mean, self._std)))
+
+
+def upload(u8_batch, device: torch.device) -> torch.Tensor:
+    """The batch as a tensor on ``device``: the span ``model/upload`` when
+    it is a host array or a tensor on another device, nothing when it is a
+    tensor there already (the engine's video path uploads before the call)."""
+    x = u8_batch
+    if (isinstance(x, torch.Tensor) and x.device.type == device.type
+            and device.index in (None, x.device.index)):
+        return x.to(device)
+    with annotate("model/upload"):
+        return torch.as_tensor(x).to(device)
 
 
 class _Program(torch.nn.Module):

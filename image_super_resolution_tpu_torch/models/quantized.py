@@ -36,6 +36,8 @@ from ..ops.activations import apply_act
 from ..ops.conv import conv_bias_nhwc
 from ..ops.kernels.matmul import conv3x3_int8, weights_k_major
 from ..ops.pixel_shuffle import pixel_shuffle
+from ..utils.profiling import annotate
+from .deploy import upload
 from .fast import _LEAKY, downshuffle_front, scale_residual
 
 FAMILIES = ("fast", "denoise_fast")
@@ -267,13 +269,17 @@ class Int8DeployedFast:
 
     @torch.inference_mode()
     def __call__(self, u8_batch) -> torch.Tensor:
-        """uint8 NHWC (numpy or tensor) -> uint8 NHWC tensor on the device."""
+        """uint8 NHWC (numpy or tensor) -> uint8 NHWC tensor on the device.
+        The spans ``model/upload`` and ``model/forward``, as
+        ``DeployedModel``'s."""
         spec = self.spec
-        x = normalize(torch.as_tensor(u8_batch).to(self.device), self._mean, self._std)
-        y = int8_forward(self.params, x, spec.depth, spec.add_rate, spec.output_scale,
-                         downshuffle=spec.downshuffle or 1,
-                         refine_blocks=spec.refine_blocks or 0)
-        return tanh_to_uint8(y)
+        x = upload(u8_batch, self.device)
+        with annotate("model/forward"):
+            y = int8_forward(self.params, normalize(x, self._mean, self._std), spec.depth,
+                             spec.add_rate, spec.output_scale,
+                             downshuffle=spec.downshuffle or 1,
+                             refine_blocks=spec.refine_blocks or 0)
+            return tanh_to_uint8(y)
 
 
 def quantize_deployed(deployed, calib_u8_batches, percentile: Optional[float] = None
