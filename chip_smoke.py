@@ -17,13 +17,13 @@ Phases, each of which raises on failure:
    version and the cuDNN yardstick;
 4. K2: the ptxas report of ``csrc/matmul.cu`` (fails on a spill);
    ``matmul`` at the probe's check shape and a ragged one (int8 exact);
-   ``conv3x3_int8`` in every variant (fp32 or int8 in, fp32 or int8 out,
-   leaky on and off) at b256 t24 w128, 2x48x48, 1x93x93, 3x17x29 and two
-   small odd-Cout shapes, exact against its plain version (the fp32
-   stream carries ties); then the three serving variants timed at b256
-   t24 beside their bounds, the plain version, a cuDNN bf16 conv and
-   ``torch._int_mm``, and the 4096^3 GEMMs beside ``torch._int_mm`` and
-   bf16 ``torch.matmul``;
+   ``conv3x3_int8`` in every variant (fp32 or int8 in; fp32, int8 or both
+   out; with and without the residual epilogue; leaky on and off) at b256
+   t24 w128, 2x48x48, 1x93x93, 3x17x29 and two small odd-Cout shapes,
+   exact against its plain version (the fp32 stream carries ties); then
+   the five serving sites timed at b256 t24 beside their bounds, the plain
+   version, a cuDNN bf16 conv and ``torch._int_mm``, and the 4096^3 GEMMs
+   beside ``torch._int_mm`` and bf16 ``torch.matmul``;
 5. ``sr`` x4 serving at full width: depth 16, width 64, random weights from
    a numpy seed -> ``.isr`` -> ``load_artifact`` -> ``DeployedModel`` in
    bf16 on a b256 t24 uint8 batch; K1's launches are counted over these
@@ -32,7 +32,7 @@ Phases, each of which raises on failure:
    batch shape, in bf16 and then in int8 (``quantize_deployed`` calibrated
    on the batch; each conv0 site hands its conv1 an int8 tensor): K2's
    launches counted (29 per int8 forward, 0 per bf16 one) and by variant
-   (14 fp32 -> int8, 14 int8 -> fp32, 1 fp32 -> fp32), two tiles held
+   (1 fp32 -> int8, 14 int8 -> int8, 14 int8 -> fp32), two tiles held
    against the port's CPU paths; then the same int8 path calibrated at the 99.9th
    percentile on that batch (2^24+ values per site), held to bf16;
 7. ``denoise_fast`` (14, 128, downshuffle 2) in int8 through
@@ -333,11 +333,12 @@ def _instance(source: str, mangled: str) -> str:
 
     if source == "fused_rdb":
         return "y launches (N=32)" if "ILi32E" in mangled else "last launch (N=64)"
-    m = re.search(r"conv3x3_int8_kernelILb([01])ELb([01])ELi(\d+)E", mangled)
+    m = re.search(r"conv3x3_int8_kernelILb([01])ELi([123])ELb([01])ELi(\d+)E", mangled)
     if m:
-        ks = "K steps unrolled" if m.group(3) != "0" else "K steps at run time"
-        return (f"conv {'fp32' if m.group(1) == '1' else 'int8'} -> "
-                f"{'fp32' if m.group(2) == '1' else 'int8'}, {ks}")
+        ks = "K steps unrolled" if m.group(4) != "0" else "K steps at run time"
+        out = {"1": "fp32", "2": "int8", "3": "fp32 + int8"}[m.group(2)]
+        res = ", residual" if m.group(3) == "1" else ""
+        return f"conv {'fp32' if m.group(1) == '1' else 'int8'} -> {out}{res}, {ks}"
     if "transpose_kernel" in mangled:
         return f"B transpose, {'1' if 'ILi1E' in mangled else '2'}-byte elements"
     return "GEMM bf16" if "bfloat16" in mangled else "GEMM int8"
@@ -493,11 +494,21 @@ def _int_mm(a, b):
     return lambda: torch._int_mm(a, b)
 
 
-# The conv site's variants on the fast int8 path, named as the wrapper
-# counts them (matmul.conv_variant): (name, fp32 input, int8 output).
-K2_VARIANTS = (("fp32 -> fp32", True, False),    # trunk_conv
-               ("fp32 -> int8", True, True),     # conv0 sites
-               ("int8 -> fp32", False, False))   # conv1 sites
+# The conv sites of the fast int8 forward (models/quantized.int8_forward):
+# (name, fp32 input, outputs, residual epilogue).
+K2_SITES = (("block 0's conv0", True, "int8", False),
+            ("conv0 sites 1-13", False, "int8", False),
+            ("conv1 sites 0-12", False, "both", True),
+            ("the last conv1", False, "int8", True),
+            ("trunk_conv", False, "fp32", True))
+
+
+def _k2_per_forward(depth: int) -> dict:
+    """K2's launches by variant in one int8 forward at ``depth`` >= 1:
+    block 0's conv0 "fp32 -> int8"; the other conv0 sites and the last
+    conv1 "int8 -> int8"; the other conv1 sites (fp32 and int8 out) and
+    trunk_conv "int8 -> fp32"."""
+    return {"fp32 -> int8": 1, "int8 -> int8": depth, "int8 -> fp32": depth}
 
 
 def phase_k2(kind: str, card: str, ptxas_log: str):
@@ -544,55 +555,67 @@ def phase_k2(kind: str, card: str, ptxas_log: str):
 
     # The fp32 stream is requantized on load (scale 1/inv_x); ties and values
     # past +-127 steps are planted in it. int8 outputs are requantized with
-    # out_inv_x.
-    inv_x, out_inv_x = 0.25, 1.0
+    # out_inv_x; the residual epilogue adds res + y * rate.
+    inv_x, out_inv_x, rate = 0.25, 1.0, 0.2
 
     def stream(shape):
         h32 = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32) * 40)
         h32[..., :4] = torch.tensor([0.5, -2.5, 300.0, -1e6]) / inv_x
         return h32.to(dev)
 
-    # Every variant (fp32 or int8 in, fp32 or int8 out, leaky on and off) at
-    # the serving shape, the denoise_fast and CLI tile shapes, a ragged
-    # batch, and the small and odd-Cout shapes of tests/test_torch_cuda.py.
+    def site_kw(outs, residual, res):
+        return dict(out_inv_x=None if outs == "fp32" else out_inv_x, keep_fp32=outs == "both",
+                    res=res if residual else None, rate=rate)
+
+    # Every variant (fp32 or int8 in; fp32, int8 or both out; with and
+    # without the residual; leaky on and off) at the serving shape, the
+    # denoise_fast and CLI tile shapes, a ragged batch, and the small and
+    # odd-Cout shapes of tests/test_torch_cuda.py.
     max_err = 0.0
     for shape in ((256, 24, 24, 128, 128), (2, 48, 48, 128, 128), (1, 93, 93, 128, 128),
                   (3, 17, 29, 128, 128), (1, 1, 1, 32, 8), (1, 5, 3, 64, 130)):
         x8, w_q, deq, bias = site(*shape)
         w_k = k2.weights_k_major(w_q)
         x32 = stream(x8.shape)
+        res = stream((*shape[:3], shape[4])) * 0.01
         bad = total = 0
         for x, s_in in ((x32, inv_x), (x8, None)):
-            for s_out in (None, out_inv_x):
-                for leaky in (True, False):
-                    got = k2.conv3x3_int8(x, w_q, deq, bias, leaky, s_in, s_out, w_k)
-                    want = k2.conv3x3_int8_reference(x, w_q, deq, bias, leaky, s_in, s_out)
-                    torch.cuda.synchronize()
-                    if got.dtype != want.dtype:
-                        raise AssertionError(f"conv3x3_int8 returned {got.dtype}")
-                    bad += int((got != want).sum())
-                    total += got.numel()
-                    max_err = max(max_err, float((got.float() - want.float()).abs().max()))
-        _log(f"[kernel] conv3x3_int8 {shape[:3]} {shape[3]}->{shape[4]}, 8 variants (fp32 "
-             f"or int8 in, fp32 or int8 out, leaky on and off): {bad} of {total} values "
-             f"differ from the plain version (tolerance: none)")
+            for outs in ("fp32", "int8", "both"):
+                for residual in (False, True):
+                    for leaky in (True, False):
+                        kw = site_kw(outs, residual, res)
+                        got = k2.conv3x3_int8(x, w_q, deq, bias, leaky, s_in, w_k=w_k, **kw)
+                        want = k2.conv3x3_int8_reference(x, w_q, deq, bias, leaky, s_in, **kw)
+                        torch.cuda.synchronize()
+                        for g, wt in zip(got if outs == "both" else (got,),
+                                         want if outs == "both" else (want,)):
+                            if g.dtype != wt.dtype:
+                                raise AssertionError(f"conv3x3_int8 returned {g.dtype}")
+                            bad += int((g != wt).sum())
+                            total += g.numel()
+                            max_err = max(max_err, float((g.float() - wt.float()).abs().max()))
+        _log(f"[kernel] conv3x3_int8 {shape[:3]} {shape[3]}->{shape[4]}, 24 variants (fp32 "
+             f"or int8 in; fp32, int8 or both out; residual or not; leaky on and off): {bad} "
+             f"of {total} values differ from the plain version (tolerance: none)")
         if bad:
             raise AssertionError(f"conv3x3_int8 disagrees with its plain version at {shape}")
 
     x8, w_q, deq, bias = site(256, 24, 24)
     w_k = k2.weights_k_major(w_q)
     h32 = stream(x8.shape)
+    res = h32 * 0.01
     b, h, w, c = x8.shape
     m = b * h * w
     ops = 2 * m * 9 * c * c
     variants = {}
-    for name, f32_in, i8_out in K2_VARIANTS:
+    for name, f32_in, outs, residual in K2_SITES:
         x, s_in = (h32, inv_x) if f32_in else (x8, None)
-        s_out = out_inv_x if i8_out else None
-        ms = _cuda_ms(lambda: k2.conv3x3_int8(x, w_q, deq, bias, True, s_in, s_out, w_k))
+        kw = site_kw(outs, residual, res)
+        ms = _cuda_ms(lambda: k2.conv3x3_int8(x, w_q, deq, bias, True, s_in, w_k=w_k, **kw))
         plain_ms = _cuda_ms(lambda: k2.conv3x3_int8_reference(x, w_q, deq, bias, True, s_in,
-                                                              s_out), warmup=1, iters=3)
-        nbytes = m * c * (4 if f32_in else 1) + w_k.numel() + 8 * c + m * c * (1 if i8_out else 4)
+                                                              **kw), warmup=1, iters=3)
+        out_bytes = {"fp32": 4, "int8": 1, "both": 5}[outs] + 4 * residual
+        nbytes = m * c * (4 if f32_in else 1) + w_k.numel() + 8 * c + m * c * out_bytes
         bound_ms, bound_by, t_ops, t_bytes = _bound(ops, nbytes, peak_int8, peak_bw)
         # launches: filled in from the fast int8 serving phase
         variants[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -602,7 +625,7 @@ def phase_k2(kind: str, card: str, ptxas_log: str):
              f"{t_ops:.4f} ms, {nbytes:.4g} B at {peak_bw:.4g} B/s = {t_bytes:.4f} ms; "
              f"{peak_name} peaks), {bound_ms / ms:.1%} of bound, {ops / ms / 1e9:.1f} TOP/s "
              f"achieved; plain version {plain_ms:.4f} ms")
-    main = variants["fp32 -> fp32"]
+    main = variants["trunk_conv"]
     xb = x8.to(torch.bfloat16).permute(0, 3, 1, 2)  # channels_last NCHW view
     wb = w_q.to(torch.bfloat16).reshape(3, 3, c, c).permute(3, 2, 0, 1).contiguous(
         memory_format=torch.channels_last)
@@ -610,7 +633,7 @@ def phase_k2(kind: str, card: str, ptxas_log: str):
     int_mm_site_ms = _cuda_ms(_int_mm(i8(m, 9 * c), w_q))
     _log(f"[kernel] conv3x3_int8 yardsticks b256 t24 w128 on {card}: cuDNN bf16 conv "
          f"channels_last {library_ms:.4f} ms; torch._int_mm on its GEMM form ({m}x{9 * c}x{c}, "
-         f"no im2col) {int_mm_site_ms:.4f} ms; fp32 -> fp32 kernel / cuDNN "
+         f"no im2col) {int_mm_site_ms:.4f} ms; trunk_conv kernel / cuDNN "
          f"{main['ms'] / library_ms:.3f}")
 
     n = 4096
@@ -639,7 +662,7 @@ def phase_k2(kind: str, card: str, ptxas_log: str):
         "replaces": "scripts/bench_int8_pallas.py:37",
         "launches": None,  # filled in from the fast int8 serving phase
         "max_abs_err": max_err,
-        "ms": main["ms"],  # the fp32 -> fp32 site (trunk_conv)
+        "ms": main["ms"],  # trunk_conv
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],
@@ -767,8 +790,8 @@ def phase_fast(work: Path, card: str):
     if launches != sites * (n + 1):
         raise AssertionError(f"conv3x3_int8 launched {launches} times in {n + 1} "
                              f"int8 forwards, want {sites} per forward")
-    # conv0 sites hand off int8 to their conv1; trunk_conv stays fp32
-    per_forward = {"fp32 -> int8": spec.depth, "int8 -> fp32": spec.depth, "fp32 -> fp32": 1}
+    # every site but block 0's conv0 is handed its input in int8
+    per_forward = _k2_per_forward(spec.depth)
     if by_variant != {k: v * (n + 1) for k, v in per_forward.items()}:
         raise AssertionError(f"conv3x3_int8 launches by variant in {n + 1} int8 forwards: "
                              f"{by_variant}, want {per_forward} per forward")
@@ -1292,7 +1315,7 @@ def _serve_fast_int8(ckpt: dict, x24, title: str, card: str, device: str, n: int
         torch.cuda.synchronize()
     launches = conv3x3_int8.launches
     by_variant = dict(conv3x3_int8.launches_by_variant)
-    want = {"fp32 -> int8": depth * n, "int8 -> fp32": depth * n, "fp32 -> fp32": n}
+    want = {k: v * n for k, v in _k2_per_forward(depth).items()}
     if by_variant != want:
         raise AssertionError(f"{title}: int8 launched conv3x3_int8 {by_variant} in {n} "
                              f"forwards, want {want}")
@@ -1702,7 +1725,7 @@ def _per_forward(isr: Path, int8: bool = True) -> dict:
     if spec.family == "sr":
         return {"fused_rdb": 3 * spec.depth}
     if spec.family in ("fast", "denoise_fast") and int8:
-        return {"fp32 -> int8": spec.depth, "int8 -> fp32": spec.depth, "fp32 -> fp32": 1}
+        return _k2_per_forward(spec.depth)
     return {"fused_rdb": 0}
 
 
@@ -2669,8 +2692,10 @@ def _plain_kernels():
     from image_super_resolution_tpu_torch.ops.kernels.fused_rdb import scatter_rdb_reference
     from image_super_resolution_tpu_torch.ops.kernels.matmul import conv3x3_int8_reference
 
-    def plain_k2(x, w_q, deq, bias, leaky, inv_x=None, out_inv_x=None, w_k=None):
-        return conv3x3_int8_reference(x, w_q, deq, bias, leaky, inv_x, out_inv_x)
+    def plain_k2(x, w_q, deq, bias, leaky, inv_x=None, out_inv_x=None, w_k=None, res=None,
+                 rate=1.0, keep_fp32=False):
+        return conv3x3_int8_reference(x, w_q, deq, bias, leaky, inv_x, out_inv_x, res, rate,
+                                      keep_fp32)
 
     with mock.patch(f"{PACKAGE}.ops.scatter.scatter_rdb", scatter_rdb_reference), \
             mock.patch(f"{PACKAGE}.models.quantized.conv3x3_int8", plain_k2):
@@ -2876,7 +2901,7 @@ def phase_multi(work: Path, sr_isr: Path, fast_isr: Path, card: str,
     multi = TiledUpscaler(quant, data_devices=2, devices=d2)
     frames, _, launches, by_variant = _counted(conv3x3_int8, lambda: multi.upscale_batch(xd))
     depth = fast.spec.depth
-    per_shard = {"fp32 -> int8": depth, "int8 -> fp32": depth, "fp32 -> fp32": 1}
+    per_shard = _k2_per_forward(depth)
     if device == "cuda" and by_variant != {k: 2 * v for k, v in per_shard.items()}:
         raise AssertionError(f"fast int8 data_devices=2: conv3x3_int8 by variant "
                              f"{by_variant}, want {per_shard} per shard forward")
@@ -3748,8 +3773,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         sr_isr, k1_serve = phase_sr(Path(tmp), card)
         fast_isr, k2_serve, by_variant = phase_fast(Path(tmp), card)
-        for name, counts in by_variant.items():
-            k2["variants"][name].update(counts)
+        k2["launches_by_variant"] = by_variant
         phase_denoise(card)
         phase_cli(Path(tmp), sr_isr, fast_isr, card)
         trained = phase_train(Path(tmp) / "train", kind, card)

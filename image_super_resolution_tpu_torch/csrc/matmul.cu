@@ -10,13 +10,15 @@
  *                     an implicit GEMM: x (B,H,W,Cin) NHWC, either the fp32
  *                     residual stream, requantized as it is loaded,
  *                     q = clamp(rint(x * inv_x), -127, 127), or int8 already
- *                     (a conv1 site fed by its conv0); zero padding 1; the
+ *                     (handed over by the site before); zero padding 1; the
  *                     weights K-major, (Npad, 9*Cin) int8, columns (dy, dx,
  *                     cin), rows past Cout zero; int32 sums, then per output
  *                     channel y = fl(fl(float(acc) * deq[o]) + bias[o]),
- *                     leaky 0.01 on conv0 sites, stored fp32 or requantized
- *                     for the next site (clamp(rint(y * out_inv_x), +-127))
- *                     and stored int8. Cin % 32 == 0, any Cout, B, H, W.
+ *                     leaky 0.01 on conv0 sites; on conv1 sites and
+ *                     trunk_conv the residual update fl(res + fl(y * rate));
+ *                     then stored fp32, and / or requantized for the next
+ *                     site (clamp(rint(y * out_inv_x), +-127)) and stored
+ *                     int8. Cin % 32 == 0, any Cout, B, H, W.
  *   isr_matmul        (M,K) x (K,N) -> (M,N), int8 -> int32 (exact) or
  *                     bf16 -> fp32, from A and B^T (isr_transpose makes it,
  *                     any N);
@@ -24,18 +26,27 @@
  *
  * Bound of one 128 -> 128 site at b256 t24 (147,456 pixels) on an H100 SXM
  * (data sheet: 1,979 TOP/s dense int8, 3.35 TB/s): 2 * 1152 * 128 * 147,456
- * = 4.35e10 int8 operations, 22.0 us; bytes, each input read once and each
- * output written once:
+ * = 4.35e10 int8 operations, 22.0 us; bytes, each input (the residual
+ * included) read once and each output written once. Measured on an H100
+ * 80GB HBM3 at 700 W by CUDA events: at b256 t24 (chip_smoke.py phase 4)
+ * and at 8 x 270 x 480, video frames, 7.03 times the pixels
+ * (scripts/torch_k2_variants.py --shape 8,270,480, three rounds):
  *
- *   variant         used by                 bytes       bound
- *   fp32 -> fp32    trunk_conv               151.0 MB    45.1 us (bytes)
- *   fp32 -> int8    the 14 conv0 sites        94.4 MB    28.2 us (bytes)
- *   int8 -> fp32    the 14 conv1 sites        94.4 MB    28.2 us (bytes)
+ *   site: variant, epilogue             per forward   bytes    bound       b256 t24  frames
+ *   block 0's conv0: fp32 -> int8             1       94.5 MB  28.2 us     0.088 ms  0.503 ms
+ *   conv0 1-13: int8 -> int8                 13       37.9 MB  22.0 (ops)  0.062     0.316
+ *   conv1 0-12: int8 -> fp32 + int8, res     13      188.9 MB  56.4 us     0.109     0.595
+ *   the last conv1: int8 -> int8, res         1      113.4 MB  33.8 us     0.085     0.415
+ *   trunk_conv: int8 -> fp32, res             1      170.0 MB  50.8 us     0.098     0.526
  *
- * So the site is bound by bytes, and the int8 hand-off between conv0 and
- * conv1 (conv0 requantizes in its epilogue with conv1's scale: the same
- * function as requantizing conv0's fp32 output at conv1's load) cuts them.
- * The 4096^3 GEMM is bound by operations: 69 us in int8, 139 us in bf16.
+ * So the sites are bound by bytes but for the int8 -> int8 conv0, and the
+ * int8 hand-offs cut the bytes: each site requantizes its output in its
+ * epilogue with the next site's scale (the same function as requantizing
+ * the fp32 value at the next site's load), and a conv1 site finishes its
+ * residual block there, h + rate * y, so that the block's fp32 stream
+ * crosses memory twice (conv1's residual read and its store), not seven
+ * times (conv0's load and two elementwise ops besides). The
+ * 4096^3 GEMM is bound by operations: 69 us in int8, 139 us in bf16.
  *
  * What held the first version (mma.sync, 0.281 ms per site) back, and what
  * this design does about it:
@@ -74,15 +85,26 @@
  *     tap per loop iteration, its K steps unrolled with the descriptor
  *     offsets as immediates (unrolled across all taps, ptxas precomputes
  *     every descriptor and spills).
+ *   - The consumer warpgroups take turns on the tensor cores (a named
+ *     barrier each, passed on once a warpgroup's wgmmas are issued): all
+ *     issued at once, their wgmmas interleave and end together, and the
+ *     three epilogues then run with the tensor cores idle (frames: int8 ->
+ *     int8 0.317 against 0.340 ms).
  *   - The epilogue works on the 64 int32 accumulators in registers with
  *     deq and bias from shared memory, __fadd_rn(__fmul_rn(...)) so no FMA
- *     fuses it, then 8-byte (fp32) or 2-byte (int8) stores; whole N tiles
- *     take straight-line code.
- *   Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py): 0.096 ms
- *   fp32 -> fp32, 0.095 fp32 -> int8, 0.068 int8 -> fp32. Left on the
- *   table: the fp32 producer (without the epilogue an fp32-input site takes
- *   0.057 ms, an int8-input one 0.030); the epilogue's stores, which do not
- *   overlap the producer's loads well; TMA for the patch (no room beside
+ *     fuses it. Whole N tiles go through a staging buffer per warp (8
+ *     pixels x 32 channels, fp32 and int8, swizzled), so that global
+ *     memory sees 16-byte accesses on whole lines, not 8-byte (fp32) and
+ *     2-byte (int8) pieces of eight pixels: the residual is loaded through
+ *     it and the outputs stored through it. A tile's residual is
+ *     prefetched into L2 before its wgmmas (frames: conv1 0.594 against
+ *     0.621 ms without).
+ *   Left on the table: the epilogue itself. At the frames shape an int8 ->
+ *   int8 site takes 0.139 ms without its epilogue and 0.22 ms without its
+ *   wgmmas; neither its stores (0.303 ms without them) nor its F2I
+ *   conversions (0.283 without) are what holds it: three epilogue warps per
+ *   scheduler hide little latency. Then the fp32 producer of block 0's
+ *   conv0 (0.32 ms without the epilogue); TMA for the patch (no room beside
  *   resident weights for an fp32 staging buffer).
  *
  * Design of the GEMM: 128 x 256 block tiles; two consumer warpgroups issue
@@ -143,32 +165,42 @@ constexpr int CONSUMERS = 128 * TILES;
 constexpr int CONV_THREADS = CONSUMERS + 128;  // + one producer warpgroup
 constexpr int UNROLL = 4;                  // 16-channel chunks in flight per producer thread
 // Named barriers. kFull + TILES * b + m: patch buffer b is full, between
-// the producer and consumer warpgroup m (256 threads), so that the
-// consumer warpgroups drift apart and one's epilogue overlaps another's
-// wgmmas; kEmpty + b: every consumer is done with buffer b (all threads);
-// kWFull + m, kWEmpty: the same for the weights.
+// the producer and consumer warpgroup m (256 threads); kEmpty + b: every
+// consumer is done with buffer b (all threads); kWFull + m, kWEmpty: the
+// same for the weights; kTurn + m: consumer warpgroup m's turn on the
+// tensor cores, from warpgroup m - 1 (256 threads).
 constexpr int kFull = 1, kEmpty = kFull + 2 * TILES, kWFull = kEmpty + 2,
-              kWEmpty = kWFull + TILES;
+              kWEmpty = kWFull + TILES, kTurn = kWEmpty + 1;
 constexpr int FULL_THREADS = 256;
-static_assert(kWEmpty < 16, "16 named barriers");
+static_assert(kTurn + TILES <= 16, "16 named barriers");
+
+// The epilogue's staging buffers, one per consumer warp: 8 pixels x 32
+// channels in fp32 (128 bytes a pixel) and in int8 (32 bytes a pixel).
+constexpr int STAGE_F32 = 8 * 128, STAGE_I8 = 8 * 32, STAGE_WARP = STAGE_F32 + STAGE_I8;
 
 __host__ __device__ constexpr int patch_bytes(int cc) { return cc / 16 * CSTRIDE * 16; }
 __host__ __device__ constexpr int weight_bytes(int cc) { return 9 * cc * NT; }
 __host__ __device__ constexpr int conv_smem_bytes(int cc) {
-  return weight_bytes(cc) + 2 * patch_bytes(cc) + 2 * NT * 4;  // + deq, bias
+  // + deq, bias, the staging buffers
+  return weight_bytes(cc) + 2 * patch_bytes(cc) + 2 * NT * 4 + CONSUMERS / 32 * STAGE_WARP;
 }
+
+// OUT: the outputs the conv's epilogue stores, fp32 and / or int8.
+constexpr int kOutF32 = 1, kOutI8 = 2;
 
 struct ConvArgs {
   const void* x;       // (B,H,W,Cin) fp32 or int8
   const int8_t* wk;    // (Npad, 9*Cin) int8, K-major
   const float* deq;    // (Cout,)
   const float* bias;   // (Cout,)
-  void* out;           // (B,H,W,Cout) fp32 or int8
+  const float* res;    // (B,H,W,Cout) fp32 residual (RES), or null
+  float* out;          // (B,H,W,Cout) fp32 (OUT & kOutF32), or null
+  int8_t* out8;        // (B,H,W,Cout) int8 (OUT & kOutI8), or null
   int H, W, Cin, Cout;
   int cc, nch;         // K chunk: channels, chunks (cc * nch == Cin)
   int rects_w, rects_h, rects;
   int leaky;
-  float slope, inv_x, out_inv_x;
+  float slope, rate, inv_x, out_inv_x;
 };
 
 // D (64 x 128 int32, registers) (+)= A (64 x 32 int8) * B (32 x 128 int8),
@@ -222,10 +254,25 @@ __device__ __forceinline__ int requant1(float v, float inv_x) {
   return min(max(__float2int_rn(__fmul_rn(v, inv_x)), -127), 127);
 }
 
+__device__ __forceinline__ uint16_t requant2(float2 v, float inv_x) {
+  return (uint16_t)((requant1(v.x, inv_x) & 0xff) | ((requant1(v.y, inv_x) & 0xff) << 8));
+}
+
+// The residual update res + y * rate, each op rounded once (no FMA), as
+// h + t * rate in two PyTorch ops.
+__device__ __forceinline__ float residual(float res, float y, float rate) {
+  return __fadd_rn(res, __fmul_rn(y, rate));
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
 // KS: wgmma K steps per tap (cc / 32) as a constant, so that the 9 * KS
 // wgmmas of a tile are unrolled and issued back to back; 0: taken from
 // p.cc at run time (other widths; ptxas then waits between the wgmmas).
-template <bool IN_F32, bool OUT_F32, int KS>
+// OUT: kOutF32, kOutI8 or both; RES: the epilogue adds res + y * rate.
+template <bool IN_F32, int OUT, bool RES, int KS>
 __global__ void __launch_bounds__(CONV_THREADS, 1)
 conv3x3_int8_kernel(const __grid_constant__ ConvArgs p) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -233,6 +280,7 @@ conv3x3_int8_kernel(const __grid_constant__ ConvArgs p) {
   const int pbytes = patch_bytes(p.cc), wbytes = weight_bytes(p.cc);
   float* s_deq = reinterpret_cast<float*>(smem + wbytes + 2 * pbytes);
   float* s_bias = s_deq + NT;
+  unsigned char* s_stage = reinterpret_cast<unsigned char*>(s_bias + NT);
   // The warpgroup index through a shuffle, so that ptxas knows it is
   // warp-uniform and keeps the wgmma descriptors in uniform registers.
   const int tid = threadIdx.x, wg = __shfl_sync(0xffffffffu, tid / 128, 0);
@@ -337,6 +385,23 @@ conv3x3_int8_kernel(const __grid_constant__ ConvArgs p) {
   for (int s = 0; s < items; ++s) {
     const int r = blockIdx.x + (s / p.nch) * gridDim.x, ch = s % p.nch;
     const int b = s & 1;
+    long long img;
+    int h0, w0;
+    origin(r, img, h0, w0);
+    if (RES && ch == 0) {
+      // The residual of this tile's outputs into L2 while its wgmmas run, so
+      // that the epilogue's loads of it hit L2: thread t takes tile pixel
+      // t / 2 (image row 8 wg + t / 16 of the rectangle, column t / 2 % 8)
+      // and two of the (up to) four 128-byte lines of its NT channels.
+      const int t = tid % 128, oh = h0 + 8 * wg + t / 16, ow = w0 + t / 2 % 8;
+      if (oh < p.H && ow < p.W) {
+        const char* row = reinterpret_cast<const char*>(
+            p.res + (img + (long long)oh * p.W + ow) * p.Cout + n0);
+        const int span = min(NT, p.Cout - n0) * 4;
+        for (int k = 2 * (t % 2); k < 2 * (t % 2) + 2; ++k)
+          if (k * 128 < span) prefetch_l2(row + k * 128);
+      }
+    }
     if (s == 0 || p.nch > 1) bar_sync(kWFull + wg, FULL_THREADS);
     bar_sync(kFull + TILES * b + wg, FULL_THREADS);
     const uint32_t patch = w_s + wbytes + b * pbytes;
@@ -345,6 +410,12 @@ conv3x3_int8_kernel(const __grid_constant__ ConvArgs p) {
     // dx + 0..7, one core matrix per 16 channels, CSTRIDE apart along K.
     const uint64_t a0 = smem_desc(patch + 8 * wg * PW * 16, CSTRIDE * 16, PW * 16);
     const uint64_t b0 = smem_desc(w_s, NT * 16, 128);
+    // The warpgroups take turns on the tensor cores, m after m - 1 (0 after
+    // TILES - 1 on the item before): issued together, their wgmmas would
+    // interleave and end together, and all three epilogues would then run
+    // with the tensor cores idle; in turns, each one's epilogue overlaps
+    // the others' wgmmas.
+    if (s > 0 || wg > 0) bar_sync(kTurn + wg, 256);
     // One tap per iteration, its K steps unrolled with the descriptor
     // offsets as immediates: unrolling all 9 taps makes ptxas compute every
     // descriptor up front, more than the uniform registers hold.
@@ -361,6 +432,7 @@ conv3x3_int8_kernel(const __grid_constant__ ConvArgs p) {
       }
     }
     wgmma_commit();
+    if (s + 1 < items || wg + 1 < TILES) bar_arrive(kTurn + (wg + 1) % TILES, 256);
     wgmma_wait<0>();
     if (s + 2 < items) bar_arrive(kEmpty + b, CONV_THREADS);
     if (p.nch > 1 && s + 1 < items) bar_arrive(kWEmpty, CONV_THREADS);
@@ -369,18 +441,25 @@ conv3x3_int8_kernel(const __grid_constant__ ConvArgs p) {
     // Epilogue from the accumulators: element 4j + 2h + e is tile row
     // 16 warp + lane / 4 + 8h (image row 8 wg + 2 warp + h of the rectangle,
     // column lane / 4), output channel n0 + 8j + 2 (lane % 4) + e.
-    long long img;
-    int h0, w0;
-    origin(r, img, h0, w0);
-    const int ow = w0 + lane / 4, nl = 2 * (lane % 4);
-    // Whole tiles (the serving case) take straight-line code: no test per
-    // column, one 8-byte (fp32) or 2-byte (int8) store per column pair.
-    const bool whole = n0 + NT <= p.Cout && p.Cout % 2 == 0;
+    const int px = lane / 4, q = lane % 4, nl = 2 * q;
+    // Whole tiles (the serving case) go through the warp's staging buffers,
+    // 32 channels (four column pairs j) at a time, so that global memory
+    // sees 16-byte accesses, eight consecutive lanes on a pixel's 128 fp32
+    // bytes and two on its 32 int8 bytes, not 8- or 2-byte pieces of
+    // eight pixels. The buffers are swizzled (16-byte chunk c of pixel x at
+    // c ^ 2x in fp32, half c at c ^ (x / 4) in int8) so that neither side
+    // conflicts on banks.
+    const bool whole = n0 + NT <= p.Cout && p.Cout % 16 == 0;
+    unsigned char* sf = s_stage + (tid / 32) * STAGE_WARP;
+    unsigned char* si = sf + STAGE_F32;
+    auto f32_at = [&](int x, int c) { return sf + x * 128 + 16 * (c ^ (2 * x & 7)); };
+    auto i8_at = [&](int x, int c) { return si + x * 32 + 16 * (c ^ (x >> 2 & 1)); };
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int oh = h0 + 8 * wg + 2 * warp + h;
-      if (oh >= p.H || ow >= p.W) continue;
-      const long long o = (img + (long long)oh * p.W + ow) * p.Cout + n0;
+      if (oh >= p.H) continue;
+      // output element (channel n0) of the row's first pixel, column w0
+      const long long row = (img + (long long)oh * p.W + w0) * p.Cout + n0;
       auto y2 = [&](int j) {
         const float2 dq = *reinterpret_cast<const float2*>(s_deq + 8 * j + nl);
         const float2 bs = *reinterpret_cast<const float2*>(s_bias + 8 * j + nl);
@@ -394,32 +473,72 @@ conv3x3_int8_kernel(const __grid_constant__ ConvArgs p) {
         return y;
       };
       if (whole) {
-        if constexpr (OUT_F32) {
-          float* dst = static_cast<float*>(p.out) + o + nl;
+        // Lane L's fp32 chunk of group g: pixel 4i + L / 8, chunk L % 8.
+        auto f32_global = [&](int g, int i) {
+          return row + (long long)(4 * i + lane / 8) * p.Cout + 32 * g + 4 * (lane % 8);
+        };
+        auto in_image = [&](int x) { return w0 + x < p.W; };
+        float4 rs[2][2];  // the residual of groups g and g + 1
+        auto load_res = [&](int g, float4 (&r)[2]) {
 #pragma unroll
-          for (int j = 0; j < 16; ++j) *reinterpret_cast<float2*>(dst + 8 * j) = y2(j);
-        } else {
-          int8_t* dst = static_cast<int8_t*>(p.out) + o + nl;
+          for (int i = 0; i < 2; ++i)
+            r[i] = in_image(4 * i + lane / 8)
+                       ? __ldg(reinterpret_cast<const float4*>(p.res + f32_global(g, i)))
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+        };
+        if constexpr (RES) load_res(0, rs[0]);
 #pragma unroll
-          for (int j = 0; j < 16; ++j) {
-            const float2 y = y2(j);
-            const int q0 = requant1(y.x, p.out_inv_x), q1 = requant1(y.y, p.out_inv_x);
-            *reinterpret_cast<uint16_t*>(dst + 8 * j) =
-                (uint16_t)((q0 & 0xff) | ((q1 & 0xff) << 8));
+        for (int g = 0; g < 4; ++g) {
+          if constexpr (RES) {
+            if (g < 3) load_res(g + 1, rs[(g + 1) & 1]);
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              *reinterpret_cast<float4*>(f32_at(4 * i + lane / 8, lane % 8)) = rs[g & 1][i];
+            __syncwarp();
           }
+          float2 y[4];
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            y[a] = y2(4 * g + a);
+            float2* at = reinterpret_cast<float2*>(f32_at(px, 2 * a + q / 2) + 8 * (q & 1));
+            if constexpr (RES)
+              y[a] = make_float2(residual(at->x, y[a].x, p.rate), residual(at->y, y[a].y, p.rate));
+            if constexpr ((OUT & kOutF32) != 0) *at = y[a];
+            if constexpr ((OUT & kOutI8) != 0)
+              *reinterpret_cast<uint16_t*>(i8_at(px, a / 2) + (8 * a + nl) % 16) =
+                  requant2(y[a], p.out_inv_x);
+          }
+          __syncwarp();
+          if constexpr ((OUT & kOutF32) != 0) {
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              if (in_image(4 * i + lane / 8))
+                *reinterpret_cast<float4*>(p.out + f32_global(g, i)) =
+                    *reinterpret_cast<const float4*>(f32_at(4 * i + lane / 8, lane % 8));
+          }
+          if constexpr ((OUT & kOutI8) != 0) {
+            const int x = lane / 2, c = lane % 2;
+            if (lane < 16 && in_image(x))
+              *reinterpret_cast<uint4*>(p.out8 + row + (long long)x * p.Cout + 32 * g + 16 * c) =
+                  *reinterpret_cast<const uint4*>(i8_at(x, c));
+          }
+          __syncwarp();  // the buffers take the next group
         }
       } else {
+        const int ow = w0 + px;
+        if (ow >= p.W) continue;
+        const long long o = row + (long long)px * p.Cout;
 #pragma unroll
         for (int j = 0; j < 16; ++j) {
           const int n = 8 * j + nl;
           const float2 y = y2(j);
           for (int e = 0; e < 2; ++e) {
             if (n0 + n + e >= p.Cout) break;
-            const float v = e ? y.y : y.x;
-            if constexpr (OUT_F32)
-              static_cast<float*>(p.out)[o + n + e] = v;
-            else
-              static_cast<int8_t*>(p.out)[o + n + e] = (int8_t)requant1(v, p.out_inv_x);
+            float v = e ? y.y : y.x;
+            if constexpr (RES) v = residual(p.res[o + n + e], v, p.rate);
+            if constexpr ((OUT & kOutF32) != 0) p.out[o + n + e] = v;
+            if constexpr ((OUT & kOutI8) != 0)
+              p.out8[o + n + e] = (int8_t)requant1(v, p.out_inv_x);
           }
         }
       }
@@ -427,16 +546,30 @@ conv3x3_int8_kernel(const __grid_constant__ ConvArgs p) {
   }
 }
 
-template <bool IN_F32, bool OUT_F32>
+template <bool IN_F32, int OUT, bool RES>
 cudaError_t launch_conv(const ConvArgs& p, int grid_x, int ntiles, cudaStream_t stream) {
-  auto kernel = p.cc == MAX_CC ? conv3x3_int8_kernel<IN_F32, OUT_F32, MAX_CC / 32>
-                               : conv3x3_int8_kernel<IN_F32, OUT_F32, 0>;
+  auto kernel = p.cc == MAX_CC ? conv3x3_int8_kernel<IN_F32, OUT, RES, MAX_CC / 32>
+                               : conv3x3_int8_kernel<IN_F32, OUT, RES, 0>;
   const int bytes = conv_smem_bytes(p.cc);
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return e;
   kernel<<<dim3(grid_x, ntiles), CONV_THREADS, bytes, stream>>>(p);
   return cudaGetLastError();
+}
+
+// The instantiation for p's input type, outputs and residual.
+template <bool IN_F32>
+cudaError_t dispatch_conv(const ConvArgs& p, int grid_x, int ntiles, cudaStream_t stream) {
+  const int out = (p.out ? kOutF32 : 0) | (p.out8 ? kOutI8 : 0);
+  if (p.res) {
+    if (out == kOutF32) return launch_conv<IN_F32, kOutF32, true>(p, grid_x, ntiles, stream);
+    if (out == kOutI8) return launch_conv<IN_F32, kOutI8, true>(p, grid_x, ntiles, stream);
+    return launch_conv<IN_F32, kOutF32 | kOutI8, true>(p, grid_x, ntiles, stream);
+  }
+  if (out == kOutF32) return launch_conv<IN_F32, kOutF32, false>(p, grid_x, ntiles, stream);
+  if (out == kOutI8) return launch_conv<IN_F32, kOutI8, false>(p, grid_x, ntiles, stream);
+  return launch_conv<IN_F32, kOutF32 | kOutI8, false>(p, grid_x, ntiles, stream);
 }
 
 // ------------------------------------------------------------------ GEMM --
@@ -713,19 +846,21 @@ extern "C" int isr_transpose(const void* in, void* out, int R, int C, int esize,
 // Implicit-GEMM 3x3 conv, zero padding 1, on `stream`: x (B,H,W,Cin) fp32
 // (in_f32, requantized on load with inv_x) or int8; w_k (Npad, 9*Cin) int8
 // K-major (ops/kernels/matmul.py:weights_k_major), Npad = 128 * ntiles >=
-// Cout; deq/bias (Cout,) fp32; out (B,H,W,Cout) fp32 (out_f32) or int8
-// (requantized with out_inv_x). The launch plan (conv_plan in the wrapper):
-// K chunks of cc channels (cc % 32 == 0, cc <= 128, Cin % cc == 0) and
-// grid_x persistent blocks per 128 output channels (at most one per
-// rectangle); the RH x RW rectangles that cover each image are counted
-// here. Returns a cudaError_t (0 on success).
+// Cout; deq/bias (Cout,) fp32; y = fl(fl(acc * deq) + bias), leaky; with
+// res (B,H,W,Cout) fp32, not null, y becomes res + y * rate; then stored
+// in fp32 to out and / or requantized with out_inv_x to int8 out8 (each
+// (B,H,W,Cout) or null, not both null; none of them aliases res or x). The
+// launch plan (conv_plan in the wrapper): K chunks of cc channels (cc % 32
+// == 0, cc <= 128, Cin % cc == 0) and grid_x persistent blocks per 128
+// output channels (at most one per rectangle); the RH x RW rectangles that
+// cover each image are counted here. Returns a cudaError_t (0 on success).
 extern "C" int isr_conv3x3_int8(const void* x, const void* w_k, const void* deq,
-                                const void* bias, void* out, int B, int H, int W, int Cin,
-                                int Cout, int in_f32, int out_f32, int leaky, float slope,
-                                float inv_x, float out_inv_x, int cc, int grid_x,
-                                void* stream) {
+                                const void* bias, const void* res, void* out, void* out8,
+                                int B, int H, int W, int Cin, int Cout, int in_f32, int leaky,
+                                float slope, float rate, float inv_x, float out_inv_x, int cc,
+                                int grid_x, void* stream) {
   if (B < 1 || H < 1 || W < 1 || Cin < 32 || Cin % 32 || Cout < 1 || cc < 32 || cc % 32 ||
-      cc > MAX_CC || Cin % cc || grid_x < 1)
+      cc > MAX_CC || Cin % cc || grid_x < 1 || (out == nullptr && out8 == nullptr))
     return (int)cudaErrorInvalidValue;
   const int rects_h = (H + RH - 1) / RH, rects_w = (W + RW - 1) / RW;
   ConvArgs p;
@@ -733,7 +868,9 @@ extern "C" int isr_conv3x3_int8(const void* x, const void* w_k, const void* deq,
   p.wk = static_cast<const int8_t*>(w_k);
   p.deq = static_cast<const float*>(deq);
   p.bias = static_cast<const float*>(bias);
-  p.out = out;
+  p.res = static_cast<const float*>(res);
+  p.out = static_cast<float*>(out);
+  p.out8 = static_cast<int8_t*>(out8);
   p.H = H;
   p.W = W;
   p.Cin = Cin;
@@ -745,18 +882,14 @@ extern "C" int isr_conv3x3_int8(const void* x, const void* w_k, const void* deq,
   p.rects = B * rects_h * rects_w;
   p.leaky = leaky;
   p.slope = slope;
+  p.rate = rate;
   p.inv_x = inv_x;
   p.out_inv_x = out_inv_x;
   const int ntiles = (Cout + NT - 1) / NT;
   grid_x = grid_x < p.rects ? grid_x : p.rects;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (in_f32)
-    e = out_f32 ? launch_conv<true, true>(p, grid_x, ntiles, st)
-                : launch_conv<true, false>(p, grid_x, ntiles, st);
-  else
-    e = out_f32 ? launch_conv<false, true>(p, grid_x, ntiles, st)
-                : launch_conv<false, false>(p, grid_x, ntiles, st);
+  const cudaError_t e = in_f32 ? dispatch_conv<true>(p, grid_x, ntiles, st)
+                               : dispatch_conv<false>(p, grid_x, ntiles, st);
   return (int)e;
 }
 

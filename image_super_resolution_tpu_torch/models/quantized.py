@@ -10,17 +10,22 @@ Scheme (symmetric PTQ):
   ``ops/kernels/matmul.py``'s ``conv3x3_int8`` (the hand-written kernel on
   the card), dequantized in its epilogue (``acc * deq + bias``, leaky on
   conv0 sites); the residual stream between them stays fp32, and each
-  site's input is requantized afresh (``clip(round(h * inv_x), +-127)``,
-  inv_x = 1 / s_x in fp32, inside the kernel's operand load on the card),
-  except a conv1 site's: its conv0 requantizes its own output with conv1's
-  ``inv_x`` in the epilogue and hands it over in int8 (the same function:
-  nothing else reads conv0's output);
+  site's input is its fp32 value requantized (``clip(round(h * inv_x),
+  +-127)``, inv_x = 1 / s_x in fp32). Only block 0's conv0 requantizes as
+  it loads (the head is a bf16 conv); every other site is handed its input
+  in int8 by the site before it, whose epilogue requantizes with the next
+  site's ``inv_x`` (the same function): a conv0 its own output, a conv1 the
+  block's sum ``h + add_rate * t``, which it computes in its epilogue and
+  also stores in fp32 for the next block's residual (the last conv1
+  stores int8 only); ``trunk_conv``'s epilogue adds the global skip;
 - head, tail and the refinement tail stay bf16.
 
 ``fast_forward`` is ``models/fast.py``'s forward written as a function of a
 param dict (the port's ``state_dict`` names), with the JAX hooks: ``record``
 sees every trunk conv input (calibration) and ``quant`` replaces every
-trunk conv (int8 serving). Without hooks it is the bf16 module's forward.
+trunk conv, the residual stream then in fp32 torch ops (the unfused int8
+route, which ``int8_forward`` equals bit for bit). Without hooks it is the
+bf16 module's forward.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ import torch
 
 from ..core.device import resolve_device
 from ..data.transforms import normalize, tanh_to_uint8
-from ..ops.activations import apply_act
+from ..ops.activations import apply_act, dtype_scalar
 from ..ops.conv import conv_bias_nhwc
 from ..ops.kernels.matmul import conv3x3_int8, weights_k_major
 from ..ops.pixel_shuffle import pixel_shuffle
@@ -67,6 +72,28 @@ def _bf16_conv_act(x: torch.Tensor, params, name: str, act: bool) -> torch.Tenso
     return apply_act(y, _LEAKY) if act else y
 
 
+def _head(params: Dict[str, Any], x: torch.Tensor, downshuffle: int) -> torch.Tensor:
+    return _bf16_conv_act(downshuffle_front(x.to(torch.bfloat16), downshuffle), params,
+                          "head", act=True)
+
+
+def _tail(params: Dict[str, Any], x: torch.Tensor, add_rate: float, r: int,
+          refine_blocks: int) -> torch.Tensor:
+    """The trunk's output (after the global skip) -> tanh output at ``r``
+    times the trunk's resolution, in bf16."""
+    if refine_blocks:
+        x = _bf16_conv_act(x, params, "refine_proj", act=True)
+        if r > 1:
+            x = pixel_shuffle(x, r)
+        for i in range(refine_blocks):
+            t = _bf16_conv_act(x, params, f"refine{i}.conv0", act=True)
+            t = _bf16_conv_act(t, params, f"refine{i}.conv1", act=False)
+            x = x + scale_residual(t, add_rate)
+        return torch.tanh(_bf16_conv_act(x, params, "tail", act=False))
+    x = torch.tanh(_bf16_conv_act(x, params, "tail", act=False))
+    return pixel_shuffle(x, r) if r > 1 else x
+
+
 def fast_forward(
     params: Dict[str, Any],
     x: torch.Tensor,
@@ -92,28 +119,14 @@ def fast_forward(
         return _bf16_conv_act(h, params, site, act)
 
     h_in, w_in = x.shape[1], x.shape[2]
-    x = downshuffle_front(x.to(torch.bfloat16), downshuffle)
-    x = _bf16_conv_act(x, params, "head", act=True).to(stream)
+    x = _head(params, x, downshuffle).to(stream)
     h = x
     for i in range(depth):
         t = site_conv(f"block{i}.conv0", h, act=True)
         t = site_conv(f"block{i}.conv1", t, act=False)
         h = h + scale_residual(t.to(stream), add_rate)
     x = x + site_conv("trunk_conv", h, act=False).to(stream)
-    r = scale * downshuffle
-    if refine_blocks:
-        x = _bf16_conv_act(x, params, "refine_proj", act=True)
-        if r > 1:
-            x = pixel_shuffle(x, r)
-        for i in range(refine_blocks):
-            t = _bf16_conv_act(x, params, f"refine{i}.conv0", act=True)
-            t = _bf16_conv_act(t, params, f"refine{i}.conv1", act=False)
-            x = x + scale_residual(t, add_rate)
-        x = torch.tanh(_bf16_conv_act(x, params, "tail", act=False))
-    else:
-        x = torch.tanh(_bf16_conv_act(x, params, "tail", act=False))
-        if r > 1:
-            x = pixel_shuffle(x, r)
+    x = _tail(params, x, add_rate, scale * downshuffle, refine_blocks)
     return x[:, :h_in * scale, :w_in * scale].float()
 
 
@@ -203,31 +216,48 @@ def quantize_fast_params(params: Dict[str, Any], act_scales: Dict[str, float],
 
 
 def quant_site(p: Dict[str, Any], h: torch.Tensor, leaky: bool,
-               out_inv_x: Optional[float] = None) -> torch.Tensor:
+               out_inv_x: Optional[float] = None, res: Optional[torch.Tensor] = None,
+               rate: float = 1.0, keep_fp32: bool = False):
     """One int8 trunk site: the fp32 input requantized with the site's
     scale (inside the kernel on the card), or an int8 input as it is; the
-    int8 conv and its dequantizing epilogue; fp32 out, or int8 requantized
-    with ``out_inv_x`` (the next site's scale)."""
+    int8 conv and its dequantizing epilogue, then ``res + y * rate`` when
+    ``res`` is given; fp32 out, or int8 requantized with ``out_inv_x`` (the
+    next site's scale), or both with ``keep_fp32``."""
     return conv3x3_int8(h, p["w_q"], p["deq"], p["bias"], leaky=leaky,
                         inv_x=None if h.dtype == torch.int8 else p["inv_x"],
-                        out_inv_x=out_inv_x, w_k=p.get("w_k"))
+                        out_inv_x=out_inv_x, w_k=p.get("w_k"), res=res, rate=rate,
+                        keep_fp32=keep_fp32)
 
 
 def int8_forward(qparams: Dict[str, Any], x: torch.Tensor, depth: int,
                  add_rate: float, scale: int, downshuffle: int = 1,
                  refine_blocks: int = 0) -> torch.Tensor:
-    """Serving forward with the trunk convs in int8 (int32 sums). A conv0
-    site hands its output to its conv1 in int8, requantized with conv1's
-    scale in conv0's epilogue."""
-
-    def quant(site, h):
-        if site.endswith("conv0"):
-            nxt = qparams[site[:-1] + "1"]["inv_x"]
-            return quant_site(qparams[site], h, leaky=True, out_inv_x=nxt)
-        return quant_site(qparams[site], h, leaky=False)
-
-    return fast_forward(qparams, x, depth, add_rate, scale, quant=quant,
-                        downshuffle=downshuffle, refine_blocks=refine_blocks)
+    """Serving forward with the trunk convs in int8 (int32 sums), each site
+    handed its input in int8 by the one before it (block 0's conv0 takes
+    the head's fp32 output): a conv0 requantizes its output with its
+    conv1's scale; a conv1 finishes its block, ``h + add_rate * t`` in its
+    epilogue, stored in fp32 (the next block's residual; not after the
+    last block, whose sum only ``trunk_conv`` reads) and in int8 with the
+    next site's scale; ``trunk_conv`` adds the head's output. The same
+    values, bit for bit, as ``fast_forward`` with a ``quant`` that runs
+    each site on its fp32 input."""
+    h_in, w_in = x.shape[1], x.shape[2]
+    x = _head(qparams, x, downshuffle).float()
+    rate = dtype_scalar(add_rate, torch.float32)
+    h, h8 = x, None  # the fp32 stream, and its int8 copy for the next site
+    for i in range(depth):
+        conv0, conv1 = qparams[f"block{i}.conv0"], qparams[f"block{i}.conv1"]
+        last = i == depth - 1
+        nxt = qparams["trunk_conv" if last else f"block{i + 1}.conv0"]["inv_x"]
+        t8 = quant_site(conv0, h if h8 is None else h8, leaky=True, out_inv_x=conv1["inv_x"])
+        if last:
+            h, h8 = None, quant_site(conv1, t8, leaky=False, out_inv_x=nxt, res=h, rate=rate)
+        else:
+            h, h8 = quant_site(conv1, t8, leaky=False, out_inv_x=nxt, res=h, rate=rate,
+                               keep_fp32=True)
+    x = quant_site(qparams["trunk_conv"], x if h8 is None else h8, leaky=False, res=x)
+    x = _tail(qparams, x, add_rate, scale * downshuffle, refine_blocks)
+    return x[:, :h_in * scale, :w_in * scale].float()
 
 
 # ------------------------------------------------------------- deployment --

@@ -6,17 +6,21 @@ Replaces the JAX package's Pallas kernel ``pallas_matmul`` (body
 loop accumulates in a scratch tile, int8 -> int32 or bf16 -> fp32. Two
 entry points:
 
-- ``conv3x3_int8(x, w_q, deq, bias, leaky, inv_x, out_inv_x, w_k)``: the
-  trunk site of ``models/quantized.py``'s ``int8_forward`` as an implicit
-  GEMM, NHWC, zero padding 1. ``x`` is the fp32 stream with its scale
-  ``inv_x`` (requantized as the kernel loads it, ``requantize``) or int8
-  with ``inv_x=None``. ``w_q`` is the (9*Cin, Cout) matmul form (rows
-  (dy, dx, cin), as the JAX package holds it); the kernel reads its K-major
-  copy ``w_k = weights_k_major(w_q)``, which callers lay out once and pass
-  in (required on the card). int32 sums, then ``float(acc) * deq + bias`` in fp32, each op rounded,
-  leaky_relu 0.01 when ``leaky``; fp32 out, or, with ``out_inv_x``, int8
-  requantized with that scale (a conv0 site handing off to its conv1).
-  Cin % 32 on the card; any Cout, B, H, W.
+- ``conv3x3_int8(x, w_q, deq, bias, leaky, inv_x, out_inv_x, w_k, res,
+  rate, keep_fp32)``: the trunk site of ``models/quantized.py``'s
+  ``int8_forward`` as an implicit GEMM, NHWC, zero padding 1. ``x`` is the
+  fp32 stream with its scale ``inv_x`` (requantized as the kernel loads
+  it, ``requantize``) or int8 with ``inv_x=None``. ``w_q`` is the
+  (9*Cin, Cout) matmul form (rows (dy, dx, cin), as the JAX package holds
+  it); the kernel reads its K-major copy ``w_k = weights_k_major(w_q)``,
+  which callers lay out once and pass in (required on the card). int32
+  sums, then ``float(acc) * deq + bias`` in fp32, each op rounded,
+  leaky_relu 0.01 when ``leaky``; with ``res`` (fp32, the output's shape)
+  the residual update ``res + y * rate``, two rounded ops (a conv1 site
+  finishing its block, ``trunk_conv`` the global skip). fp32 out; or,
+  with ``out_inv_x``, int8 requantized with that scale (a conv0 site
+  handing off to its conv1, a conv1 site to the next block's conv0); or,
+  with ``keep_fp32`` too, both. Cin % 32 on the card; any Cout, B, H, W.
 - ``matmul(a, b)``: (M, K) x (K, N), any M and N; K % 32 for int8 and
   K % 16 for bf16 on the card. The int8 result is exact. The kernel reads
   both operands K-major, so each call first transposes B (a small kernel
@@ -75,16 +79,23 @@ def requantize(h: torch.Tensor, inv_x: float) -> torch.Tensor:
 
 
 def conv3x3_int8_reference(x, w_q, deq, bias, leaky: bool, inv_x: float | None = None,
-                           out_inv_x: float | None = None) -> torch.Tensor:
+                           out_inv_x: float | None = None, res: torch.Tensor | None = None,
+                           rate: float = 1.0, keep_fp32: bool = False):
     """Plain version of the int8 conv site: requantize an fp32 ``x`` (int8
     ``x`` is taken as it is), exact sums, then the kernel's fp32 epilogue in
-    the same order (``acc * deq``, ``+ bias``, leaky), requantized with
-    ``out_inv_x`` when it is given."""
+    the same order (``acc * deq``, ``+ bias``, leaky, ``res + y * rate``
+    when ``res`` is given), requantized with ``out_inv_x`` when it is
+    given, and then returned beside the fp32 values when ``keep_fp32``."""
     x8 = x if inv_x is None else requantize(x, inv_x)
     y = conv3x3_int8_accumulators(x8, w_q).float() * deq + bias
     if leaky:
         y = apply_act(y, ("leaky_relu", LEAKY_SLOPE))
-    return y if out_inv_x is None else requantize(y, out_inv_x)
+    if res is not None:
+        y = res + y * rate
+    if out_inv_x is None:
+        return y
+    q = requantize(y, out_inv_x)
+    return (y, q) if keep_fp32 else q
 
 
 def weights_k_major(w_q: torch.Tensor) -> torch.Tensor:
@@ -144,8 +155,8 @@ def bind_conv(lib: ctypes.CDLL) -> tuple:
     """Declare ``isr_conv3x3_int8``'s C signature on a library built from
     ``csrc/matmul.cu`` (or a variant of it) and return the tiling it was
     built with, (RH, RW, NT, MAX_CC)."""
-    lib.isr_conv3x3_int8.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
-        ctypes.c_float] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.isr_conv3x3_int8.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+        ctypes.c_float] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     lib.isr_conv3x3_int8.restype = ctypes.c_int
     lib.isr_conv3x3_int8_tiling.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.isr_conv3x3_int8_tiling.restype = None
@@ -213,19 +224,26 @@ def _sm_count(index: int) -> int:
 
 def conv3x3_int8(x: torch.Tensor, w_q: torch.Tensor, deq: torch.Tensor,
                  bias: torch.Tensor, leaky: bool, inv_x: float | None = None,
-                 out_inv_x: float | None = None,
-                 w_k: torch.Tensor | None = None) -> torch.Tensor:
+                 out_inv_x: float | None = None, w_k: torch.Tensor | None = None,
+                 res: torch.Tensor | None = None, rate: float = 1.0,
+                 keep_fp32: bool = False):
     """One int8 trunk site, NHWC: fp32 ``x`` with its scale ``inv_x``
-    (requantized on load) or int8 ``x`` with ``inv_x=None``; fp32 out, or
-    int8 requantized with ``out_inv_x``. ``w_k``: ``weights_k_major(w_q)``,
-    laid out once by the caller; the card needs it, the CPU reads ``w_q``.
-    CPU tensors: the plain version. CUDA tensors: the hand-written kernel on
-    the current stream, or an error."""
+    (requantized on load) or int8 ``x`` with ``inv_x=None``; with ``res``
+    (fp32, the output's shape) the epilogue adds ``res + y * rate``; fp32
+    out, or int8 requantized with ``out_inv_x``, or the pair (fp32, int8)
+    with ``keep_fp32``. ``w_k``: ``weights_k_major(w_q)``, laid out once by
+    the caller; the card needs it, the CPU reads ``w_q``. CPU tensors: the
+    plain version. CUDA tensors: the hand-written kernel on the current
+    stream, or an error."""
     if (x.dtype == torch.int8) != (inv_x is None):
         raise TypeError("x must be fp32 with its inv_x, or int8 with inv_x=None; got "
                         f"{x.dtype} with inv_x={inv_x}")
+    if keep_fp32 and out_inv_x is None:
+        raise ValueError("keep_fp32 keeps the fp32 output beside the int8 one: it needs "
+                         "out_inv_x")
     if x.device.type == "cpu":
-        return conv3x3_int8_reference(x, w_q, deq, bias, leaky, inv_x, out_inv_x)
+        return conv3x3_int8_reference(x, w_q, deq, bias, leaky, inv_x, out_inv_x, res, rate,
+                                      keep_fp32)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if x.dtype not in (torch.float32, torch.int8) or w_q.dtype != torch.int8:
@@ -242,6 +260,9 @@ def conv3x3_int8(x: torch.Tensor, w_q: torch.Tensor, deq: torch.Tensor,
     cout = w_q.shape[1]
     if deq.numel() != cout or bias.numel() != cout:
         raise ValueError(f"deq and bias must hold {cout} values")
+    if res is not None and (res.dtype != torch.float32 or tuple(res.shape) != (b, h, w, cout)):
+        raise ValueError(f"res must be fp32 {(b, h, w, cout)}, got {res.dtype} "
+                         f"{tuple(res.shape)}")
     npad = -(-cout // N_TILE) * N_TILE
     if w_k is None:
         raise ValueError(f"the kernel needs w_k = weights_k_major(w_q), ({npad}, {9 * cin}) "
@@ -249,34 +270,60 @@ def conv3x3_int8(x: torch.Tensor, w_q: torch.Tensor, deq: torch.Tensor,
     if w_k.dtype != torch.int8 or tuple(w_k.shape) != (npad, 9 * cin):
         raise ValueError(f"w_k must be int8 ({npad}, {9 * cin}), got {w_k.dtype} "
                          f"{tuple(w_k.shape)}")
-    _check_operands(x, w_q, w_k, deq, bias)
-    out = torch.empty((b, h, w, cout), device=x.device,
-                      dtype=torch.float32 if out_inv_x is None else torch.int8)
-    if out.numel() == 0:
-        return out
+    _check_operands(x, w_q, w_k, deq, bias, *([] if res is None else [res]))
+    # out of place: the first block's residual is the head's output, which
+    # the global skip reads again
+    out = (torch.empty((b, h, w, cout), device=x.device, dtype=torch.float32)
+           if out_inv_x is None or keep_fp32 else None)
+    out8 = (torch.empty((b, h, w, cout), device=x.device, dtype=torch.int8)
+            if out_inv_x is not None else None)
+    result = out if out8 is None else (out, out8) if keep_fp32 else out8
+    if b * h * w * cout == 0:
+        return result
     plan = conv_plan(b, h, w, cin, cout, _sm_count(x.device.index or 0))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _library().isr_conv3x3_int8(
-            x.data_ptr(), w_k.data_ptr(), deq.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            b, h, w, cin, cout, int(x.dtype == torch.float32), int(out_inv_x is None),
-            int(bool(leaky)), LEAKY_SLOPE, float(inv_x or 0.0), float(out_inv_x or 0.0),
+            x.data_ptr(), w_k.data_ptr(), deq.data_ptr(), bias.data_ptr(), ptr(res), ptr(out),
+            ptr(out8), b, h, w, cin, cout, int(x.dtype == torch.float32), int(bool(leaky)),
+            LEAKY_SLOPE, float(rate), float(inv_x or 0.0), float(out_inv_x or 0.0),
             plan["cc"], plan["grid_x"], stream)
     _raise_on(err, "conv3x3_int8")
     conv3x3_int8.launches += 1
-    variant = conv_variant(x.dtype, out.dtype)
-    conv3x3_int8.launches_by_variant[variant] = \
-        conv3x3_int8.launches_by_variant.get(variant, 0) + 1
-    return out
+    _count(conv3x3_int8.launches_by_variant,
+           conv_variant(x.dtype, torch.float32 if out is not None else torch.int8))
+    for epilogue in conv_epilogues(res is not None, out_inv_x is not None):
+        _count(conv3x3_int8.launches_by_epilogue, epilogue)
+    return result
+
+
+def _count(counts: dict, key: str) -> None:
+    counts[key] = counts.get(key, 0) + 1
 
 
 def conv_variant(in_dtype: torch.dtype, out_dtype: torch.dtype) -> str:
-    """The conv site's variant by its input and output dtypes, e.g.
-    ``"fp32 -> int8"`` (a conv0 site handing off to its conv1)."""
+    """The conv site's variant by its input and (fp32, if it stores one)
+    output dtypes, e.g. ``"fp32 -> int8"`` (a conv0 site handing off to its
+    conv1)."""
     names = {torch.float32: "fp32", torch.int8: "int8"}
     return f"{names[in_dtype]} -> {names[out_dtype]}"
+
+
+def conv_epilogues(residual: bool, int8_out: bool) -> tuple:
+    """What the conv site's epilogue does beyond dequantizing, as
+    ``launches_by_epilogue`` counts it: ``"residual"``, it adds
+    ``res + y * rate``; ``"int8 copy"``, it stores that sum in int8 for the
+    next site."""
+    if not residual:
+        return ()
+    return ("residual", "int8 copy") if int8_out else ("residual",)
 
 
 matmul.launches = 0
 conv3x3_int8.launches = 0
 conv3x3_int8.launches_by_variant = {}  # conv_variant(...) -> launches
+conv3x3_int8.launches_by_epilogue = {}  # conv_epilogues(...) entries -> launches

@@ -2,17 +2,21 @@
 """A/B of design variants of the port's int8 conv kernel (K2, csrc/matmul.cu)
 on one NVIDIA GPU.
 
-    python3 scripts/torch_k2_variants.py [--rounds 2]
+    python3 scripts/torch_k2_variants.py [--rounds 2] [--shape 256,24,24]
+        [--variants "as built,no turns"]
 
 Each variant is the kernel's source with a few lines replaced (VARIANTS
-below); all are compiled side by side with nvcc into build/k2_variants/ and
-timed by CUDA events, in turns, on the three serving variants of the site
-(fp32 -> fp32, fp32 -> int8, int8 -> fp32) at the fast x4 serving shape
-(b256 t24, 128 -> 128 channels); each library counts its own rectangles.
-Each result line also counts the values
-that differ from the plain version: the diagnostic variants (no epilogue,
-no wgmma) compute the wrong result on purpose and show where the time goes.
-Prints the card's name and power limit first.
+below); all (or those named) are compiled side by side with nvcc into
+build/k2_variants/ and timed by CUDA events, in turns, on the five sites of
+the fast int8 forward (SITES: block 0's conv0, the other conv0 sites, the
+conv1 sites with their residual epilogue, the last conv1, trunk_conv) at a
+batch shape, 128 -> 128 channels: the fast x4 serving tiles (b256 t24, the
+default) or video frames (8,270,480); each library counts its own
+rectangles. Each result
+line also counts the values that differ from the plain version: the
+diagnostic variants (no epilogue, no wgmma) compute the wrong result on
+purpose and show where the time goes. A variant that does not build is left
+out with nvcc's message. Prints the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -56,17 +60,38 @@ VARIANTS = {
         ("constexpr int UNROLL = 4;", "constexpr int UNROLL = 5;")]),
     "producer unroll 6": ("six 64-byte fp32 chunks in flight per producer thread", [
         ("constexpr int UNROLL = 4;", "constexpr int UNROLL = 6;")]),
+    "no residual prefetch": ("the residual read by the epilogue without its L2 prefetch "
+                             "while the wgmmas run", [
+        ("          if (k * 128 < span) prefetch_l2(row + k * 128);", "          ;")]),
+    "fp32 stores direct": ("the epilogue's fp32 stores straight from the accumulator layout "
+                           "(8 bytes a lane), not staged", [
+        ("            if constexpr ((OUT & kOutF32) != 0) *at = y[a];",
+         "            if constexpr ((OUT & kOutF32) != 0)\n"
+         "              if (in_image(px))\n"
+         "                *reinterpret_cast<float2*>(p.out + row + (long long)px * p.Cout +\n"
+         "                                           32 * g + 8 * a + nl) = y[a];"),
+        ("          if constexpr ((OUT & kOutF32) != 0) {\n#pragma unroll",
+         "          if constexpr (false) {\n#pragma unroll")]),
+    "no turns": ("the warpgroups issue their wgmmas as their patch arrives, together", [
+        ("    if (s > 0 || wg > 0) bar_sync(kTurn + wg, 256);\n", ""),
+        ("    if (s + 1 < items || wg + 1 < TILES) bar_arrive(kTurn + (wg + 1) % TILES, 256);\n",
+         "")]),
     "no epilogue": ("diagnostic: nothing stored", [
         ("    if (ch != p.nch - 1) continue;", "    continue;")]),
     "no wgmma": ("diagnostic: no multiply, the epilogue stores the zero sums", [
         ("        tap_wgmmas(acc, at, bt, scale_d, std::make_integer_sequence<int, KS>());",
          "")]),
 }
-SITES = (("fp32 -> fp32", True, False), ("fp32 -> int8", True, True),
-         ("int8 -> fp32", False, False))
+# (name, fp32 input, outputs, residual epilogue), as models/quantized.int8_forward
+# runs them
+SITES = (("conv0 fp32 -> int8", True, "int8", False),
+         ("conv0 int8 -> int8", False, "int8", False),
+         ("conv1 int8 -> fp32 + int8, residual", False, "both", True),
+         ("last conv1 int8 -> int8, residual", False, "int8", True),
+         ("trunk_conv int8 -> fp32, residual", False, "fp32", True))
 
 
-def build(out_dir: Path) -> dict:
+def build(out_dir: Path, names) -> dict:
     from image_super_resolution_tpu_torch.ops.kernels._build import CSRC, NVCC_FLAGS, _nvcc
     from image_super_resolution_tpu_torch.ops.kernels.matmul import bind_conv
 
@@ -75,7 +100,8 @@ def build(out_dir: Path) -> dict:
         (out_dir / header.name).write_text(header.read_text())
     base = (CSRC / "matmul.cu").read_text()
     procs = {}
-    for i, (name, (_, reps)) in enumerate(VARIANTS.items()):
+    for i, name in enumerate(names):
+        reps = VARIANTS[name][1]
         src = base
         for old, new in reps:
             if old not in src:
@@ -90,7 +116,8 @@ def build(out_dir: Path) -> dict:
     for name, (so, proc) in procs.items():
         log = proc.communicate()[0]
         if proc.returncode:
-            raise SystemExit(f"nvcc failed for {name!r}:\n{log}")
+            print(f"[build] {name}: nvcc failed, left out:\n{log[-2000:]}", flush=True)
+            continue
         spills = [line.strip() for line in log.splitlines()
                   if "spill" in line and " 0 bytes spill stores" not in line]
         lib = ctypes.CDLL(str(so))
@@ -104,6 +131,9 @@ def build(out_dir: Path) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--shape", default="256,24,24", help="batch, height, width")
+    ap.add_argument("--variants", default=None,
+                    help="comma-separated names of the variants to build (default: all)")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -117,12 +147,17 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
     print(smi, flush=True)
-    libs = build(ROOT / "build" / "k2_variants")
+    names = args.variants.split(",") if args.variants else list(VARIANTS)
+    libs = build(ROOT / "build" / "k2_variants", names)
+    if "as built" not in libs:
+        raise SystemExit("the committed kernel did not build")
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
-    b, h, w, c = 256, 24, 24, 128
+    b, h, w = (int(v) for v in args.shape.split(","))
+    c = 128
     x32 = torch.from_numpy(rng.standard_normal((b, h, w, c), dtype=np.float32) * 40).to(dev)
+    res = x32 * 0.01
     x8 = torch.from_numpy(rng.integers(-127, 128, (b, h, w, c), dtype=np.int8)).to(dev)
     w_q = torch.from_numpy(rng.integers(-127, 128, (9 * c, c), dtype=np.int8)).to(dev)
     w_k = k2.weights_k_major(w_q)
@@ -130,20 +165,27 @@ def main() -> int:
     bias = torch.from_numpy(rng.uniform(-1, 1, c).astype(np.float32)).to(dev)
     # one block per SM: every variant has more rectangles than SMs here
     plan = k2.conv_plan(b, h, w, c, c, torch.cuda.get_device_properties(0).multi_processor_count)
-    inv_x, out_inv_x = 0.25, 1.0
+    inv_x, out_inv_x, rate = 0.25, 1.0, 0.2
 
-    def run(name, f32_in, i8_out, poison=False):
+    def run(name, f32_in, outs, residual, poison=False):
         x = x32 if f32_in else x8
-        dtype = torch.int8 if i8_out else torch.float32
-        out = (torch.full((b, h, w, c), 99, device=dev, dtype=dtype) if poison
-               else torch.empty((b, h, w, c), device=dev, dtype=dtype))
+
+        def alloc(dtype):
+            if poison:  # no stale result
+                return torch.full((b, h, w, c), 99, device=dev, dtype=dtype)
+            return torch.empty((b, h, w, c), device=dev, dtype=dtype)
+
+        out = alloc(torch.float32) if outs != "int8" else None
+        out8 = alloc(torch.int8) if outs != "fp32" else None
         err = libs[name].isr_conv3x3_int8(
-            x.data_ptr(), w_k.data_ptr(), deq.data_ptr(), bias.data_ptr(), out.data_ptr(),
-            b, h, w, c, c, int(f32_in), int(not i8_out), 1, k2.LEAKY_SLOPE, inv_x, out_inv_x,
-            plan["cc"], plan["grid_x"], torch.cuda.current_stream().cuda_stream)
+            x.data_ptr(), w_k.data_ptr(), deq.data_ptr(), bias.data_ptr(),
+            res.data_ptr() if residual else None, None if out is None else out.data_ptr(),
+            None if out8 is None else out8.data_ptr(), b, h, w, c, c, int(f32_in),
+            int(not residual), k2.LEAKY_SLOPE, rate, inv_x, out_inv_x, plan["cc"],
+            plan["grid_x"], torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"launch failed: CUDA error {err}")
-        return out
+        return tuple(t for t in (out, out8) if t is not None)
 
     def cuda_ms(fn, warmup=3, iters=20):
         for _ in range(warmup):
@@ -157,16 +199,20 @@ def main() -> int:
         end.synchronize()
         return start.elapsed_time(end) / iters
 
-    want = {(f, i): k2.conv3x3_int8_reference(x32 if f else x8, w_q, deq, bias, True,
-                                              inv_x if f else None, out_inv_x if i else None)
-            for _, f, i in SITES}
+    want = {}
+    for site, f32_in, outs, residual in SITES:  # conv0 sites leaky, the others not
+        got = k2.conv3x3_int8_reference(
+            x32 if f32_in else x8, w_q, deq, bias, not residual, inv_x if f32_in else None,
+            None if outs == "fp32" else out_inv_x, res if residual else None, rate,
+            outs == "both")
+        want[site] = got if outs == "both" else (got,)
     for rnd in range(args.rounds):
         for name in libs:
             parts = []
-            for site, f32_in, i8_out in SITES:
-                got = run(name, f32_in, i8_out, poison=True)  # no stale result
-                bad = int((got != want[(f32_in, i8_out)]).sum())
-                ms = cuda_ms(lambda: run(name, f32_in, i8_out))
+            for site, f32_in, outs, residual in SITES:
+                got = run(name, f32_in, outs, residual, poison=True)
+                bad = sum(int((g != wt).sum()) for g, wt in zip(got, want[site]))
+                ms = cuda_ms(lambda: run(name, f32_in, outs, residual))
                 parts.append(f"{site} {ms:.4f} ms ({bad} values differ)")
             print(f"[round {rnd}] {name:22s} " + "; ".join(parts), flush=True)
     return 0

@@ -195,6 +195,46 @@ def test_conv3x3_int8_exact_on_card(card, b, h, w, cin, cout, leaky, x_kind, out
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("b,h,w,cin,cout", [(2, 24, 24, 128, 128), (2, 17, 29, 128, 128),
+                                            (1, 5, 3, 64, 130), (1, 9, 20, 160, 40)])
+@pytest.mark.parametrize("x_kind", ["int8", "stream"])
+@pytest.mark.parametrize("out", ["fp32", "int8", "both"])
+@pytest.mark.parametrize("rate", [0.2, 1.0])
+def test_conv3x3_int8_residual_epilogue_exact_on_card(card, b, h, w, cin, cout, x_kind, out,
+                                                      rate):
+    """The epilogue that finishes a residual block (res + y * rate, then
+    fp32, int8 or both stored) equals its plain version bit for bit: whole
+    N tiles, H and W not multiples of the 24 x 8 rectangle, Cout not a
+    multiple of 128 (130, 40) and K chunks (Cin 160). The residual holds
+    values whose int8 copy lands past +-127 steps."""
+    rng = np.random.default_rng(b * h * w + cout + int(10 * rate))
+    if x_kind == "stream":
+        x = torch.from_numpy(rng.standard_normal((b, h, w, cin), np.float32) * 40).to(card)
+        inv_x = 0.25
+    else:
+        x = torch.from_numpy(rng.integers(-127, 128, (b, h, w, cin), dtype=np.int8)).to(card)
+        inv_x = None
+    res = torch.from_numpy(rng.standard_normal((b, h, w, cout), np.float32) * 4)
+    res[..., :2] = torch.tensor([-1e4, 1e4])
+    res = res.to(card)
+    w_q = torch.from_numpy(rng.integers(-127, 128, (9 * cin, cout), dtype=np.int8)).to(card)
+    deq = torch.from_numpy(rng.uniform(1e-5, 1e-4, cout).astype(np.float32)).to(card)
+    bias = torch.from_numpy(rng.uniform(-1, 1, cout).astype(np.float32)).to(card)
+    kw = dict(out_inv_x=None if out == "fp32" else 2.0, res=res, rate=rate,
+              keep_fp32=out == "both")
+    before = dict(k2.conv3x3_int8.launches_by_epilogue)
+    got = k2.conv3x3_int8(x, w_q, deq, bias, False, inv_x, w_k=k2.weights_k_major(w_q), **kw)
+    want = k2.conv3x3_int8_reference(x, w_q, deq, bias, False, inv_x, **kw)
+    torch.cuda.synchronize()
+    after = k2.conv3x3_int8.launches_by_epilogue
+    assert after["residual"] == before.get("residual", 0) + 1
+    assert after.get("int8 copy", 0) == before.get("int8 copy", 0) + (out != "fp32")
+    got, want = (got, want) if out == "both" else ((got,), (want,))
+    for g, wt in zip(got, want):
+        assert g.dtype == wt.dtype
+        torch.testing.assert_close(g, wt, rtol=0, atol=0)
+
+
 def test_k2_rejects_what_it_does_not_take(card):
     a = torch.zeros(4, 48, dtype=torch.int8, device=card)
     with pytest.raises(ValueError, match="multiple of 32"):
@@ -218,11 +258,16 @@ def test_k2_rejects_what_it_does_not_take(card):
 @pytest.mark.parametrize("depth", [2, 14])
 def test_int8_fast_on_card_launches_per_site(card, depth):
     """fast x4 int8 on the card: every trunk site goes through the kernel
-    (2 * depth + 1 launches per forward: 29 at the served depth 14), each
-    conv0 handing its conv1 an int8 tensor, with the K-major weights laid
-    out once, and the wrapper counting each variant's launches; the uint8
-    output stays within INT8_CARD_MAX_LSB of the port's int8 CPU path on the
-    same quantized params."""
+    (2 * depth + 1 launches per forward: 29 at the served depth 14), with
+    the K-major weights laid out once. Block 0's conv0 loads the head's
+    fp32 output; every other site is handed int8 by the one before it.
+    By variant per forward: block 0's conv0 "fp32 -> int8"; the other
+    conv0 sites and the last conv1 "int8 -> int8"; the other conv1 sites
+    (fp32 and int8 out) and trunk_conv "int8 -> fp32". By epilogue: the
+    depth conv1 sites and trunk_conv add a residual (15 at depth 14), the
+    conv1 sites store its int8 copy. The uint8 output stays within
+    INT8_CARD_MAX_LSB of the port's int8 CPU path on the same quantized
+    params."""
     from image_super_resolution_tpu_torch.models import quantized as q
     from image_super_resolution_tpu_torch.models.quantized import (
         INT8_CARD_MAX_LSB, Int8DeployedFast, quantize_deployed)
@@ -235,23 +280,28 @@ def test_int8_fast_on_card_launches_per_site(card, depth):
     dtypes = []
     orig = q.quant_site
 
-    def spy(p, h, leaky, out_inv_x=None):
-        y = orig(p, h, leaky, out_inv_x)
-        dtypes.append((h.dtype, y.dtype))
+    def spy(p, h, *args, **kwargs):
+        y = orig(p, h, *args, **kwargs)
+        dtypes.append((h.dtype, tuple(t.dtype for t in (y if isinstance(y, tuple) else (y,))),
+                       kwargs.get("res") is not None))
         return y
 
     q.quant_site = spy
     try:
         before = k2.conv3x3_int8.launches
         k2.conv3x3_int8.launches_by_variant.clear()
+        k2.conv3x3_int8.launches_by_epilogue.clear()
         got = quant(x)
     finally:
         q.quant_site = orig
     assert k2.conv3x3_int8.launches - before == 2 * spec.depth + 1
     assert k2.conv3x3_int8.launches_by_variant == {
-        "fp32 -> int8": depth, "int8 -> fp32": depth, "fp32 -> fp32": 1}
+        "fp32 -> int8": 1, "int8 -> int8": depth, "int8 -> fp32": depth}
+    assert k2.conv3x3_int8.launches_by_epilogue == {"residual": depth + 1, "int8 copy": depth}
     f32, i8 = torch.float32, torch.int8
-    assert dtypes == [(f32, i8), (i8, f32)] * depth + [(f32, f32)]
+    conv0 = [(f32, (i8,), False)] + [(i8, (i8,), False)] * (depth - 1)
+    conv1 = [(i8, (f32, i8), True)] * (depth - 1) + [(i8, (i8,), True)]
+    assert dtypes == [site for pair in zip(conv0, conv1) for site in pair] + [(i8, (f32,), True)]
     cpu = Int8DeployedFast(spec, quant.params, device="cpu")
     diff = (got.cpu().int() - cpu(x).int()).abs()
     assert got.shape == (2, 96, 80, 3)
@@ -488,7 +538,7 @@ def test_build_deployed_launches_k1_and_k2(card, tmp_path):
     assert quant(x).shape == (2, 96, 96, 3)
     assert k2.conv3x3_int8.launches - before == 5
     assert k2.conv3x3_int8.launches_by_variant == {
-        "fp32 -> int8": 2, "int8 -> fp32": 2, "fp32 -> fp32": 1}
+        "fp32 -> int8": 1, "int8 -> int8": 2, "int8 -> fp32": 2}
 
 
 # ------------------------------------------------- eval, video, profiling --

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
 from image_super_resolution_tpu.models.quantized import _conv as jax_conv
+from image_super_resolution_tpu_torch.models.fast import scale_residual
 from image_super_resolution_tpu_torch.ops.kernels.matmul import (
     MAX_CHUNK,
     N_TILE,
@@ -26,6 +27,7 @@ from image_super_resolution_tpu_torch.ops.kernels.matmul import (
     conv3x3_int8,
     conv3x3_int8_accumulators,
     conv3x3_int8_reference,
+    conv_epilogues,
     conv_plan,
     conv_variant,
     matmul,
@@ -178,6 +180,47 @@ def test_conv3x3_int8_int8_input_equals_fp32_input_at_scale_one(out_inv_x):
     want = conv3x3_int8(x8.float(), w_q, deq, bias, True, 1.0, out_inv_x)
     assert got.dtype == want.dtype == (torch.float32 if out_inv_x is None else torch.int8)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("rate", [0.2, 1.0])
+@pytest.mark.parametrize("out", ["fp32", "int8", "both"])
+@pytest.mark.parametrize("residual", [True, False])
+def test_conv3x3_int8_residual_epilogue_is_the_unfused_composition(residual, out, rate):
+    """With ``res`` the epilogue finishes the residual block: its fp32
+    output is ``res + scale_residual(y, rate)`` of the site's output ``y``
+    without it, bit for bit (two rounded ops, as the torch ops that the
+    int8 forward ran before), and its int8 output that sum requantized with
+    out_inv_x, what the next site would do on load; with ``keep_fp32`` both
+    at once. Through the plain version and the CPU wrapper, an int8 input
+    (a conv1 site) and an fp32 one (``trunk_conv`` without a hand-off)."""
+    x8, w_q, deq, bias = _torch_site(2, 7, 9, 64, 48, seed=21)
+    rng = np.random.default_rng(22)
+    res = torch.from_numpy(rng.standard_normal((2, 7, 9, 48), dtype=np.float32) * 3)
+    out_inv_x = None if out == "fp32" else 30.0  # some of the sums past +-127 steps
+    kw = dict(out_inv_x=out_inv_x, keep_fp32=out == "both")
+    if residual:
+        kw.update(res=res, rate=rate)
+    for x, inv_x in ((x8, None), (x8.float() * 0.5, 2.0)):
+        y = conv3x3_int8_reference(x, w_q, deq, bias, False, inv_x)
+        h = res + scale_residual(y, rate) if residual else y
+        want = {"fp32": h, "int8": requantize(h, 30.0), "both": (h, requantize(h, 30.0))}[out]
+        for fn in (conv3x3_int8_reference, conv3x3_int8):
+            got = fn(x, w_q, deq, bias, False, inv_x, **kw)
+            if out == "both":
+                assert isinstance(got, tuple) and len(got) == 2
+                assert got[0].dtype == torch.float32 and got[1].dtype == torch.int8
+                assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            else:
+                assert got.dtype == want.dtype and torch.equal(got, want)
+    if out != "fp32":
+        q = want[1] if out == "both" else want
+        assert 0 < int((q.abs() == 127).sum()) < q.numel()
+
+
+def test_conv3x3_int8_keep_fp32_needs_an_int8_output():
+    x8, w_q, deq, bias = _torch_site(1, 2, 2, 32, 8, seed=23)
+    with pytest.raises(ValueError, match="keep_fp32"):
+        conv3x3_int8(x8, w_q, deq, bias, False, keep_fp32=True)
 
 
 def test_conv3x3_int8_refuses_mixed_input_and_scale():
@@ -333,3 +376,12 @@ def test_library_refuses_a_build_of_another_tiling(monkeypatch, tiling, takes):
     (torch.int8, torch.float32, "int8 -> fp32"), (torch.int8, torch.int8, "int8 -> int8")])
 def test_conv_variant_names(x_dtype, out_dtype, want):
     assert conv_variant(x_dtype, out_dtype) == want
+
+
+@pytest.mark.parametrize("residual,int8_out,want", [
+    (False, False, ()), (False, True, ()), (True, False, ("residual",)),
+    (True, True, ("residual", "int8 copy"))])
+def test_conv_epilogue_names(residual, int8_out, want):
+    """What launches_by_epilogue counts a launch under: a residual, and an
+    int8 copy of the residual sum for the next site."""
+    assert conv_epilogues(residual, int8_out) == want

@@ -166,12 +166,14 @@ def test_int8_deployed_against_jax_and_bf16(name):
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_int8_handoff_equals_requantizing_at_each_site(name):
-    """int8_forward hands each conv0's output to its conv1 in int8,
-    requantized in conv0's epilogue with conv1's scale. That is the same
-    function as the route without the hand-off (every site fp32 out, conv1
-    requantizing at its load), bit for bit: nothing else reads conv0's
-    output. (The route with the hand-off is also the one held against the
-    JAX int8_forward in test_int8_deployed_against_jax_and_bf16.)"""
+    """int8_forward hands every site but block 0's conv0 its input in int8,
+    requantized in the epilogue of the site before it with the next site's
+    scale: a conv0 its output, a conv1 its block's sum ``h + rate * t``.
+    That is the same function as the route without the hand-offs (every
+    site fp32 out, the residual stream in torch ops, each site requantizing
+    at its load), bit for bit. (The route with the hand-off is also the one
+    held against the JAX int8_forward in
+    test_int8_deployed_against_jax_and_bf16.)"""
     from image_super_resolution_tpu_torch.ops.kernels.matmul import conv3x3_int8_reference
 
     deployed, _, spec = _case(name, seed=2)
@@ -189,19 +191,56 @@ def test_int8_handoff_equals_requantizing_at_each_site(name):
     want = q.fast_forward(qp, xn, DEPTH, spec.add_rate, spec.output_scale,
                           quant=fp32_sites, **kw)
     assert torch.equal(got, want)
-    # the hand-off really is int8: conv1 sites see int8 inputs
+    # the hand-offs really are int8: only block 0's conv0 sees fp32
     seen, orig = [], q.quant_site
 
-    def spy(p, h, leaky, out_inv_x=None):
+    def spy(p, h, *args, **kwargs):
         seen.append(h.dtype)
-        return orig(p, h, leaky, out_inv_x)
+        return orig(p, h, *args, **kwargs)
 
     q.quant_site = spy
     try:
         q.int8_forward(qp, xn, DEPTH, spec.add_rate, spec.output_scale, **kw)
     finally:
         q.quant_site = orig
-    assert seen == [torch.float32, torch.int8] * DEPTH + [torch.float32]
+    assert seen == [torch.float32] + [torch.int8] * (2 * DEPTH)
+
+
+@pytest.mark.parametrize("depth", [1, DEPTH, 3])
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_int8_forward_equals_the_unfused_composition(name, depth):
+    """int8_forward, whose conv1 and trunk_conv epilogues do the residual
+    updates, equals bit for bit the unfused composition that served int8
+    before: conv0 handing its conv1 an int8 tensor, conv1 and trunk_conv
+    fp32 out, ``h + scale_residual(t, add_rate)`` and ``x + trunk_conv(h)``
+    as torch ops (``fast_forward``'s ``quant``), each other site
+    requantizing the fp32 stream at its load. fast and denoise_fast, with
+    and without the refinement tail, at depths 1 (one block: its conv1 is
+    the last), 2 and 3."""
+    from image_super_resolution_tpu_torch.ops.kernels.matmul import conv3x3_int8_reference
+
+    family, ckw = CASES[name]
+    spec = DeploySpec(family=family, depth=depth, width=WIDTH, **ckw)
+    params = init_fused_params(spec, seed=depth)
+    deployed = DeployedModel(spec, params, dtype=torch.bfloat16, device="cpu")
+    x = _u8((2, 13, 10, 3), depth)
+    qp = q.quantize_deployed(deployed, [x]).params
+    xn = normalize(torch.from_numpy(x))
+    kw = dict(downshuffle=spec.downshuffle or 1, refine_blocks=spec.refine_blocks or 0)
+
+    def unfused(site, h):
+        p = qp[site]
+        inv_x = None if h.dtype == torch.int8 else p["inv_x"]
+        if site.endswith("conv0"):
+            nxt = qp[site[:-1] + "1"]["inv_x"]
+            return conv3x3_int8_reference(h, p["w_q"], p["deq"], p["bias"], True, inv_x, nxt)
+        return conv3x3_int8_reference(h, p["w_q"], p["deq"], p["bias"], False, inv_x)
+
+    got = q.int8_forward(qp, xn, depth, spec.add_rate, spec.output_scale, **kw)
+    want = q.fast_forward(qp, xn, depth, spec.add_rate, spec.output_scale, quant=unfused,
+                          **kw)
+    assert got.dtype == want.dtype == torch.float32
+    assert torch.equal(got, want)
 
 
 def test_int8_through_tiled_engine(fast_x4):
