@@ -183,9 +183,22 @@ Phases, each of which raises on failure:
     denoise_fast``, ``--preset denoise_fullres``) with its chains cut to 1
     and 2: stdout exactly one JSON line with the JAX bench's keys, K1 and
     K2 counted over each run against the forwards it makes.
+19. K3, RCAN's channel attention (``csrc/channel_attention.cu``, built in
+    phase 2): its ptxas report, then ``ca_residual`` against its plain
+    version at ``rcan_x4.frames``' trunk shape 8x270x480x64 (bf16 stream,
+    and fp32) and at an 8x96x96 tile batch, within ``KERNEL_ATOL`` +
+    ``KERNEL_RTOL`` and a bf16 output at most one ulp away, bitwise the
+    same twice, timed beside its plain version and its bound by bytes; then
+    RCAN x4 at its published widths (10 groups of 20 blocks, 64 filters)
+    through ``.isr`` -> ``load_artifact`` -> ``DeployedModel`` in bf16: a
+    48x48 crop against the port's fp32 CPU path within
+    ``RCAN_MAX_RMS_LSB`` / ``RCAN_MAX_LSB``, requests at 8x270x480 timed,
+    and ``TiledUpscaler`` -> ``rs.video_pipeline`` over three frame
+    batches, K3 counted on both (200 ``reduce`` and 200 ``scale`` a
+    forward) and the video's frames equal to the model's.
 
 It prints one JSON line of per-kernel numbers (each kernel's launches
-summed over the counted runs of phases 5/6 and 9-18, and given by path),
+summed over the counted runs of phases 5/6 and 9-19, and given by path),
 the training timings and the loader's rates, the ``nvidia-smi`` line, and
 last ``{"ok": true,
 "device": {...}}``. Without CUDA, or outside a
@@ -208,7 +221,7 @@ from pathlib import Path
 SEED = 0
 ROOT = Path(__file__).resolve().parent
 PACKAGE = "image_super_resolution_tpu_torch"
-SOURCES = ("fused_rdb", "matmul")  # csrc/<name>.cu
+SOURCES = ("fused_rdb", "matmul", "channel_attention")  # csrc/<name>.cu
 
 # Dense peaks from NVIDIA's data sheets, by product name (first match):
 # bf16 tensor-core FLOP/s, int8 tensor-core OP/s and device-memory bytes/s.
@@ -333,6 +346,9 @@ def _instance(source: str, mangled: str) -> str:
 
     if source == "fused_rdb":
         return "y launches (N=32)" if "ILi32E" in mangled else "last launch (N=64)"
+    if source == "channel_attention":
+        stream = "fp32" if "IfE" in mangled else "bf16"
+        return f"{'reduce' if 'reduce' in mangled else 'scale'}, {stream} stream"
     m = re.search(r"conv3x3_int8_kernelILb([01])ELi([123])ELb([01])ELi(\d+)E", mangled)
     if m:
         ks = "K steps unrolled" if m.group(4) != "0" else "K steps at run time"
@@ -3746,6 +3762,212 @@ def phase_winograd_bench(sr_isr: Path, card: str, device: str = "cuda") -> dict:
     Returns the launches by path."""
     return {**_winograd_serving(sr_isr, card, device), **_bench_runs(card, device)}
 
+# ----------------------------------------------------------------- phase 19 --
+
+K3_SHAPES = ((8, 270, 480, 64), (8, 96, 96, 64))  # rcan_x4.frames' trunk, a tile batch
+RCAN_DIMS = (10, 20, 64, 16)  # groups, blocks, width, reduction: the published x4
+RCAN_FRAMES = (8, 270, 480)  # the rcan_x4.frames cell's batch
+RCAN_VIDEO_BATCHES = 3  # batches served through rs.video_pipeline, counted
+RCAN_CROP = 48  # side of the crop held against the CPU's fp32 path
+# Card bf16 against the CPU's fp32 path on the crop: RMS within 1 LSB (the
+# threshold that chose the bf16 stream, whose CPU readings at these widths
+# are 0.69-0.76), no value further than rcan_x4.frames' limit.
+RCAN_MAX_RMS_LSB, RCAN_MAX_LSB = 1.0, 15
+
+
+def _k3_operands(shape, dtype, seed: int):
+    """(x, r, bias, w1, b1, w2, b2) on the card: the stream ~60, conv1's
+    output ~8 around 1, the CA MLP's weights at their init's scale."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c, hidden = shape[-1], shape[-1] // 16
+
+    def u(*s, scale=1.0):
+        return (torch.rand(*s, generator=g, device="cuda") * 2 - 1) * scale
+
+    return (u(*shape, scale=60.0).to(dtype), (u(*shape, scale=8.0) + 1).to(dtype),
+            u(c, scale=0.1), u(hidden, c, scale=c ** -0.5), u(hidden, scale=0.1),
+            u(c, hidden, scale=hidden ** -0.5), u(c, scale=0.1))
+
+
+def _ulps(got, want) -> int:
+    """The largest distance of two tensors of one float dtype in units in
+    the last place (their bit patterns mapped to a monotonic integer)."""
+    import torch
+
+    bits = {torch.bfloat16: (torch.int16, 0x7FFF), torch.float32: (torch.int32, 0x7FFFFFFF)}
+    view, mag = bits[got.dtype]
+
+    def key(t):
+        i = t.contiguous().view(view).long()
+        return torch.where(i < 0, -(i & mag), i)
+
+    return int((key(got) - key(want)).abs().max())
+
+
+def phase_k3(kind: str, card: str, ptxas_log: str) -> dict:
+    """K3 (``csrc/channel_attention.cu``): its ptxas report, then against its
+    plain version at rcan_x4.frames' trunk shape (bf16 stream, and fp32) and
+    at a tile batch, within ``KERNEL_ATOL + KERNEL_RTOL |want|``, bitwise
+    the same on a second call, two launches a call. Where the relative
+    limit rules (``|want| >= KERNEL_ATOL / KERNEL_RTOL``) a bf16 output is
+    at most one ulp away, a single rounding flipped by the few fp32 ulps
+    between the two means; below it the sum cancels (``x`` ~60 against a
+    result ~1e-4), the fp32 values differ by ulps of the terms, and the
+    absolute limit holds them. Then timed beside its plain version and its
+    bound by bytes."""
+    import torch
+
+    from image_super_resolution_tpu_torch.ops.kernels import channel_attention as k3
+
+    _ptxas("channel_attention", ptxas_log)
+    k3.ca_residual.launches_by_pass.clear()
+    checks, max_err = [(K3_SHAPES[0], torch.bfloat16), (K3_SHAPES[0], torch.float32),
+                       (K3_SHAPES[1], torch.bfloat16)], 0.0
+    for shape, dtype in checks:
+        args = _k3_operands(shape, dtype, sum(shape))
+        before = dict(k3.ca_residual.launches_by_pass)
+        got, again = k3.ca_residual(*args), k3.ca_residual(*args)
+        want = k3.ca_residual_reference(*args)
+        torch.cuda.synchronize()
+        launches = {p: k3.ca_residual.launches_by_pass.get(p, 0) - before.get(p, 0)
+                    for p in ("reduce", "scale")}
+        err = (got.float() - want.float()).abs()
+        tol = k3.KERNEL_ATOL + k3.KERNEL_RTOL[dtype] * want.float().abs()
+        rel = want.float().abs() >= k3.KERNEL_ATOL / k3.KERNEL_RTOL[dtype]
+        bad, ulps = int((err > tol).sum()), _ulps(got[rel], want[rel])
+        max_err = max(max_err, float(err.max()))
+        _log(f"[kernel] channel_attention {tuple(shape)} {str(dtype)[6:]}: max_abs_err "
+             f"{float(err.max()):.6g}, worst err / tol {float((err / tol).max()):.4f}, {bad} of "
+             f"{err.numel()} outside |got - want| <= {k3.KERNEL_ATOL} + "
+             f"{k3.KERNEL_RTOL[dtype]} * |want|; {int((got != want).sum())} values differ, "
+             f"at most {ulps} ulp apart where |want| >= ATOL / RTOL ({int(rel.sum())} values), "
+             f"{_ulps(got, want)} over all; launches {launches}")
+        if bad or not torch.equal(got, again) or launches != {"reduce": 2, "scale": 2} or (
+                dtype == torch.bfloat16 and ulps > 1):
+            raise AssertionError(f"channel_attention disagrees with its plain version at "
+                                 f"{shape} {dtype} (or with itself, or in its launches)")
+    _, _, _, peak_bw = _peaks(kind)
+    times = {}
+    for shape, dtype in checks:
+        args = _k3_operands(shape, dtype, 1)
+        ms = _cuda_ms(lambda: k3.ca_residual(*args))
+        plain_ms = _cuda_ms(lambda: k3.ca_residual_reference(*args), warmup=1, iters=5)
+        nbytes = 4 * args[0].numel() * args[0].element_size()  # r twice, x, x'
+        bound_ms = nbytes / peak_bw * 1e3
+        times[f"{tuple(shape)} {str(dtype)[6:]}"] = {"ms": ms, "plain_ms": plain_ms,
+                                                     "bound_ms": bound_ms}
+        _log(f"[kernel] channel_attention {tuple(shape)} {str(dtype)[6:]} on {card}: kernel "
+             f"{ms:.4f} ms (both passes), plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms by "
+             f"bytes ({nbytes:.4g} B at {peak_bw:.4g} B/s), {bound_ms / ms:.1%} of bound")
+    main = times[f"{K3_SHAPES[0]} bfloat16"]
+    return {
+        "name": "channel_attention",
+        "route": "cuda",
+        "source": f"{PACKAGE}/csrc/channel_attention.cu",
+        "replaces": None,  # a port kernel: the JAX package has no RCAN
+        "launches": None,  # filled in from the rcan serving phase
+        "max_abs_err": max_err,
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,  # no one PyTorch call; its eager composition is the plain version
+        "shapes": times,
+    }
+
+
+def _k3_counted(fn, per_forward: int, forwards: int, what: str, device: str):
+    """fn() with ``ca_residual.launches_by_pass`` set to 0 just before and
+    read just after: ``per_forward`` of each pass a forward on the card,
+    none on the CPU. Returns (fn(), launches of both passes)."""
+    import torch
+
+    from image_super_resolution_tpu_torch.ops.kernels.channel_attention import ca_residual
+
+    ca_residual.launches_by_pass.clear()
+    out = fn()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    got = dict(ca_residual.launches_by_pass)
+    want = ({"reduce": per_forward * forwards, "scale": per_forward * forwards}
+            if device == "cuda" else {})
+    if got != want:
+        raise AssertionError(f"{what}: channel_attention launched {got}, want {want}")
+    return out, sum(got.values())
+
+
+def phase_rcan(work: Path, card: str, device: str = "cuda") -> dict:
+    """RCAN x4 at its published widths served as users serve it: seeded
+    weights -> ``.isr`` -> ``load_artifact`` -> ``DeployedModel`` (bf16); a
+    crop against the port's fp32 CPU path; requests at the frames shape
+    timed, K3 counted (one reduce and one scale a block); then
+    ``TiledUpscaler`` and ``rs.video_pipeline`` over RCAN_VIDEO_BATCHES
+    frame batches, K3 counted, the frames equal to the model's own.
+    Returns the launches by path."""
+    import numpy as np
+    import torch
+
+    from image_super_resolution_tpu_torch.cli import rs
+    from image_super_resolution_tpu_torch.infer.engine import TiledUpscaler
+    from image_super_resolution_tpu_torch.models.deploy import (DeploySpec, init_fused_params,
+                                                                load_artifact, save_artifact)
+    from image_super_resolution_tpu_torch.models.rcan import RCAN_MEAN, RCAN_STD
+
+    groups, blocks, width, reduction = RCAN_DIMS
+    spec = DeploySpec(family="rcan", depth=groups, blocks=blocks, width=width,
+                      reduction=reduction, scale=4, mean=RCAN_MEAN, std=RCAN_STD)
+    isr = work / "rcan_x4.isr"
+    save_artifact(isr, spec, init_fused_params(spec, SEED))
+    deployed = load_artifact(isr, dtype=torch.bfloat16, device=device)
+    per_forward = groups * blocks
+    rng = np.random.default_rng(SEED + 19)
+
+    crop = rng.integers(0, 256, (1, RCAN_CROP, RCAN_CROP, 3), dtype=np.uint8)
+    got, _ = _k3_counted(lambda: deployed(crop).cpu(), per_forward, 1, "rcan crop", device)
+    want = load_artifact(isr, dtype=torch.float32, device="cpu")(crop)
+    diff = (got.double() - want.double()).abs()
+    rms, worst = float(diff.pow(2).mean().sqrt()), int(diff.max())
+    _log(f"[rcan] x4 {groups}x{blocks} w{width} {RCAN_CROP}x{RCAN_CROP} crop, card bf16 vs "
+         f"CPU fp32: RMS {rms:.4f} LSB (bound {RCAN_MAX_RMS_LSB}), max {worst} "
+         f"(bound {RCAN_MAX_LSB})")
+    if rms > RCAN_MAX_RMS_LSB or worst > RCAN_MAX_LSB:
+        raise AssertionError("rcan's card output is outside the recorded bounds")
+
+    b, h, w = RCAN_FRAMES
+    x = torch.from_numpy(rng.integers(0, 256, (b, h, w, 3), dtype=np.uint8)).to(device)
+    n = 5
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    (ms, out), served = _k3_counted(lambda: _serve(deployed, x, n), per_forward, n + 1,
+                                    "rcan requests", device)
+    if out.dtype != torch.uint8 or tuple(out.shape) != (b, 4 * h, 4 * w, 3):
+        raise AssertionError(f"bad rcan output {out.dtype} {tuple(out.shape)}")
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    _log(f"[rcan] x4 bf16 b{b} {h}x{w} on {card}: {ms:.3f} ms a request (host clock over {n} "
+         f"after one), {b * h * w * 16 / ms / 1e3:.2f} output MPix/s; channel_attention "
+         f"launches {served} ({per_forward} reduce and {per_forward} scale a forward); peak "
+         f"memory {peak} B")
+
+    frames = rng.integers(0, 256, (RCAN_VIDEO_BATCHES, b, h, w, 3), dtype=np.uint8)
+    engine = TiledUpscaler(deployed)
+    engine.upscale_batch(frames[0])  # warm-up batch
+    written = []
+    t0 = time.perf_counter()
+    n_out, video = _k3_counted(
+        lambda: rs.video_pipeline(engine, ((f, b) for f in frames), written.append),
+        per_forward, RCAN_VIDEO_BATCHES, "rcan video", device)
+    secs = time.perf_counter() - t0
+    first = deployed(frames[0]).cpu().numpy()
+    if n_out != RCAN_VIDEO_BATCHES * b or len(written) != n_out or not all(
+            np.array_equal(written[i], first[i]) for i in range(b)):
+        raise AssertionError("rcan video: frames missing or not the model's own")
+    _log(f"[rcan] rs.video_pipeline, {n_out} frames {h}x{w} -> x4 on {card}: "
+         f"{n_out / secs:.2f} frames/s (host clock); channel_attention launches {video}")
+    return {"serve rcan x4 (phase 19)": served,
+            "rs.video_pipeline rcan x4 (phase 19)": video}
+
 
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--dp-rank":  # phase 16 (b)'s ranks
@@ -3770,6 +3992,7 @@ def main() -> int:
     logs = phase_build()
     k1 = phase_k1(kind, card, logs["fused_rdb"])
     k2 = phase_k2(kind, card, logs["matmul"])
+    k3 = phase_k3(kind, card, logs["channel_attention"])
     with tempfile.TemporaryDirectory() as tmp:
         sr_isr, k1_serve = phase_sr(Path(tmp), card)
         fast_isr, k2_serve, by_variant = phase_fast(Path(tmp), card)
@@ -3797,6 +4020,9 @@ def main() -> int:
         t0 = time.perf_counter()
         wino_bench = phase_winograd_bench(sr_isr, card)
         _log(f"[wino] phase 18 in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        k3["launches_by_path"] = phase_rcan(Path(tmp), card)
+        _log(f"[rcan] phase 19 in {time.perf_counter() - t0:.1f} s")
     # launches: every counted main-path run, by path
     k1["launches_by_path"] = {"serve sr x4 (phase 5)": k1_serve,
                               "train -> checkpoint -> serve sr x2 (phase 9)":
@@ -3821,10 +4047,10 @@ def main() -> int:
         if not n:
             raise AssertionError(f"{path}: {kernel} was launched no time")
         (k1 if kernel == "fused_rdb" else k2)["launches_by_path"][path] = n
-    for k in (k1, k2):
+    for k in (k1, k2, k3):
         k["launches"] = sum(k["launches_by_path"].values())
     trained["timings"]["data-parallel step ms (phase 16)"] = dp["step_ms"]
-    print(json.dumps({"kernels": [k1, k2], "training": trained["timings"],
+    print(json.dumps({"kernels": [k1, k2, k3], "training": trained["timings"],
                       "loader": loader["rates"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

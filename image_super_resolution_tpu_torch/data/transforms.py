@@ -5,6 +5,7 @@ package's ``data/transforms.py``).
 - to_tanh: [0,1] -> [-1,1]
 - tanh_to_uint8: round((x+1)/2 * 255) after clipping, half to even
   (``torch.round`` rounds half to even, as ``jnp.round`` does)
+- rgb255_to_uint8: round(x + 255 mean) after clipping (RCAN's output)
 - tanh_to_01, tanh_to_norm: the GAN phase's re-normalization of G's output
 - y_channel: BT.601 luma for the eval metrics
 """
@@ -60,6 +61,15 @@ def tanh_to_uint8(x: torch.Tensor) -> torch.Tensor:
     """[-1,1] -> uint8 with round-half-to-even."""
     y = torch.clamp((x + 1.0) / 2.0 * 255.0, 0.0, 255.0)
     return torch.round(y).to(torch.uint8)
+
+
+def rgb255_to_uint8(x: torch.Tensor, mean) -> torch.Tensor:
+    """A model's output at rgb range 255 before its mean is added back ->
+    uint8: ``round(clamp(x + 255 mean, 0, 255))`` in fp32, half to even.
+    ``mean`` a sequence or a tensor (a program's buffer)."""
+    y = x.float()
+    m = mean if isinstance(mean, torch.Tensor) else _c(mean, y)
+    return torch.round(torch.clamp(y + 255.0 * m, 0.0, 255.0)).to(torch.uint8)
 
 
 def tanh_to_01(x: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,11 @@ and optionally sharded over several devices: by batch (``data_devices``:
 tile and frame batches split across devices) or by image rows or a grid
 with halo exchange (``spatial_devices``, ``spatial_grid``:
 ``parallel/spatial.py``) for single huge images. Each sharded path runs a
-replica of the model per device (``core.mesh.replicate``).
+replica of the model per device (``core.mesh.replicate``). A model whose
+blocks average over the whole image (``global_pool``: ``rcan``'s channel
+attention) refuses the spatial paths: a band is no whole input (a tile
+is: the tiled path averages per tile, as every tiled RCAN deployment
+does).
 """
 
 from __future__ import annotations
@@ -104,6 +108,13 @@ class TiledUpscaler:
                     f"artifact's downshuffle factor {self._grid} so tiles "
                     f"stay on the model's space_to_depth grid"
                 )
+        if getattr(getattr(deployed, "model", None), "global_pool", False) and (
+                spatial_devices > 1 or self.spatial_grid not in (None, (1, 1))):
+            raise ValueError(
+                f"spatial sharding cannot serve a {deployed.spec.family} artifact: "
+                f"its blocks average over the whole image, and each band "
+                f"would average over itself alone; use data_devices or tiles"
+            )
         if self.spatial_grid:
             if min(self.spatial_grid) < 1:
                 raise ValueError(

@@ -15,6 +15,7 @@ from .torch_import import (
     import_discriminator_state,
     import_generator_state,
     import_legacy_denoiser_state,
+    import_rcan_state,
     import_torchscript_artifact,
     linear_to_flax,
     state_dict_from_reference_checkpoint,
@@ -33,6 +34,7 @@ __all__ = [
     "import_discriminator_state",
     "import_generator_state",
     "import_legacy_denoiser_state",
+    "import_rcan_state",
     "import_torchscript_artifact",
     "linear_to_flax",
     "state_dict_from_reference_checkpoint",

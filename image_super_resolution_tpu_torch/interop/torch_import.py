@@ -1,7 +1,7 @@
 """Import reference PyTorch artifacts (counterpart of the JAX package's
 ``interop/torch_import.py``).
 
-Two kinds of reference artifact are read:
+Three kinds of reference artifact are read:
 
 1. **TorchScript deployment artifacts** (``model.pt``: ``Normalize`` ->
    net -> ``TanhToArrayImage``, reference utils/models.py:723-761,
@@ -15,6 +15,8 @@ Two kinds of reference artifact are read:
    (``state_dict_from_reference_checkpoint``, given the reference repo's
    path). The per-family mappers turn a state_dict into the flax-layout
    (params, batch_stats) trees that the rest of the port reads.
+3. **RCAN state dicts** in the layout of RCAN's own source
+   (``import_rcan_state``), as its published checkpoints hold them.
 
 Every mapper returns nested dicts of numpy arrays in the JAX package's
 layout, so ``save_artifact`` writes the JAX package's ``.isr`` and
@@ -268,6 +270,62 @@ def import_legacy_denoiser_state(sd: Dict[str, np.ndarray], prefix: str = ""):
     config = {"depth": depth, "width": sd[g("conv0.0") + ".conv.weight"].shape[0],
               "hidden": sd[g("residual.0") + ".m.0.conv.weight"].shape[0]}
     return params, config
+
+
+def import_rcan_state(sd: Dict[str, np.ndarray], mean: Tuple[float, float, float] | None = None,
+                      prefix: str = ""):
+    """A state_dict in the layout of RCAN's source (``model/rcan.py`` of
+    RCAN_TrainCode and of EDSR-PyTorch, as its published checkpoints such as
+    ``RCAN_BIX4.pt`` hold it) -> the port's ``rcan`` (spec, params tree).
+
+    ``head.0`` -> ``head``; ``body.{g}.body.{b}.body.{0,2}`` -> ``group{g}/
+    block{b}/conv{0,1}``; ``body.{g}.body.{b}.body.3.conv_du.{0,2}`` ->
+    ``ca_down``, ``ca_up``; ``body.{g}.body.{blocks}`` -> ``group{g}/conv``;
+    ``body.{groups}`` -> ``trunk_conv``; ``tail.0.{2u}`` -> ``up{u}``;
+    ``tail.1`` -> ``tail``. Sizes are read from the shapes. ``sub_mean`` and
+    ``add_mean`` are not loaded: they are checked to be the shift by 255
+    ``mean`` (``models/rcan.RCAN_MEAN`` by default) with unit std, which the
+    spec's normalize and output map apply."""
+    from ..models.deploy import DeploySpec
+    from ..models.rcan import RCAN_MEAN, RCAN_STD
+
+    mean = tuple(RCAN_MEAN if mean is None else mean)
+    sd = {k[len(prefix):]: np.asarray(v, np.float32) for k, v in sd.items()
+          if k.startswith(prefix)}
+    shift = 255.0 * np.asarray(mean, np.float32)
+    for name, sign in (("sub_mean", -1.0), ("add_mean", 1.0)):
+        if f"{name}.weight" not in sd:
+            continue
+        if not (np.allclose(sd[f"{name}.weight"].reshape(3, 3), np.eye(3), atol=1e-6)
+                and np.allclose(sd[f"{name}.bias"], sign * shift, atol=1e-3)):
+            raise ValueError(f"{name} is not the shift by {sign:+.0f} x 255 x {mean} with "
+                             f"unit std: bias {sd[f'{name}.bias'].tolist()}")
+    groups = sum(1 for k in sd if k.startswith("body.") and k.endswith(".body.0.body.0.weight")
+                 and k.count(".") == 6)
+    blocks = sum(1 for k in sd if k.startswith("body.0.body.") and k.endswith(".body.0.weight"))
+    n_up = sum(1 for k in sd if k.startswith("tail.0.") and k.endswith(".weight"))
+    if not groups or not blocks or not n_up:
+        raise ValueError(f"not an RCAN state_dict: sample keys {sorted(sd)[:5]}")
+    width = sd["head.0.weight"].shape[0]
+    hidden = sd["body.0.body.0.body.3.conv_du.0.weight"].shape[0]
+    params: Dict[str, Any] = {"head": {"conv": _conv_params(sd, "head.0")}}
+    for g in range(groups):
+        group: Dict[str, Any] = {"conv": {"conv": _conv_params(sd, f"body.{g}.body.{blocks}")}}
+        for b in range(blocks):
+            t = f"body.{g}.body.{b}.body"
+            group[f"block{b}"] = {
+                "conv0": {"conv": _conv_params(sd, f"{t}.0")},
+                "conv1": {"conv": _conv_params(sd, f"{t}.2")},
+                "ca_down": {"conv": _conv_params(sd, f"{t}.3.conv_du.0")},
+                "ca_up": {"conv": _conv_params(sd, f"{t}.3.conv_du.2")}}
+        params[f"group{g}"] = group
+    params["trunk_conv"] = {"conv": _conv_params(sd, f"body.{groups}")}
+    for u in range(n_up):
+        params[f"up{u}"] = {"conv": _conv_params(sd, f"tail.0.{2 * u}")}
+    params["tail"] = {"conv": _conv_params(sd, "tail.1")}
+    spec = DeploySpec(family="rcan", depth=groups, blocks=blocks, width=width,
+                      reduction=width // hidden, scale=2 ** n_up, mean=mean, std=RCAN_STD)
+    return spec, params
 
 
 # ---------------------------------------------------- deployed artifacts ----

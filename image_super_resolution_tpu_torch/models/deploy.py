@@ -9,8 +9,10 @@ of the JAX package's ``models/deploy.py``).
   training graph is already the serving graph; their int8 form is
   ``models/quantized.py``. The x1 denoisers (``denoise``,
   ``denoise_legacy``, ``models/denoiser.py``) serve their BN-folded graph.
-  Every family but the optimized ``sr`` commits its params in the compute
-  dtype.
+  A model with its own output map (``to_uint8``: ``rcan``,
+  ``models/rcan.py``, ``y + 255 mean`` clamped and rounded) is mapped
+  with it, the others with ``tanh_to_uint8``. Every family but the
+  optimized ``sr`` commits its params in the compute dtype.
 - ``build_deployed`` turns a training checkpoint into a ``DeployedModel``:
   EMA weights unless ``use_ema=False`` (``cli/export.py --no_ema``), BN
   folded (``ops/fuse.py``), mean/std from the checkpoint's meta.
@@ -37,8 +39,8 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from ..data.transforms import (IMAGENET_MEAN, IMAGENET_STD, normalize, tanh_to_uint8,
-                               to_float01)
+from ..data.transforms import (IMAGENET_MEAN, IMAGENET_STD, normalize,
+                               tanh_to_uint8, to_float01)
 from ..interop.from_jax import params_from_jax, params_to_jax
 from ..ops.fuse import fuse_conv_bn
 from ..utils.profiling import annotate
@@ -48,8 +50,9 @@ from .denoiser import Denoiser, LegacyDenoiser
 from .fast import FastSRGenerator
 from .generator import SRGenerator
 from .optimized import OptimizedSRGenerator, optimize_generator_params
+from .rcan import RCAN
 
-FAMILIES = ("sr", "fast", "denoise", "denoise_fast", "denoise_legacy")
+FAMILIES = ("sr", "fast", "denoise", "denoise_fast", "denoise_legacy", "rcan")
 
 # Largest uint8 difference allowed between a bf16 and an fp32 run of one
 # sr x4 artifact at full depth 16. Measured on the CPU: 3
@@ -80,10 +83,11 @@ DENOISE_BF16_MAX_LSB = 2
 
 
 def family_defaults(family: str, rs_deep=None, width=None) -> Tuple[int, int]:
-    """Resolve (depth, width) CLI defaults per model family."""
+    """Resolve (depth, width) CLI defaults per model family (``rcan``: its
+    residual groups and features)."""
     fast = family in ("fast", "denoise_fast")
     if rs_deep is None:
-        rs_deep = 14 if fast else 16
+        rs_deep = 14 if fast else 10 if family == "rcan" else 16
     if width is None:
         width = 128 if fast else 64
     return rs_deep, width
@@ -93,7 +97,8 @@ def infer_family_dims(params, family: str):
     """(depth, width) read from a checkpoint's param TREE, or (None, None)."""
     prefixes = {"sr": ("rrdb", 1), "fast": ("block", 1),
                 "denoise_fast": ("block", 1),
-                "denoise": ("res0_", 2), "denoise_legacy": ("res", 1)}
+                "denoise": ("res0_", 2), "denoise_legacy": ("res", 1),
+                "rcan": ("group", 1)}
     try:
         prefix, per_unit = prefixes[family]
         depth = per_unit * sum(1 for k in params
@@ -152,6 +157,11 @@ class DeploySpec:
     downshuffle: int = 1
     refine_blocks: int = 0
     refine_width: int = 32
+    # rcan: RCABs per residual group (``depth`` counts the groups) and the
+    # channel attention's reduction. The port's own fields: an ``.isr`` file
+    # holds them only where they differ from these defaults.
+    blocks: int = 20
+    reduction: int = 16
 
     def build_model(self, dtype=torch.float32, device="cuda"):
         """The fused (BN-folded) serving graph of this family."""
@@ -169,6 +179,10 @@ class DeploySpec:
                 width=self.width, downshuffle=self.downshuffle or 1,
                 refine_blocks=self.refine_blocks or 0,
                 refine_width=self.refine_width or 32, dtype=dtype, device=device)
+        if self.family == "rcan":
+            return RCAN(groups=self.depth, blocks=self.blocks, width=self.width,
+                        reduction=self.reduction, scale=self.scale, dtype=dtype,
+                        device=device)
         return SRGenerator(depth=self.depth, add_rate=self.add_rate,
                            scale=self.scale, width=self.width,
                            enchant=self.enchant, fused=True, dtype=dtype,
@@ -234,7 +248,15 @@ class DeployedModel:
         The spans ``model/upload`` and ``model/forward`` (its host dispatch)."""
         x = upload(u8_batch, self.device)
         with annotate("model/forward"):
-            return tanh_to_uint8(self.model(normalize(x, self._mean, self._std)))
+            return to_uint8(self.model, self.model(normalize(x, self._mean, self._std)),
+                            self._mean)
+
+
+def to_uint8(model: torch.nn.Module, y: torch.Tensor, mean) -> torch.Tensor:
+    """The model's output map: its own ``to_uint8`` where it has one
+    (``rcan``), else ``tanh_to_uint8``."""
+    own = getattr(model, "to_uint8", None)
+    return own(y, mean) if own is not None else tanh_to_uint8(y)
 
 
 def upload(u8_batch, device: torch.device) -> torch.Tensor:
@@ -261,13 +283,16 @@ class _Program(torch.nn.Module):
         self.register_buffer("std", torch.tensor(deployed._std, **kw))
 
     def forward(self, u8: torch.Tensor) -> torch.Tensor:
-        return tanh_to_uint8(self.model((to_float01(u8) - self.mean) / self.std))
+        return to_uint8(self.model, self.model((to_float01(u8) - self.mean) / self.std),
+                        self.mean)
 
 
 def export_program(deployed: DeployedModel, batch: int, height: int, width: int,
                    out_path: str | Path, polymorphic: bool = False) -> None:
     """Write the request (uint8 NHWC -> uint8 NHWC: normalize, the model,
-    ``tanh_to_uint8``) as a ``torch.export`` program on the model's device.
+    the family's output map) as a ``torch.export`` program on the model's
+    device. A model with ``card_export`` False (``rcan``: K3 is a ctypes
+    call, which ``torch.export`` cannot trace) exports on the CPU only.
 
     Static: for a (batch, height, width, 3) input. ``polymorphic=True``:
     N, H and W are ``torch.export.Dim``s, the counterpart of the JAX
@@ -280,6 +305,10 @@ def export_program(deployed: DeployedModel, batch: int, height: int, width: int,
     keeps the tiling of the size it was traced at. Load with
     ``load_program``.
     """
+    if not getattr(deployed.model, "card_export", True) and deployed.device.type != "cpu":
+        raise ValueError(f"a {deployed.spec.family} program exports on the CPU only: its "
+                         f"kernel (K3, channel attention) is a ctypes call, which "
+                         f"torch.export cannot trace")
     f = 2 if deployed.spec.family == "denoise" else deployed.spec.downshuffle or 1
     f = deployed.wino_m or f
     dynamic = None
@@ -312,13 +341,21 @@ def load_program(path: str | Path):
 
 # ------------------------------------------------------------ persistence --
 
+# DeploySpec's fields that the JAX package's spec lacks, with their defaults
+PORT_ONLY_FIELDS = {"blocks": DeploySpec.blocks, "reduction": DeploySpec.reduction}
+
+
 def save_artifact(path: str | Path, spec: DeploySpec,
                   fused_params: Mapping[str, Any]) -> None:
     """Write ``fused_params`` (flax tree of numpy arrays) as an ``.isr``."""
+    fields = asdict(spec)
+    for name, default in PORT_ONLY_FIELDS.items():
+        if fields[name] == default:
+            del fields[name]
     payload = {  # keys in sorted order, as flax writes them
         "format_version": 1,
         "params": map_tree(to_fp16, fused_params),
-        "spec": json.dumps(asdict(spec)),
+        "spec": json.dumps(fields),
     }
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)

@@ -860,3 +860,71 @@ def test_data_parallel_steps_on_card(card, tmp_path, backend, world):
                 assert torch.equal(t, other[key]["model"][k]), k
         for k, t in ranks[0]["gan"]["g"].items():
             assert torch.equal(t, other["gan"]["g"][k]), k
+
+
+@pytest.mark.parametrize("shape", [(8, 270, 480, 64), (8, 96, 96, 64), (3, 17, 29, 64),
+                                   (2, 13, 11, 32), (1, 300, 300, 256)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k3_matches_plain_version(card, shape, dtype):
+    """K3 at the frames shape, a tile batch, ragged ones and the widest C
+    (hidden 16), on the bf16 stream the port serves with and on an fp32
+    one: within ``KERNEL_ATOL + KERNEL_RTOL |want|`` of the plain version
+    (the mean summed in another order), bitwise the same on a second call
+    (no atomics), one launch of each pass a call."""
+    from image_super_resolution_tpu_torch.ops.kernels import channel_attention as k3
+
+    g = torch.Generator(device=card).manual_seed(sum(shape))
+    c, hidden = shape[-1], shape[-1] // 16
+
+    def u(*s, scale=1.0):
+        return (torch.rand(*s, generator=g, device=card) * 2 - 1) * scale
+
+    args = (u(*shape, scale=60.0).to(dtype), (u(*shape, scale=8.0) + 1).to(dtype),
+            u(c, scale=0.1), u(hidden, c, scale=c ** -0.5), u(hidden, scale=0.1),
+            u(c, hidden, scale=hidden ** -0.5), u(c, scale=0.1))
+    before = dict(k3.ca_residual.launches_by_pass)
+    got, again = k3.ca_residual(*args), k3.ca_residual(*args)
+    torch.cuda.synchronize()
+    assert {p: k3.ca_residual.launches_by_pass[p] - before.get(p, 0)
+            for p in ("reduce", "scale")} == {"reduce": 2, "scale": 2}
+    want = k3.ca_residual_reference(*args)
+    assert got.dtype == dtype and torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), atol=k3.KERNEL_ATOL,
+                               rtol=k3.KERNEL_RTOL[dtype])
+
+
+def test_k3_rejects_what_it_does_not_take(card):
+    from image_super_resolution_tpu_torch.ops.kernels.channel_attention import ca_residual
+
+    x = torch.zeros(1, 4, 4, 64, device=card, dtype=torch.bfloat16)
+    p = [torch.zeros(s, device=card) for s in ((64,), (4, 64), (4,), (64, 4), (64,))]
+    with pytest.raises(ValueError):
+        ca_residual(x, x.float(), *p)
+    with pytest.raises(ValueError):
+        ca_residual(x[..., :48].contiguous(), x[..., :48].contiguous(), *p)
+    with pytest.raises(ValueError):
+        ca_residual(x, x, p[0].bfloat16(), *p[1:])
+    with pytest.raises(ValueError):
+        ca_residual(x, x, *p[:-1], p[-1].cpu())
+
+
+def test_rcan_on_card_launches_k3_per_block(card):
+    """bf16 rcan on the card: two K3 launches per block, and the uint8
+    output within 2 LSB of the port's fp32 CPU path (bf16 against float32
+    measured at most 1 LSB at this size on the CPU, tests/test_torch_rcan.py;
+    one more for cuDNN's sums)."""
+    from image_super_resolution_tpu_torch.models.rcan import RCAN_MEAN, RCAN_STD
+    from image_super_resolution_tpu_torch.ops.kernels.channel_attention import ca_residual
+
+    spec = DeploySpec(family="rcan", depth=2, blocks=3, width=64, scale=4, mean=RCAN_MEAN,
+                      std=RCAN_STD)
+    params = init_fused_params(spec, seed=4)
+    x = np.random.default_rng(4).integers(0, 256, (2, 24, 20, 3), dtype=np.uint8)
+    before = dict(ca_residual.launches_by_pass)
+    got = DeployedModel(spec, params, dtype=torch.bfloat16, device="cuda")(x)
+    torch.cuda.synchronize()
+    assert {p: ca_residual.launches_by_pass[p] - before.get(p, 0)
+            for p in ("reduce", "scale")} == {"reduce": 6, "scale": 6}
+    want = DeployedModel(spec, params, dtype=torch.float32, device="cpu")(x)
+    assert got.shape == (2, 96, 80, 3)
+    assert (got.cpu().int() - want.int()).abs().max().item() <= 2
