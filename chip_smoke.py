@@ -12,9 +12,11 @@ Phases, each of which raises on failure:
    source, all started together), timed;
 3. K1, the fused RDB: its ptxas report (registers, shared memory, no
    spills), then against its plain PyTorch version on the card at the
-   serving shape and at ragged and whole-image shapes, with the tolerance
-   stated; then timed (CUDA events), whole and per launch, beside its plain
-   version and the cuDNN yardstick;
+   serving shape, video frames (8 x 270 x 480) and ragged and whole-image
+   shapes, with the tolerance stated; then timed (CUDA events) beside its
+   plain version and the cuDNN yardstick, and whole and per launch at
+   b256 t24, the frames shape and a ragged 1 x 97 x 131, each with its
+   rectangles per persistent block;
 4. K2: the ptxas report of ``csrc/matmul.cu`` (fails on a spill);
    ``matmul`` at the probe's check shape and a ragged one (int8 exact);
    ``conv3x3_int8`` in every variant (fp32 or int8 in; fp32, int8 or both
@@ -431,6 +433,11 @@ def phase_k1(kind: str, card: str, ptxas_log: str):
 
     _ptxas("fused_rdb", ptxas_log)
     x, max_err = check(256, 24, 24)
+    timed = [x]  # b256 t24, video frames (many rectangles a block), ragged
+    for shape in ((8, 270, 480), (1, 97, 131)):
+        xs, err = check(*shape)
+        timed.append(xs)
+        max_err = max(max_err, err)
     for shape in ((3, 17, 29), (1, 9, 25), (2, 24, 24), (1, 7, 200), (1, 96, 128)):
         max_err = max(max_err, check(*shape)[1])
     try:
@@ -462,7 +469,8 @@ def phase_k1(kind: str, card: str, ptxas_log: str):
          f"at {peak_bw:.4g} B/s = {t_bytes:.4f} ms; {peak_name} peaks); "
          f"{flops / ms / 1e9:.1f} TFLOP/s achieved, {bound_ms / ms:.1%} of bound; "
          f"kernel / cuDNN {ms / library_ms:.3f}")
-    _k1_launch_times(x, mats, card)
+    for xs in timed:
+        _k1_launch_times(xs, mats, kind, card)
     return {
         "name": "fused_rdb",
         "route": "cuda",
@@ -478,20 +486,30 @@ def phase_k1(kind: str, card: str, ptxas_log: str):
     }
 
 
-def _k1_launch_times(x, mats, card: str) -> None:
-    """Each of K1's five launches timed alone (CUDA events) on the serving
-    input, with its FLOP and rate: which launch leads."""
+def _k1_launch_times(x, mats, kind: str, card: str) -> None:
+    """K1 on input ``x`` timed (CUDA events) whole and each of its five
+    launches alone, with its FLOP and rate (which launch leads), beside the
+    share of its bound and the persistent grid: rectangles a launch,
+    blocks, and their ratio (how far each block's load ring runs on)."""
     from image_super_resolution_tpu_torch.ops.kernels import fused_rdb as k1
 
     weights, bias = mats[:5], mats[5]
     out, y = k1._launch(x, weights, bias, 0.2, 0.01)
-    pixels = x.shape[0] * x.shape[1] * x.shape[2]
+    b, h, w = x.shape[:3]
+    pixels = b * h * w
+    ms = _cuda_ms(lambda: k1._launch(x, weights, bias, 0.2, 0.01, y=y, out=out))
+    flops, nbytes = _k1_work(b, h, w)
+    _, peak_flops, _, peak_bw = _peaks(kind)
+    bound_ms = _bound(flops, nbytes, peak_flops, peak_bw)[0]
+    tiles, grid = k1._schedule(x)
     parts = []
     for i, launch in enumerate(k1.dense_plan()):
-        ms = _cuda_ms(lambda: k1._launch(x, weights, bias, 0.2, 0.01, only=i, y=y, out=out))
-        flops = 2 * pixels * 9 * k1.G * len(launch["groups"]) * launch["n"]
-        parts.append(f"{i}: {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s)")
-    _log(f"[kernel] fused_rdb b256 t24 per launch on {card}: {'; '.join(parts)}")
+        ms_i = _cuda_ms(lambda: k1._launch(x, weights, bias, 0.2, 0.01, only=i, y=y, out=out))
+        flops_i = 2 * pixels * 9 * k1.G * len(launch["groups"]) * launch["n"]
+        parts.append(f"{i}: {ms_i:.4f} ms ({flops_i / ms_i / 1e9:.1f} TFLOP/s)")
+    _log(f"[kernel] fused_rdb B={b} H={h} W={w} on {card}: {ms:.4f} ms a call, "
+         f"{bound_ms / ms:.1%} of its {bound_ms:.4f} ms bound; {tiles} rectangles on {grid} "
+         f"blocks a launch, {tiles / grid:.3f} a block; per launch {'; '.join(parts)}")
 
 
 # ------------------------------------------------------------------ phase 4 --

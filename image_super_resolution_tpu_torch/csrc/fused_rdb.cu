@@ -15,59 +15,97 @@
  * function the scatter form computes; only the order of the fp32 sums
  * differs. The launch plan (which source, channels, weight rows and columns
  * each launch reads) is built by ops/kernels/fused_rdb.py:dense_plan and
- * passed in as integers, so the CPU tests hold the same plan.
+ * passed in as integers, so the CPU tests hold the same plan; so is the
+ * grid (ops/kernels/fused_rdb.py:tile_schedule).
  *
- * Bound on an H100 SXM at the serving shape B=256, 24x24 tiles: the five
- * convs are 2 * 9 * (64*192 + 32*160 + 32*128 + 32*96 + 32*64) = 479,232
- * FLOP per pixel, 7.07e10 FLOP per call over 147,456 pixels: about 71 us at
- * 989 TFLOP/s dense bf16. The bytes that must move are x in and out
- * (2 x 18.9 MB) plus 0.5 MB of weights, about 38 MB: 11 us at 3.35 TB/s.
- * So the RDB is bound by operations, by a factor of about 6.
+ * Bound on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s). The five convs
+ * are 2 * 9 * (64*192 + 32*160 + 32*128 + 32*96 + 32*64) = 479,232 FLOP per
+ * pixel. At the serving shape B=256, 24x24 tiles (147,456 pixels) that is
+ * about 71 us, against 11 us for x in and out and the weights: bound by
+ * operations. At video frames, 8 x 270 x 480 (1,036,800 pixels), 0.50 ms by
+ * operations; but the five-launch design moves more than x in and out:
+ * launch i reads x and y_0..y_{i-1} and writes y_i (the last launch reads x
+ * again for the residual and writes the output), 1,792 bytes a pixel, about
+ * 2.0 KB with the halo rows read again. Launch by launch the y launches are
+ * bound by bytes and the last by operations, a floor of 0.59 ms a call.
  *
  * Design. Five launches of one implicit-GEMM kernel in dense (gather) form:
  * launch i reads the bf16 sources that exist so far (x, y_0..y_{i-1}) and
  * keeps one fp32 accumulator per output in registers; nothing but bf16
  * y_0..y_3 (one (B,H,W,128) buffer) and the output go to device memory.
- *   - A block owns a 24 x 24 rectangle of output pixels of one image (one
- *     serving tile): 576 rows, three warpgroups of three 64-row tiles each,
- *     one block per SM. Ragged edges are masked, so any H, W. (8 x 24
- *     rectangles, one 64-row tile per warpgroup and two blocks per SM,
- *     took 0.35 ms at the serving shape against 0.29 for 24 x 24: every
- *     block re-reads the weights from L2, and the larger rectangle reads
- *     them for three times the rows.)
- *   - K walks 32-channel source groups (2 for x, 1 per y_j). For each group
- *     the block copies the 26 x 26 halo patch (zero-filled outside the
- *     image) and the group's 288 x N weight rows into shared memory with
- *     cp.async, in a ring of 3 stages (2 for the N=64 last launch), so the
- *     next groups' copies fly while this one is multiplied. One barrier per
- *     group.
+ *   - Rectangles of 24 x 24 output pixels of one image (one serving tile):
+ *     576 rows, three consumer warpgroups of three 64-row tiles each. Ragged
+ *     edges are masked, so any H, W. (8 x 24 rectangles with two blocks per
+ *     SM took 0.35 ms at the serving shape against 0.29 for 24 x 24.)
+ *   - Persistent blocks: a launch starts min(rectangles, SMs) blocks, one
+ *     per SM, and block k walks rectangles k, k + grid, ... . Where there are
+ *     no more rectangles than SMs (photo tile batches, small requests, the
+ *     sharded paths) every block owns one rectangle.
+ *   - Warp specialisation: a fourth warpgroup produces, and gives registers
+ *     to the consumers with setmaxnreg (24 against 160 a thread: at 152 the
+ *     last launch's 96 accumulators spill). K walks 32-channel source groups
+ *     (2 for x, 1 per y_j). One producer thread loads each group's 26 x 26
+ *     halo patch by TMA into a ring of 3-4 stages under full and empty
+ *     mbarriers; the ring runs on across every group of every rectangle a
+ *     block owns, so the next rectangle's patches load while this one is
+ *     multiplied and stored. The patch is a box of a 4-D tensor map over
+ *     (B, H, W, channels) at signed coordinates (h0 - 1, w0 - 1): TMA fills
+ *     the zeros at the image border and past the ragged edge, and its
+ *     64-byte swizzle XORs 16-byte chunk c of pixel p with (p / 2) % 4,
+ *     which keeps the 8 rows one ldmatrix phase reads (8 neighbouring
+ *     pixels) in 8 distinct banks.
+ *   - Weights (wgmma's B operand, N-major), also by TMA, one box per tap in
+ *     the N * 2-byte swizzle, from another producer thread: a y launch
+ *     (N = 32, 36,864 to 92,160 bytes) copies all its weights into shared
+ *     memory once per block; the last launch (N = 64, 221,184 bytes)
+ *     streams each group's weights through a ring of its own, two stages
+ *     beside three patch stages.
  *   - The nine taps read the patch at shifted pixel addresses: ldmatrix.x4
- *     loads each 16 x 16 A fragment into registers (patch rows XOR-swizzled
- *     in 16-byte chunks, free of bank conflicts), and wgmma m64nNk16 (N = 32
- *     for y_i, 64 for the output) multiplies it with the weights, which are
- *     its B operand from shared memory, N-major (the matmul form's own
- *     layout) in 8 x 8 core matrices. Each step issues one tap of one
- *     64-row tile; two A register buffers alternate between steps, so one
- *     step's loads overlap the previous step's wgmma, and consecutive steps
- *     feed different accumulators.
- *   - The epilogue works on the registers: bias, then leaky and the bf16
- *     rounding (y_i), or * add_rate + x and the rounding (output), with
- *     __fadd_rn/__fmul_rn so no FMA fuses the residual.
+ *     loads each 16 x 16 A fragment into registers, and wgmma m64nNk16
+ *     multiplies it with the weights. Each step issues one tap of one 64-row
+ *     tile, and waits only for the step whose A registers it reuses: each
+ *     tile has its own (N = 32: two steps in flight while the third loads),
+ *     or two buffers take turns (N = 64), across group boundaries. Tile m's
+ *     pixels lie 208 patch pixels after tile 0's, in the same swizzle phase,
+ *     so one address a tap serves all three (as an immediate offset). A
+ *     warpgroup hands a group's stages back on the empty barriers as soon
+ *     as its wgmmas on them are done; no block barrier is left in the loop,
+ *     so a warpgroup's epilogue overlaps the producers' loads.
+ *   - Every accumulator sums group, then tap, then k16 step, in the plan's
+ *     order, whatever the schedule: the outputs do not depend on the grid,
+ *     and are bit for bit those of the one-block-a-rectangle cp.async design
+ *     this replaced.
+ *   - The epilogue works on the registers: bias (from shared memory), then
+ *     leaky and the bf16 rounding (y_i), or * add_rate + x and the rounding
+ *     (output), with __fadd_rn/__fmul_rn so no FMA fuses the residual; a
+ *     row's residual loads go before its stores.
  *
- * What it leaves on the table, at 25% of its bound: a producer warp with
- * TMA and mbarriers in place of cp.async issued by every thread, and more
- * than one barrier-free step in flight per warpgroup (each step waits for
- * the one two before it, and every source group ends in a block barrier);
- * the weights re-read from L2 by every block (TMA multicast across a
- * cluster would share them); the y's kept on chip across launches (halo
- * recompute); 16-byte epilogue stores (each thread writes 4 bytes per
- * fragment column pair). A persistent grid, whose ring runs on across tile
- * boundaries, was tried and was not faster at the serving shape.
+ * Measured on an H100 80GB HBM3 at 700 W (CUDA events, the frames shape):
+ * 1.18-1.20 ms a call, against 1.82-1.93 for that design, launch by launch
+ * 0.125, 0.170, 0.204, 0.245 and 0.455 ms. Without loads the consumers take
+ * 1.13 ms, without them and the stores 1.02: the kernel is bound by the
+ * consumers' ldmatrix and wgmma steps.
+ *
+ * What it leaves on the table: the consumers are bound by shared-memory
+ * bandwidth, each 64-row tile loading its A fragments by ldmatrix (wgmma A
+ * straight from shared memory, K2's route, is next); the y's round trip
+ * through device memory between launches (kept on chip, with halo
+ * recompute, the floor above falls to 0.50 ms); 4-byte epilogue stores
+ * (staged through shared memory to 16 bytes, they pushed the last launch
+ * into spills and gained nothing at N = 32); the three warpgroups' epilogues
+ * fall together, with the tensor cores idle. A persistent grid was first
+ * tried at the serving shape, b256 t24, under 2 rectangles per SM, with a
+ * ring every thread filled and a block barrier per group, and was not
+ * faster there; that said nothing of shapes with many rectangles per SM.
  */
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <initializer_list>
+#include <mutex>
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -80,34 +118,83 @@ constexpr int C = 64;                     // block width
 constexpr int G = 32;                     // growth channels = channels per K group
 constexpr int YC = 4 * G;                 // channels of the y buffer
 constexpr int MT = 3;                     // 64-row tiles per warpgroup
-constexpr int TH = 8 * MT, TW = 24;       // output rectangle of one block
+constexpr int TH = 8 * MT, TW = 24;       // output rectangle
 constexpr int PW = TW + 2;                // halo patch width
 constexpr int PPIX = (TH + 2) * PW;       // halo patch pixels (676)
-constexpr int THREADS = 384;              // three warpgroups
-constexpr int SLAB = THREADS / 2;         // rows of one tile in all warpgroups (192)
-static_assert(TH * TW == MT * SLAB, "the rectangle's pixels are the block's rows");
+constexpr int CONSUMERS = 384;            // three warpgroups
+constexpr int THREADS = CONSUMERS + 128;  // and the producer warpgroup
+// Registers a thread after setmaxnreg. Each SM sub-partition holds 16,384
+// and one warp of each warpgroup.
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 160;
+static_assert(32 * (PRODUCER_REGS + 3 * CONSUMER_REGS) <= 16384, "register file");
+constexpr int SLAB = CONSUMERS / 2;       // rows of one tile in all warpgroups (192)
+static_assert(TH * TW == MT * SLAB, "the rectangle's pixels are the consumers' rows");
+constexpr int TILE_PIX = SLAB / TW * PW;  // patch pixels from one row tile to the next (208)
+static_assert(SLAB % TW == 0 && TILE_PIX % 8 == 0, "row tiles share the swizzle phase");
 constexpr int KG = 9 * G;                 // K rows per source group (288)
-constexpr int PATCH_BYTES = PPIX * G * 2; // 43,264
+constexpr int PATCH_BYTES = PPIX * G * 2; // 43,264, one TMA box
+// TMA's 64-byte swizzle (patches, N = 32 weights) starts over every 512
+// bytes, its 128-byte swizzle (N = 64 weights) every 1024: boxes start
+// there.
+constexpr int ALIGN = 1024;
+__host__ __device__ constexpr int round_up(int v, int to) { return (v + to - 1) / to * to; }
+constexpr int PATCH_STRIDE = round_up(PATCH_BYTES, 512);  // 43,520
 constexpr int MAX_GROUPS = 6;
+constexpr int MAX_STAGES = 4;   // patch ring
+constexpr int WSTAGES = 2;      // weight ring of the last launch
+static_assert(WSTAGES == 2, "the weight ring's stage and phase are bits of the group count");
+// Behind the weights and the patch ring: mbarriers (patch full and empty,
+// weight full and empty, resident weights) and the launch's biases.
+constexpr int TAIL_BYTES = (2 * MAX_STAGES + 2 * WSTAGES + 1) * 8 + C * 4;
+constexpr int SMEM_LIMIT = 232448;                   // a block's shared memory on sm_90
 constexpr int PLAN_INTS = 5 + 5 * MAX_GROUPS;  // one launch of the plan
 constexpr int COUTS[5] = {4 * G + C, 3 * G + C, 2 * G + C, G + C, C};
 
+__host__ __device__ constexpr int group_weight_bytes(int n) { return KG * n * 2; }
+
+// Weights in shared memory: all of a y launch's (N = 32), or the last
+// launch's ring of WSTAGES groups (N = 64).
+__host__ __device__ constexpr int weight_bytes(int n, int groups) {
+  return (n == C ? WSTAGES : groups) * group_weight_bytes(n);
+}
+
+// Patch ring stages: as many as fit, up to MAX_STAGES.
+__host__ __device__ constexpr int stages(int n, int groups) {
+  const int fit = (SMEM_LIMIT - ALIGN - TAIL_BYTES - weight_bytes(n, groups)) / PATCH_STRIDE;
+  return fit < MAX_STAGES ? fit : MAX_STAGES;
+}
+
+// Dynamic shared memory: alignment slack, the weights, the patch ring, the
+// tail.
+__host__ __device__ constexpr int smem_bytes(int n, int groups) {
+  return ALIGN + weight_bytes(n, groups) + stages(n, groups) * PATCH_STRIDE + TAIL_BYTES;
+}
+
+static_assert(stages(C, MAX_GROUPS) >= 2 && stages(G, MAX_GROUPS - 1) >= 2, "ring fits");
+
 struct Group {       // one 32-channel slice of a source and its weight rows
-  const bf16* src;   // (B,H,W,src_ld)
-  int src_ld, src_c0;
-  const bf16* w;     // (9*w_cin, w_ld), rows (dy, dx, cin)
-  int w_ld, w_cin, w_c0, w_col0;
+  int src;           // 0: x, 1: the y buffer
+  int src_c0;
+  int w;             // 0: sx, 1..4: s0..s3
+  int w_cin, w_c0, w_col0;
 };
 
 struct Launch {
   Group g[MAX_GROUPS];
-  int groups;
+  int groups, stages;
   const float* bias;  // this launch's N biases
   bf16* dst;          // y buffer or output
   int dst_ld, dst_c0;
   const bf16* x;      // the residual (last launch)
-  int H, W, tiles_h, tiles_w;
+  int H, W, tiles_h, tiles_w, tiles;
   float add_rate, slope;
+};
+
+// Tensor maps: each source's halo patches, and each weight matrix in boxes
+// of this launch's N columns.
+struct Maps {
+  CUtensorMap src[2];
+  CUtensorMap w[5];
 };
 
 // D (64 x N fp32, registers) += A (64 x 16 bf16, registers) * B (descriptor),
@@ -150,156 +237,313 @@ struct Wgmma<64> {
 };
 
 // Byte offset of 16-byte chunk `chunk` (0..3) of patch pixel `pix`: pixels
-// are 64 bytes apart and their chunks XOR-swizzled, so the 8 rows one
-// ldmatrix phase reads (8 neighbouring pixels) fall in 8 distinct banks.
+// are 64 bytes apart and their chunks XOR-swizzled as TMA's 64-byte swizzle
+// writes them.
 __device__ __forceinline__ uint32_t patch_offset(int pix, int chunk) {
   return pix * (G * 2) + ((chunk ^ ((pix >> 1) & 3)) << 4);
 }
 
+// Descriptor of 16 K rows of weights as TMA writes them: rows of N bf16
+// (N-major), 8-row groups 8 * N * 2 bytes apart, in the N * 2-byte swizzle.
 template <int N>
-__host__ __device__ constexpr int stages() {
-  return N == 32 ? 3 : 2;  // three 61.7 KB or two 80.1 KB stages
-}
-
-template <int N>
-__host__ __device__ constexpr int smem_bytes() {
-  return stages<N>() * (PATCH_BYTES + KG * N * 2);
+__device__ __forceinline__ uint64_t weight_desc(uint32_t addr) {
+  constexpr uint64_t layout = N == 64 ? 1 : 2;  // 128- or 64-byte swizzle
+  return smem_desc(addr, 0, 8 * N * 2) | (layout << 62);
 }
 
 template <int N, bool LAST>
-__global__ void __launch_bounds__(THREADS, 1) rdb_dense_conv(const __grid_constant__ Launch p) {
-  constexpr int STAGES = stages<N>();
-  constexpr int B_BYTES = KG * N * 2;
-  constexpr int STAGE_BYTES = PATCH_BYTES + B_BYTES;
-  static_assert(STAGE_BYTES % 128 == 0 && PATCH_BYTES % 128 == 0, "stage alignment");
+__global__ void __launch_bounds__(THREADS, 1)
+    rdb_dense_conv(const __grid_constant__ Launch p, const __grid_constant__ Maps maps) {
+  constexpr int W_BYTES = group_weight_bytes(N);
+  constexpr int TAP_BYTES = G * N * 2;  // the weight rows of one tap of a group
+  static_assert(W_BYTES % ALIGN == 0 && TAP_BYTES % 512 == 0, "weight alignment");
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t smem0 = smem_addr(smem);
+  const uint32_t wts = (smem0 + ALIGN - 1) & ~uint32_t(ALIGN - 1);  // weights
+  const uint32_t ring = wts + weight_bytes(N, p.groups);            // patches
+  const uint32_t bars = ring + p.stages * PATCH_STRIDE;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (MAX_STAGES + s); };
+  auto wfull = [&](int s) { return bars + 8 * (2 * MAX_STAGES + s); };
+  auto wempty = [&](int s) { return bars + 8 * (2 * MAX_STAGES + WSTAGES + s); };
+  const uint32_t wbar = bars + 8 * (2 * MAX_STAGES + 2 * WSTAGES);
+  // In shared memory, the epilogue's loads of the biases can pass its stores.
+  float* s_bias = reinterpret_cast<float*>(smem + (wbar + 8 - smem0));
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  int t = blockIdx.x;
-  const int tw_i = t % p.tiles_w;
-  t /= p.tiles_w;
-  const int th_i = t % p.tiles_h;
-  const long long img = (long long)(t / p.tiles_h) * p.H * p.W;  // pixel (b, 0, 0)
-  const int h0 = th_i * TH, w0 = tw_i * TW;
-
-  // Copy group gi's halo patch and weight rows into ring stage `stage`.
-  auto load_group = [&](int gi, int stage) {
-    const Group& g = p.g[gi];
-    const uint32_t patch = smem0 + stage * STAGE_BYTES;
-    for (int i = tid; i < PPIX * 4; i += THREADS) {
-      const int pix = i >> 2, chunk = i & 3;
-      const int hs = h0 - 1 + pix / PW, ws = w0 - 1 + pix % PW;
-      const bool inside = hs >= 0 && hs < p.H && ws >= 0 && ws < p.W;
-      const bf16* src = g.src;
-      if (inside) src += (img + (long long)hs * p.W + ws) * g.src_ld + g.src_c0 + chunk * 8;
-      cp_async16(patch + patch_offset(pix, chunk), src, inside);
+  if (tid < N) s_bias[tid] = p.bias[tid];
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), CONSUMERS / 128);  // one thread of each consumer warpgroup
     }
-    // Chunk i holds k row (i / N) * 8 + i % 8, columns 8 * ((i % N) / 8) + 0..7:
-    // core matrix (k / 8, n / 8) at byte ((k / 8) * (N / 8) + n / 8) * 128.
-    const uint32_t bs = patch + PATCH_BYTES;
-    for (int i = tid; i < KG * N / 8; i += THREADS) {
-      const int k = (i / N) * 8 + (i & 7);
-      const int row = (k >> 5) * g.w_cin + g.w_c0 + (k & 31);  // tap, channel
-      cp_async16(bs + i * 16, g.w + (long long)row * g.w_ld + g.w_col0 + ((i % N) >> 3) * 8,
-                 true);
+    for (int s = 0; s < WSTAGES; ++s) {
+      mbar_init(wfull(s), 1);
+      mbar_init(wempty(s), CONSUMERS / 128);
+    }
+    mbar_init(wbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // Rectangle t: its image and output origin.
+  auto origin = [&](int t, int& b, int& h0, int& w0) {
+    w0 = (t % p.tiles_w) * TW;
+    t /= p.tiles_w;
+    h0 = (t % p.tiles_h) * TH;
+    b = t / p.tiles_h;
+  };
+
+  // Group gi's weights: K rows (tap, channel) of N bf16 each, one box per
+  // tap (32 K rows).
+  auto load_weights = [&](int gi, uint32_t dst, uint32_t bar) {
+    const Group& g = p.g[gi];
+    for (int tap = 0; tap < 9; ++tap)
+      tma_load_2d(dst + tap * TAP_BYTES, &maps.w[g.w], g.w_col0, tap * g.w_cin + g.w_c0, bar);
+  };
+
+  // One thread loads the patches, group after group of every rectangle.
+  auto load_patches = [&] {
+    int stage = 0, round = 0;
+    for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+      int b, h0, w0;
+      origin(t, b, h0, w0);
+      for (int gi = 0; gi < p.groups; ++gi) {
+        if (round > 0) mbar_wait(empty(stage), (round - 1) & 1);
+        mbar_expect_tx(full(stage), PATCH_BYTES);
+        tma_load_4d(ring + stage * PATCH_STRIDE, &maps.src[p.g[gi].src], p.g[gi].src_c0, w0 - 1,
+                    h0 - 1, b, full(stage));
+        if (++stage == p.stages) {
+          stage = 0;
+          ++round;
+        }
+      }
     }
   };
 
-  float acc[MT][N / 2];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int i = 0; i < N / 2; ++i) acc[m][i] = 0.f;
-
-  // Rows (pixels, row-major in the rectangle) 192m .. 192m+191 are row
-  // tile m of the three warpgroups; warp w holds rows 192m + 16w + 0..15.
-  // ldmatrix addressing: lane l gives row l % 16 of its warp's 16, 16-byte
-  // chunk l / 16 of the k16 step.
-  int apix[MT];  // patch pixel of that row at tap (0, 0)
-#pragma unroll
-  for (int m = 0; m < MT; ++m) {
-    const int r = m * SLAB + warp * 16 + (lane & 15);
-    apix[m] = (r / TW) * PW + r % TW;
-  }
-  const int akc = lane >> 4;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < p.groups) load_group(s, s);
-    cp_async_commit();
-  }
-
-  for (int gi = 0; gi < p.groups; ++gi) {
-    cp_async_wait<STAGES - 2>();
-    fence_proxy_async();
-    __syncthreads();  // group gi is in; every warpgroup is done with stage gi-1
-    const int nx = gi + STAGES - 1;
-    if (nx < p.groups) load_group(nx, nx % STAGES);
-    cp_async_commit();
-
-    const uint32_t patch = smem0 + (gi % STAGES) * STAGE_BYTES;
-    const uint32_t bs = patch + PATCH_BYTES;
-    uint32_t a[2][2][4];  // [step parity][k16 step][fragment]
-#pragma unroll
-    for (int u = 0; u < 9 * MT; ++u) {  // step u: tap u / MT of row tile u % MT
-      const int tap = u / MT, m = u % MT;
-      uint32_t(&ab)[2][4] = a[u & 1];
-      if (u >= 2) wgmma_wait<1>();  // step u-2, the last reader of `ab`, is done
-      const int pix = apix[m] + (tap / 3) * PW + tap % 3;
-#pragma unroll
-      for (int ks = 0; ks < 2; ++ks)
-        ldmatrix_x4(ab[ks], patch + patch_offset(pix, ks * 2 + akc));
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < 2; ++ks) {
-        const uint32_t k0 = tap * G + ks * 16;
-        // B (16 x N, N-major): 8 x 8 core matrices, N * 16 bytes apart
-        // along K, 128 along N
-        Wgmma<N>::run(acc[m], ab[ks], smem_desc(bs + k0 * N * 2, N * 16, 128));
+  // Another the weights: a y launch's all at once, the last launch's group
+  // after group of every rectangle through their own ring.
+  auto load_all_weights = [&] {
+    if constexpr (!LAST) {
+      mbar_expect_tx(wbar, p.groups * W_BYTES);
+      for (int gi = 0; gi < p.groups; ++gi) load_weights(gi, wts + gi * W_BYTES, wbar);
+    } else {
+      int stage = 0, round = 0;
+      for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+        for (int gi = 0; gi < p.groups; ++gi) {
+          if (round > 0) mbar_wait(wempty(stage), (round - 1) & 1);
+          mbar_expect_tx(wfull(stage), W_BYTES);
+          load_weights(gi, wts + stage * W_BYTES, wfull(stage));
+          if (++stage == WSTAGES) {
+            stage = 0;
+            ++round;
+          }
+        }
       }
-      wgmma_commit();
     }
-    wgmma_wait<0>();
-  }
+  };
 
-  // Epilogue from the accumulators: element 4j + 2h + e of tile m is row
-  // 192m + 16 * warp + lane / 4 + 8h, column 8j + 2 (lane % 4) + e.
-#pragma unroll
-  for (int mh = 0; mh < 2 * MT; ++mh) {
-    const int m = mh >> 1, h = mh & 1;
-    const int r = m * SLAB + warp * 16 + (lane >> 2) + 8 * h;
-    const int oh = h0 + r / TW, ow = w0 + r % TW;
-    if (oh >= p.H || ow >= p.W) continue;
-    const long long pix = img + (long long)oh * p.W + ow;
-    bf16* dst = p.dst + pix * p.dst_ld + p.dst_c0;
-#pragma unroll
-    for (int j = 0; j < N / 8; ++j) {
-      const int n = 8 * j + 2 * (lane & 3);
-      float v0 = __fadd_rn(acc[m][4 * j + 2 * h], p.bias[n]);
-      float v1 = __fadd_rn(acc[m][4 * j + 2 * h + 1], p.bias[n + 1]);
-      if constexpr (LAST) {
-        const float2 xf =
-            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.x + pix * C + n));
-        v0 = __fadd_rn(__fmul_rn(v0, p.add_rate), xf.x);
-        v1 = __fadd_rn(__fmul_rn(v1, p.add_rate), xf.y);
-      } else {
-        v0 = v0 > 0.f ? v0 : __fmul_rn(p.slope, v0);
-        v1 = v1 > 0.f ? v1 : __fmul_rn(p.slope, v1);
+  // Three warpgroups multiply and store.
+  auto consume = [&] {
+    // A fragments: each 64-row tile has its own buffer (N = 32); at N = 64,
+    // whose 96 accumulators leave no room for a third, two take turns. A
+    // group's 27 steps move the rotation on by SHIFT buffers, undone by the
+    // next group's.
+    constexpr int NBUF = N == C ? 2 : MT;
+    constexpr int SHIFT = 9 * MT % NBUF;
+    static_assert(2 * SHIFT % NBUF == 0, "two groups bring the rotation back");
+    float acc[MT][N / 2];
+    // Rows (pixels, row-major in the rectangle) 192m .. 192m+191 are row
+    // tile m of the three warpgroups; warp w holds rows 192m + 16w + 0..15.
+    // Tile m lies 8m image rows below tile 0, TILE_PIX patch pixels on, in
+    // the same swizzle phase: one address a tap serves all three tiles.
+    // ldmatrix addressing: lane l gives row l % 16 of its warp's 16, 16-byte
+    // chunk l / 16 of the k16 step.
+    const int r0 = warp * 16 + (lane & 15);
+    const int apix = (r0 / TW) * PW + r0 % TW;  // patch pixel of that row at tap (0, 0)
+    const int akc = lane >> 4;
+    const bool signals = tid % 128 == 0;  // arrives on the empty barriers
+
+    if constexpr (!LAST) mbar_wait(wbar, 0);
+    // Groups consumed: k (weight ring stage k % 2, phase k / 2 % 2), and the
+    // patch ring's next stage and the last group's.
+    int k = 0, stage = 0, round = 0, held = 0;
+    // Hands the last group's stages back to the producers.
+    auto release = [&] {
+      if (signals) {
+        mbar_arrive(empty(held));
+        if constexpr (LAST) mbar_arrive(wempty((k - 1) & 1));
       }
-      *reinterpret_cast<__nv_bfloat162*>(dst + n) = __floats2bfloat162_rn(v0, v1);
+    };
+    uint32_t a[NBUF][2][4];  // [buffer][k16 step][fragment]
+    // Group gi of a rectangle: 27 steps, step u tap u / MT of row tile
+    // u % MT, its A fragments in buffer (u + PAR) % NBUF.
+    auto group = [&](auto par, int gi) {
+      constexpr int PAR = decltype(par)::value;
+      mbar_wait(full(stage), round & 1);
+      if constexpr (LAST) mbar_wait(wfull(k & 1), (k >> 1) & 1);
+      const uint32_t patch = ring + stage * PATCH_STRIDE;
+      const uint32_t bs = wts + (LAST ? k & 1 : gi) * W_BYTES;
+#pragma unroll
+      for (int u = 0; u < 9 * MT; ++u) {
+        const int tap = u / MT, m = u % MT;
+        uint32_t(&ab)[2][4] = a[(u + PAR) % NBUF];
+        // Step u - NBUF, the last reader of ab, is done (and so, at
+        // u == NBUF - 1, the group before's last step: its stages go back).
+        wgmma_wait<NBUF - 1>();
+        if (u == NBUF - 1 && gi > 0) release();
+        // k16 step 1 reads chunks 2, 3: step 0's address with bit 5 flipped.
+        const uint32_t at = patch + patch_offset(apix + (tap / 3) * PW + tap % 3, akc);
+        ldmatrix_x4(ab[0], at + m * TILE_PIX * G * 2);
+        ldmatrix_x4(ab[1], (at ^ 32) + m * TILE_PIX * G * 2);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          const uint32_t k0 = tap * G + ks * 16;  // B: K rows k0 .. k0 + 15
+          Wgmma<N>::run(acc[m], ab[ks], weight_desc<N>(bs + k0 * N * 2));
+        }
+        wgmma_commit();
+      }
+      held = stage;
+      if (++stage == p.stages) {
+        stage = 0;
+        ++round;
+      }
+      ++k;
+    };
+
+    for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+      int b, h0, w0;
+      origin(t, b, h0, w0);
+      const long long img = (long long)b * p.H * p.W;  // pixel (b, 0, 0)
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int i = 0; i < N / 2; ++i) acc[m][i] = 0.f;
+
+      for (int gi = 0; gi < p.groups; ++gi) {
+        if (SHIFT != 0 && (k & 1))
+          group(std::integral_constant<int, SHIFT>{}, gi);
+        else
+          group(std::integral_constant<int, 0>{}, gi);
+      }
+      wgmma_wait<0>();
+      release();
+
+      // Epilogue from the accumulators: element 4j + 2h + e of tile m is row
+      // 192m + 16 * warp + lane / 4 + 8h, column 8j + 2 (lane % 4) + e.
+#pragma unroll
+      for (int mh = 0; mh < 2 * MT; ++mh) {
+        const int m = mh >> 1, h = mh & 1;
+        const int r = m * SLAB + warp * 16 + (lane >> 2) + 8 * h;
+        const int oh = h0 + r / TW, ow = w0 + r % TW;
+        if (oh >= p.H || ow >= p.W) continue;
+        const long long pix = img + (long long)oh * p.W + ow;
+        bf16* dst = p.dst + pix * p.dst_ld + p.dst_c0;
+        // The row's residual loads all go before its first store, which the
+        // compiler could not move them past (they might alias).
+        __nv_bfloat162 res[N / 8];
+        if constexpr (LAST) {
+#pragma unroll
+          for (int j = 0; j < N / 8; ++j)
+            res[j] = *reinterpret_cast<const __nv_bfloat162*>(p.x + pix * C + 8 * j +
+                                                             2 * (lane & 3));
+        }
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j) {
+          const int n = 8 * j + 2 * (lane & 3);
+          float v0 = __fadd_rn(acc[m][4 * j + 2 * h], s_bias[n]);
+          float v1 = __fadd_rn(acc[m][4 * j + 2 * h + 1], s_bias[n + 1]);
+          if constexpr (LAST) {
+            const float2 xf = __bfloat1622float2(res[j]);
+            v0 = __fadd_rn(__fmul_rn(v0, p.add_rate), xf.x);
+            v1 = __fadd_rn(__fmul_rn(v1, p.add_rate), xf.y);
+          } else {
+            v0 = v0 > 0.f ? v0 : __fmul_rn(p.slope, v0);
+            v1 = v1 > 0.f ? v1 : __fmul_rn(p.slope, v1);
+          }
+          *reinterpret_cast<__nv_bfloat162*>(dst + n) = __floats2bfloat162_rn(v0, v1);
+        }
+      }
     }
+  };
+
+  // Warp specialisation: the producer warpgroup gives registers to the
+  // consumers. The warpgroup index through a shuffle, so that ptxas knows
+  // it is uniform.
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (wg == CONSUMERS / 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (tid == CONSUMERS) load_patches();
+    if (tid == CONSUMERS + 32) load_all_weights();
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    consume();
   }
 }
 
+// The halo-patch map of a (B,H,W,ld) bf16 source: boxes of 32 channels x
+// PW x (TH + 2) pixels x 1 image, 64-byte swizzle.
+CUresult source_map(CUtensorMap* map, const void* src, int ld, int B, int H, int W) {
+  const cuuint64_t dims[4] = {(cuuint64_t)ld, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ld * 2, (cuuint64_t)W * ld * 2,
+                                 (cuuint64_t)H * W * ld * 2};
+  const cuuint32_t box[4] = {G, PW, TH + 2, 1};
+  return encode_bf16_map(map, src, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
+// The map of a (rows, cout) bf16 weight matrix: boxes of one tap of a
+// group, 32 rows x n columns, in the n * 2-byte swizzle.
+CUresult weight_map(CUtensorMap* map, const void* w, int rows, int cout, int n) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cout, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cout * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)n, G};
+  return encode_bf16_map(map, w, 2, dims, strides, box,
+                         n == C ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
+// Encoded tensor maps, kept across calls: an sr forward makes 48 calls of 11
+// maps, and encoding one costs about a microsecond of host time. A map is a
+// function of its key alone (address, shape, box), so a buffer freed and
+// another allocated at its address gets the map its shape calls for.
+struct MapKey {
+  const void* ptr;
+  int ld_or_rows, b_or_cout, h_or_n, w;  // source: ld, B, H, W; weight: rows, cout, n, 0
+  bool operator==(const MapKey& o) const {
+    return ptr == o.ptr && ld_or_rows == o.ld_or_rows && b_or_cout == o.b_or_cout &&
+           h_or_n == o.h_or_n && w == o.w;
+  }
+};
+constexpr int MAP_CACHE = 1 << 12;  // direct-mapped: a collision encodes again
+std::mutex map_mutex;
+MapKey map_keys[MAP_CACHE];
+CUtensorMap map_values[MAP_CACHE];
+
+template <typename Encode>
+CUresult cached_map(CUtensorMap* map, const MapKey& key, Encode encode) {
+  uint64_t h = reinterpret_cast<uintptr_t>(key.ptr) >> 4;
+  for (const int v : {key.ld_or_rows, key.b_or_cout, key.h_or_n, key.w}) h = h * 31 + (uint32_t)v;
+  const int slot = (int)((h * 0x9E3779B97F4A7C15ull) >> 52);  // the top 12 bits
+  std::lock_guard<std::mutex> lock(map_mutex);
+  if (map_keys[slot] == key && key.ptr != nullptr) {
+    *map = map_values[slot];
+    return CUDA_SUCCESS;
+  }
+  const CUresult r = encode(map);
+  if (r == CUDA_SUCCESS) {
+    map_keys[slot] = key;
+    map_values[slot] = *map;
+  }
+  return r;
+}
+
 template <int N, bool LAST>
-cudaError_t launch(const Launch& p, int B, cudaStream_t stream) {
+cudaError_t launch(const Launch& p, const Maps& maps, int grid, cudaStream_t stream) {
   auto kernel = rdb_dense_conv<N, LAST>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       smem_bytes<N>());
+  const int smem = smem_bytes(N, p.groups);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  const unsigned grid = (unsigned)((long long)B * p.tiles_h * p.tiles_w);
-  kernel<<<grid, THREADS, smem_bytes<N>(), stream>>>(p);
+  kernel<<<grid, THREADS, smem, stream>>>(p, maps);
   return cudaGetLastError();
 }
 
@@ -307,7 +551,8 @@ cudaError_t launch(const Launch& p, int B, cudaStream_t stream) {
 
 // One RDB on `stream`: the launches of `plan` (dense_plan in
 // ops/kernels/fused_rdb.py, PLAN_INTS ints per launch), all five, or only
-// launch `only` if it is 0..4. Pointers: x, out (B,H,W,64) bf16; sx..s3 the
+// launch `only` if it is 0..4, each on `grid` persistent blocks
+// (tile_schedule there). Pointers: x, out (B,H,W,64) bf16; sx..s3 the
 // (9*Cin, Cout) bf16 matmul-form kernels; bias (192,) fp32; y (B,H,W,128)
 // bf16, written by launches 0-3. All contiguous and 16-byte aligned. Returns
 // the first launch error (a cudaError_t), or 0.
@@ -315,14 +560,20 @@ extern "C" int isr_fused_rdb_forward(const void* x, const void* sx, const void* 
                                      const void* s1, const void* s2, const void* s3,
                                      const void* bias, void* y, void* out, int B, int H,
                                      int W, float add_rate, float slope, const int* plan,
-                                     int only, void* stream) {
-  const bf16* weights[5] = {static_cast<const bf16*>(sx), static_cast<const bf16*>(s0),
-                            static_cast<const bf16*>(s1), static_cast<const bf16*>(s2),
-                            static_cast<const bf16*>(s3)};
-  const bf16* sources[2] = {static_cast<const bf16*>(x), static_cast<const bf16*>(y)};
+                                     int only, int grid, void* stream) {
+  const void* weights[5] = {sx, s0, s1, s2, s3};
   bf16* dsts[2] = {static_cast<bf16*>(y), static_cast<bf16*>(out)};
-  const int source_ld[2] = {C, YC};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (grid < 1) return (int)cudaErrorInvalidValue;
+  Maps maps;
+  const void* sources[2] = {x, y};
+  for (int s = 0; s < 2; ++s) {
+    const int ld = s ? YC : C;
+    if (cached_map(&maps.src[s], {sources[s], ld, B, H, W}, [&](CUtensorMap* m) {
+          return source_map(m, sources[s], ld, B, H, W);
+        }) != CUDA_SUCCESS)
+      return (int)cudaErrorInvalidValue;
+  }
   for (int i = 0; i < 5; ++i) {
     if (only >= 0 && only != i) continue;
     // [groups, N, bias0, dst (0 y, 1 out), dst_c0, then per group:
@@ -334,6 +585,7 @@ extern "C" int isr_fused_rdb_forward(const void* x, const void* sx, const void* 
     const int n = q[1];
     if (p.groups < 1 || p.groups > MAX_GROUPS || (n != G && n != C) || (n == C) != (q[3] == 1))
       return (int)cudaErrorInvalidValue;
+    p.stages = stages(n, p.groups);
     p.bias = static_cast<const float*>(bias) + q[2];
     p.dst = dsts[q[3]];
     p.dst_ld = q[3] ? C : YC;
@@ -341,23 +593,28 @@ extern "C" int isr_fused_rdb_forward(const void* x, const void* sx, const void* 
     for (int k = 0; k < p.groups; ++k) {
       const int* e = q + 5 + 5 * k;
       Group& g = p.g[k];
-      g.src = sources[e[0]];
-      g.src_ld = source_ld[e[0]];
+      g.src = e[0];
       g.src_c0 = e[1];
-      g.w = weights[e[2]];
-      g.w_ld = COUTS[e[2]];
+      g.w = e[2];
       g.w_cin = e[2] == 0 ? C : G;
       g.w_c0 = e[3];
       g.w_col0 = e[4];
+      const int rows = 9 * g.w_cin, cout = COUTS[g.w];
+      if (cached_map(&maps.w[g.w], {weights[g.w], rows, cout, n, 0}, [&](CUtensorMap* m) {
+            return weight_map(m, weights[g.w], rows, cout, n);
+          }) != CUDA_SUCCESS)
+        return (int)cudaErrorInvalidValue;
     }
     p.x = static_cast<const bf16*>(x);
     p.H = H;
     p.W = W;
     p.tiles_h = (H + TH - 1) / TH;
     p.tiles_w = (W + TW - 1) / TW;
+    p.tiles = B * p.tiles_h * p.tiles_w;
     p.add_rate = add_rate;
     p.slope = slope;
-    const cudaError_t e = n == C ? launch<C, true>(p, B, st) : launch<G, false>(p, B, st);
+    const cudaError_t e =
+        n == C ? launch<C, true>(p, maps, grid, st) : launch<G, false>(p, maps, grid, st);
     if (e != cudaSuccess) return (int)e;
   }
   return 0;
@@ -365,9 +622,17 @@ extern "C" int isr_fused_rdb_forward(const void* x, const void* sx, const void* 
 
 extern "C" int isr_fused_rdb_plan_ints() { return PLAN_INTS; }
 
-// Dynamic shared memory of the kernel for N = 32 (y launches) or 64 (last).
+// The output rectangle, rows (dim 0) or columns (dim 1): the grid's unit.
+extern "C" int isr_fused_rdb_rectangle(int dim) { return dim == 0 ? TH : TW; }
+
+// The most dynamic shared memory a launch asks for: N = 32 (y launches) or
+// 64 (last).
 extern "C" int isr_fused_rdb_smem_bytes(int n) {
-  return n == C ? smem_bytes<C>() : smem_bytes<G>();
+  if (n == C) return smem_bytes(C, MAX_GROUPS);
+  int most = 0;
+  for (int groups = 2; groups < MAX_GROUPS; ++groups)
+    most = smem_bytes(G, groups) > most ? smem_bytes(G, groups) : most;
+  return most;
 }
 
 extern "C" const char* isr_cuda_error_string(int err) {

@@ -12,14 +12,20 @@ The kernel computes the same function in dense (gather) form: launch i
 gathers every source that exists so far through its column slice of the
 scatter-form weights (``dense_plan``), so no fp32 partial sum leaves the
 chip. Unlike the Pallas kernel it takes any batch and any H, W (whole-image
-serving sends non-square images through it). The CUDA design and its bound
-are described at the top of the ``.cu`` file.
+serving sends non-square images through it). Each launch runs on
+``tile_schedule``'s persistent grid: min(rectangles, SMs) blocks, block k
+walking rectangles k, k + grid, ... . The CUDA design and its bound are
+described at the top of the ``.cu`` file.
 
 The wrapper ``scatter_rdb`` calls the registered op ``isr::scatter_rdb``
 (``scatter_rdb_op``), which dispatches by device: CUDA -> the counted
 launch, CPU -> the plain version, its fake implementation -> the output's
 shape. So ``torch.export`` records each RDB as one node, and a loaded
-program launches the hand-written kernel.
+program launches the hand-written kernel. Counters, plain integers on
+``scatter_rdb``: ``launches`` (RDB calls on the card), ``tiles`` (rectangles
+walked, all five launches) and ``blocks`` (blocks started, all five
+launches); ``tiles / blocks`` says how far each block's load ring runs on
+across rectangles.
 """
 
 from __future__ import annotations
@@ -39,6 +45,8 @@ G = C // 2  # growth channels
 PC = 4 * G + C  # output channels of sx; the bias's length
 COUTS = (PC, PC - G, PC - 2 * G, PC - 3 * G, C)  # of sx, s0..s3
 MAX_GROUPS = 6  # 32-channel source groups of the last launch
+RECT = (24, 24)  # the kernel's output rectangle, rows x columns
+LAUNCHES = 5
 
 # Kernel vs plain version in bf16: both keep fp32 sums and round at the same
 # places, but sum each conv in another order. That can flip the bf16
@@ -107,8 +115,8 @@ def dense_plan() -> List[Dict[str, Any]]:
     [column0, column0 + N) of weight ``weight`` (0 = sx, 1..4 = s0..s3).
     Then bias[bias0 : bias0 + N]."""
     plan = []
-    for i in range(5):
-        last = i == 4
+    for i in range(LAUNCHES):
+        last = i == LAUNCHES - 1
         groups = [("x", c0, 0, c0, i * G) for c0 in (0, G)]
         groups += [("y", j * G, j + 1, 0, (i - j - 1) * G) for j in range(i)]
         plan.append({"groups": groups, "n": C if last else G, "bias0": i * G,
@@ -128,6 +136,25 @@ def _plan_ints() -> List[int]:
     return ints
 
 
+def tile_schedule(b: int, h: int, w: int, sms: int) -> Tuple[int, int]:
+    """(rectangles, blocks) of each launch on a (b, h, w) input: RECT
+    rectangles cover every image, ragged at the right and bottom edges, and
+    a launch starts one persistent block per SM, or one per rectangle where
+    there are fewer."""
+    tiles = b * -(-h // RECT[0]) * -(-w // RECT[1])
+    return tiles, min(tiles, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _schedule(x) -> Tuple[int, int]:
+    b, h, w, _ = x.shape
+    return tile_schedule(b, h, w, _sm_count(x.device.index))
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> Tuple[ctypes.CDLL, Any]:
     from ._build import load
@@ -135,13 +162,16 @@ def _library() -> Tuple[ctypes.CDLL, Any]:
     lib = load("fused_rdb")
     fn = lib.isr_fused_rdb_forward
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.isr_cuda_error_string.argtypes = [ctypes.c_int]
     lib.isr_cuda_error_string.restype = ctypes.c_char_p
     ints = _plan_ints()
     if len(ints) != 5 * lib.isr_fused_rdb_plan_ints():
         raise RuntimeError("csrc/fused_rdb.cu reads another plan layout")
+    if tuple(lib.isr_fused_rdb_rectangle(d) for d in (0, 1)) != RECT:
+        raise RuntimeError("csrc/fused_rdb.cu walks other rectangles than tile_schedule")
     return lib, (ctypes.c_int * len(ints))(*ints)
 
 
@@ -177,9 +207,14 @@ def scatter_rdb(x, sx, s0, s1, s2, s3, bias, add_rate: float = 0.2,
 
 
 def _cuda_forward(x, sx, s0, s1, s2, s3, bias, add_rate, slope) -> torch.Tensor:
-    """The kernel's five launches, counted as one in ``scatter_rdb.launches``."""
+    """The kernel's five launches, counted as one in ``scatter_rdb.launches``,
+    and their rectangles and blocks in ``scatter_rdb.tiles`` and ``.blocks``."""
     out = _launch(x, (sx, s0, s1, s2, s3), bias, add_rate, slope)[0]
     scatter_rdb.launches += 1
+    if x.numel():
+        tiles, grid = _schedule(x)
+        scatter_rdb.tiles += LAUNCHES * tiles
+        scatter_rdb.blocks += LAUNCHES * grid
     return out
 
 
@@ -215,12 +250,13 @@ def _launch(x, weights, bias, add_rate, slope, only: int = -1, y=None, out=None)
     if x.numel() == 0:
         return out, y
     lib, plan = _library()
+    grid = _schedule(x)[1]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.isr_fused_rdb_forward(
             x.data_ptr(), *(t.data_ptr() for t in weights), bias.data_ptr(),
             y.data_ptr(), out.data_ptr(), b, h, w, float(add_rate), float(slope),
-            plan, only, stream,
+            plan, only, grid, stream,
         )
     if err != 0:
         msg = lib.isr_cuda_error_string(err).decode()
@@ -229,3 +265,5 @@ def _launch(x, weights, bias, add_rate, slope, only: int = -1, y=None, out=None)
 
 
 scatter_rdb.launches = 0
+scatter_rdb.tiles = 0
+scatter_rdb.blocks = 0

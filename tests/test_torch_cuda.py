@@ -36,11 +36,13 @@ def mats(card):
 
 
 @pytest.mark.parametrize("b,h,w", [(1, 1, 1), (2, 8, 8), (3, 17, 29), (1, 33, 130),
-                                   (1, 9, 25), (2, 24, 24), (1, 7, 200), (1, 96, 128)])
+                                   (1, 9, 25), (2, 24, 24), (1, 7, 200), (1, 96, 128),
+                                   (3, 200, 300)])
 def test_fused_rdb_matches_plain_version(card, mats, b, h, w):
-    """Any batch and any H, W: images smaller than one 8 x 24 block,
+    """Any batch and any H, W: images smaller than one 24 x 24 rectangle,
     rectangles that straddle both image edges (9 x 25), the serving tile,
-    rows much wider than a block and a whole-image sr input. Tolerance:
+    rows much wider than a rectangle, a whole-image sr input, and more
+    rectangles than SMs (351: each persistent block walks several). Tolerance:
     KERNEL_ATOL + KERNEL_RTOL|want| (a few bf16 ulps; the two sum each conv
     in another order)."""
     rng = np.random.default_rng(b * 1000 + h * 10 + w)
@@ -54,6 +56,18 @@ def test_fused_rdb_matches_plain_version(card, mats, b, h, w):
     assert got.dtype == torch.bfloat16 and got.shape == x.shape
     torch.testing.assert_close(got.float(), want.float(), atol=k1.KERNEL_ATOL,
                                rtol=k1.KERNEL_RTOL)
+
+
+def test_fused_rdb_counts_rectangles_and_blocks(card, mats):
+    """One call at the frames shape: five launches of min(rectangles, SMs)
+    persistent blocks, counted beside the one launch."""
+    x = torch.zeros(8, 270, 480, k1.C, device=card, dtype=torch.bfloat16)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    before = k1.scatter_rdb.launches, k1.scatter_rdb.tiles, k1.scatter_rdb.blocks
+    k1.scatter_rdb(x, *mats)
+    torch.cuda.synchronize()
+    after = k1.scatter_rdb.launches, k1.scatter_rdb.tiles, k1.scatter_rdb.blocks
+    assert [a - b for a, b in zip(after, before)] == [1, 5 * 1920, 5 * min(1920, sms)]
 
 
 def test_fused_rdb_is_deterministic(card, mats):

@@ -31,12 +31,15 @@ from image_super_resolution_tpu_torch.ops.kernels.fused_rdb import (
     KERNEL_ATOL,
     KERNEL_RTOL,
     MAX_GROUPS,
+    RECT,
     _plan_ints,
     dense_plan,
     scatter_params_to_matmul,
     scatter_rdb,
     scatter_rdb_reference,
+    tile_schedule,
 )
+from image_super_resolution_tpu_torch.ops.kernels import fused_rdb as k1
 from image_super_resolution_tpu_torch.ops.scatter import (
     ScatterRDB,
     rdb_params_to_scatter,
@@ -266,3 +269,78 @@ def test_plan_ints_encode_the_plan():
         for k, (src, c0, w, wc0, col0) in enumerate(launch["groups"]):
             assert q[5 + 5 * k:10 + 5 * k] == [int(src == "y"), c0, w, wc0, col0]
         assert not any(q[5 + 5 * len(launch["groups"]):])
+
+
+# ------------------------------------------------ the kernel's persistent grid --
+
+H100_SMS = 132
+# (b, h, w, rectangles): the cells' frame batches (8 and 32 frames of
+# 270 x 480), the photo cells' tile batch (8 x 96 x 96), the serving tiles
+# (b256 t24), one more and one fewer rectangle than SMs, and ragged images.
+SCHEDULE_SHAPES = [(8, 270, 480, 1920), (32, 270, 480, 7680), (8, 96, 96, 128),
+                   (256, 24, 24, 256), (133, 24, 24, 133), (131, 20, 17, 131),
+                   (1, 97, 131, 30), (3, 25, 23, 6), (1, 1, 1, 1)]
+
+
+def block_rectangles(b, h, w, sms):
+    """The kernel's walk: for each block k, the rectangles it computes in
+    order, as (image, first row, first column). Block k takes rectangle
+    indices k, k + grid, ...; index t is column t % tiles_w, then row, then
+    image (``origin`` in csrc/fused_rdb.cu)."""
+    tiles, grid = tile_schedule(b, h, w, sms)
+    tiles_h, tiles_w = -(-h // RECT[0]), -(-w // RECT[1])
+    return [[(t // (tiles_h * tiles_w), t // tiles_w % tiles_h * RECT[0], t % tiles_w * RECT[1])
+             for t in range(k, tiles, grid)] for k in range(grid)]
+
+
+@pytest.mark.parametrize("sms", [H100_SMS, 16])
+@pytest.mark.parametrize("b,h,w,tiles", SCHEDULE_SHAPES)
+def test_block_walk_covers_every_rectangle_once(b, h, w, tiles, sms):
+    """The grid the kernel is given is min(rectangles, SMs), and its blocks'
+    walks (rectangles k, k + grid, ...) cover every rectangle of every image
+    exactly once, each block at least one and none more than one above
+    another."""
+    assert tile_schedule(b, h, w, sms) == (tiles, min(tiles, sms))
+    walk = block_rectangles(b, h, w, sms)
+    assert len(walk) == min(tiles, sms)
+    seen = [r for block in walk for r in block]
+    want = {(i, r, c) for i in range(b) for r in range(0, h, RECT[0])
+            for c in range(0, w, RECT[1])}
+    assert len(seen) == len(want) == tiles
+    assert set(seen) == want
+    sizes = [len(block) for block in walk]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+
+
+def test_block_walk_follows_the_kernel_index_order():
+    """Block k's i-th rectangle is index k + i * grid, read as column, then
+    row, then image (the order of the kernel's ``origin``), so neighbouring
+    blocks start on neighbouring rectangles of one image."""
+    walk = block_rectangles(2, 50, 70, 4)  # 3 x 3 rectangles an image, 18 in all
+    assert walk[0] == [(0, 0, 0), (0, 24, 24), (0, 48, 48), (1, 24, 0), (1, 48, 24)]
+    assert [block[0] for block in walk] == [(0, 0, 0), (0, 0, 24), (0, 0, 48), (0, 24, 0)]
+    assert walk[3] == [(0, 24, 0), (0, 48, 24), (1, 0, 48), (1, 48, 0)]
+
+
+@pytest.mark.parametrize("b,h,w,tiles", SCHEDULE_SHAPES + [(0, 24, 24, 0)])
+def test_counters_of_rectangles_and_blocks(b, h, w, tiles, monkeypatch):
+    """One counted RDB call adds 1 to ``launches`` and, for its five
+    launches, 5 x rectangles to ``tiles`` and 5 x blocks to ``blocks``: their
+    ratio is the rectangles each block's load ring runs on across (14.5 at
+    the frames shape on an H100, 1.0 on the photo tile batch). An empty
+    input launches nothing. The launch itself is stubbed: this is the
+    wrapper's arithmetic, on a meta tensor."""
+    monkeypatch.setattr(k1, "_launch", lambda x, *a, **kw: (x, None))
+    monkeypatch.setattr(k1, "_sm_count", lambda index: H100_SMS)
+    monkeypatch.setattr(scatter_rdb, "launches", 0)
+    monkeypatch.setattr(scatter_rdb, "tiles", 0)
+    monkeypatch.setattr(scatter_rdb, "blocks", 0)
+    x = torch.empty((b, h, w, C), dtype=torch.bfloat16, device="meta")
+    k1._cuda_forward(x, None, None, None, None, None, None, 0.2, 0.01)
+    blocks = min(tiles, H100_SMS)
+    assert (scatter_rdb.launches, scatter_rdb.tiles, scatter_rdb.blocks) == (
+        1, 5 * tiles, 5 * blocks)
+    if (b, h, w) == (8, 270, 480):
+        assert scatter_rdb.tiles / scatter_rdb.blocks == pytest.approx(14.545, abs=1e-3)
+    if (b, h, w) == (8, 96, 96):
+        assert scatter_rdb.tiles == scatter_rdb.blocks
