@@ -220,19 +220,13 @@ import tempfile
 import time
 from pathlib import Path
 
+from perfbench.roofline.k1 import work as k1_work
+from perfbench.roofline.peaks import bound_s, peaks
+
 SEED = 0
 ROOT = Path(__file__).resolve().parent
 PACKAGE = "image_super_resolution_tpu_torch"
 SOURCES = ("fused_rdb", "matmul", "channel_attention")  # csrc/<name>.cu
-
-# Dense peaks from NVIDIA's data sheets, by product name (first match):
-# bf16 tensor-core FLOP/s, int8 tensor-core OP/s and device-memory bytes/s.
-PEAKS = (
-    ("H100 PCIe", 756e12, 1513e12, 2.0e12),
-    ("H100 NVL", 835e12, 1671e12, 3.9e12),
-    ("H200", 989e12, 1979e12, 4.8e12),
-    ("H100", 989e12, 1979e12, 3.35e12),
-)
 
 
 def _log(msg: str) -> None:
@@ -240,19 +234,17 @@ def _log(msg: str) -> None:
 
 
 def _peaks(name: str):
-    """(product, bf16 FLOP/s, int8 OP/s, bytes/s) for the card ``name``."""
-    for row in PEAKS:
-        if row[0] in name:
-            return row
-    _log(f"peaks: no entry for {name!r}; using the H100 SXM's")
-    return PEAKS[-1]
+    """(product, bf16 FLOP/s, int8 OP/s, bytes/s) for the card ``name``: the
+    benchmark's table (``perfbench/roofline/peaks.py``)."""
+    p = peaks(name)
+    return p["product"], p["bfloat16"], p["int8"], p["bytes"]
 
 
 def _bound(ops: float, nbytes: float, peak_ops: float, peak_bw: float):
-    """(bound ms, "operations" or "bytes", ops ms, bytes ms)."""
-    t_ops, t_bytes = ops / peak_ops * 1e3, nbytes / peak_bw * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), \
-        t_ops, t_bytes
+    """(bound ms, "operations" or "bytes", ops ms, bytes ms): the benchmark's
+    ``bound_s`` in ms, beside both of its terms."""
+    t, by = bound_s(ops, nbytes, peak_ops, peak_bw)
+    return t * 1e3, by, ops / peak_ops * 1e3, nbytes / peak_bw * 1e3
 
 
 def _cuda_ms(fn, warmup: int = 3, iters: int = 20) -> float:
@@ -309,18 +301,6 @@ def phase_build():
 
 
 # ------------------------------------------------------------------ phase 3 --
-
-def _k1_work(b: int, h: int, w: int):
-    """(FLOP, bytes) the fused RDB needs: five 3x3 convs; x read and the
-    output written once, the weights and bias read once."""
-    from image_super_resolution_tpu_torch.ops.kernels.fused_rdb import C, G, PC
-
-    shapes = ((C, PC), (G, PC - G), (G, PC - 2 * G), (G, PC - 3 * G), (G, C))
-    pixels = b * h * w
-    flops = 2 * 9 * sum(ci * co for ci, co in shapes) * pixels
-    nbytes = 2 * pixels * C * 2 + sum(9 * ci * co * 2 for ci, co in shapes) + PC * 4
-    return flops, nbytes
-
 
 def _cudnn_scatter_form(x, kernels, bias16, add_rate=0.2, slope=0.01):
     """The scatter-form RDB as five cuDNN bf16 convs (channels_last) with
@@ -459,7 +439,7 @@ def phase_k1(kind: str, card: str, ptxas_log: str):
     lib_err = float((_cudnn_scatter_form(x, kernels, bias16).float()
                      - k1.scatter_rdb_reference(x, *mats).float()).abs().max())
 
-    flops, nbytes = _k1_work(*x.shape[:3])
+    flops, nbytes = k1_work(*x.shape[:3])
     peak_name, peak_flops, _, peak_bw = _peaks(kind)
     bound_ms, bound_by, t_ops, t_bytes = _bound(flops, nbytes, peak_flops, peak_bw)
     _log(f"[kernel] fused_rdb b256 t24 on {card}: kernel {ms:.4f} ms, plain "
@@ -498,7 +478,7 @@ def _k1_launch_times(x, mats, kind: str, card: str) -> None:
     b, h, w = x.shape[:3]
     pixels = b * h * w
     ms = _cuda_ms(lambda: k1._launch(x, weights, bias, 0.2, 0.01, y=y, out=out))
-    flops, nbytes = _k1_work(b, h, w)
+    flops, nbytes = k1_work(b, h, w)
     _, peak_flops, _, peak_bw = _peaks(kind)
     bound_ms = _bound(flops, nbytes, peak_flops, peak_bw)[0]
     tiles, grid = k1._schedule(x)

@@ -221,6 +221,6 @@ extern "C" void isr_ca_constants(int* out) {
   out[4] = MAX_HIDDEN;
 }
 
-extern "C" const char* isr_ca_error_string(int err) {
+extern "C" const char* isr_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -489,7 +489,8 @@ CUresult source_map(CUtensorMap* map, const void* src, int ld, int B, int H, int
   const cuuint64_t strides[3] = {(cuuint64_t)ld * 2, (cuuint64_t)W * ld * 2,
                                  (cuuint64_t)H * W * ld * 2};
   const cuuint32_t box[4] = {G, PW, TH + 2, 1};
-  return encode_bf16_map(map, src, 4, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_64B);
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, src, 4, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 // The map of a (rows, cout) bf16 weight matrix: boxes of one tap of a
@@ -498,8 +499,8 @@ CUresult weight_map(CUtensorMap* map, const void* w, int rows, int cout, int n) 
   const cuuint64_t dims[2] = {(cuuint64_t)cout, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cout * 2};
   const cuuint32_t box[2] = {(cuuint32_t)n, G};
-  return encode_bf16_map(map, w, 2, dims, strides, box,
-                         n == C ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w, 2, dims, strides, box,
+                    n == C ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 // Encoded tensor maps, kept across calls: an sr forward makes 48 calls of 11
@@ -635,6 +636,6 @@ extern "C" int isr_fused_rdb_smem_bytes(int n) {
   return most;
 }
 
-extern "C" const char* isr_cuda_error_string(int err) {
+extern "C" const char* isr_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -133,13 +133,15 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
-// Host: a tiled tensor map over `rank` dimensions of bf16 (`dims` innermost
-// first, `strides` in bytes for dimensions 1.., `box` in elements), zeros
-// outside the tensor. cuTensorMapEncodeTiled is reached through the
-// runtime's driver entry point, so no library links against libcuda.
-inline CUresult encode_bf16_map(CUtensorMap* map, const void* ptr, int rank,
-                                const cuuint64_t* dims, const cuuint64_t* strides,
-                                const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+// Host: a tiled tensor map over `rank` dimensions of `type` (`dims`
+// innermost first, `strides` in bytes for dimensions 1.., `box` in
+// elements), zeros outside the tensor. cuTensorMapEncodeTiled is reached
+// through the runtime's driver entry point, so no library links against
+// libcuda.
+inline CUresult encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
+                           int rank, const cuuint64_t* dims, const cuuint64_t* strides,
+                           const cuuint32_t* box, CUtensorMapSwizzle swizzle,
+                           CUtensorMapL2promotion l2 = CU_TENSOR_MAP_L2_PROMOTION_L2_128B) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     cudaDriverEntryPointQueryResult q;
@@ -154,9 +156,8 @@ inline CUresult encode_bf16_map(CUtensorMap* map, const void* ptr, int rank,
       return CUDA_ERROR_NOT_FOUND;
   }
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims,
-                strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return encode(map, type, rank, const_cast<void*>(ptr), dims, strides, box, ones,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, l2, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 }  // namespace hopper

@@ -115,7 +115,6 @@
  */
 
 #include <cuda.h>
-#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -582,40 +581,6 @@ constexpr int GA_BYTES = GM * GKB, GB_BYTES = GN * GKB, GSTAGE_BYTES = GA_BYTES 
 constexpr int GTHREADS = 384;
 constexpr int GSMEM = GSTAGES * GSTAGE_BYTES + 1024 + 2 * GSTAGES * 8;  // + alignment, mbarriers
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int k, int row,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(k), "r"(row), "r"(bar)
-      : "memory");
-}
-
 // Descriptor of a K-major tile written by TMA with the 128-byte swizzle:
 // rows of 128 bytes, 8-row groups 1024 bytes apart.
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
@@ -674,7 +639,7 @@ gemm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUt
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, 2);  // one thread of each consumer warpgroup
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -685,8 +650,8 @@ gemm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUt
         if (kt >= GSTAGES) mbar_wait(empty + 8 * s, (kt / GSTAGES - 1) & 1);
         mbar_expect_tx(full + 8 * s, GSTAGE_BYTES);
         const uint32_t st = s0 + s * GSTAGE_BYTES;
-        tma_load(st, &tmA, kt * kstep, m0, full + 8 * s);
-        tma_load(st + GA_BYTES, &tmB, kt * kstep, n0, full + 8 * s);
+        tma_load_2d(st, &tmA, kt * kstep, m0, full + 8 * s);
+        tma_load_2d(st + GA_BYTES, &tmB, kt * kstep, n0, full + 8 * s);
       }
     }
     return;
@@ -734,31 +699,17 @@ gemm_kernel(const __grid_constant__ CUtensorMap tmA, const __grid_constant__ CUt
   }
 }
 
-// A 2-D tensor map over a row-major (rows, K) matrix of `esize`-byte
-// elements: boxes of 128 bytes of K x box_rows rows, 128-byte swizzle.
-CUresult tensor_map(CUtensorMap* map, const void* ptr, int rows, int K, int esize,
-                    int box_rows) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (encode == nullptr) {
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled",
-                                         reinterpret_cast<void**>(&encode), 12000,
-                                         cudaEnableDefault, &q) != cudaSuccess)
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode),
-                                cudaEnableDefault, &q) != cudaSuccess)
-#endif
-      return CUDA_ERROR_NOT_FOUND;
-  }
+// A 2-D tensor map over a row-major (rows, K) matrix of T: boxes of 128
+// bytes of K x box_rows rows, 128-byte swizzle.
+template <typename T>
+CUresult gemm_map(CUtensorMap* map, const void* ptr, int rows, int K, int box_rows) {
   const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)K * esize};
-  const cuuint32_t box[2] = {(cuuint32_t)(GKB / esize), (cuuint32_t)box_rows};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  return encode(map, esize == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                2, const_cast<void*>(ptr), dims, strides, box, elem_strides,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const cuuint64_t strides[1] = {(cuuint64_t)K * sizeof(T)};
+  const cuuint32_t box[2] = {(cuuint32_t)(GKB / sizeof(T)), (cuuint32_t)box_rows};
+  return encode_map(map, sizeof(T) == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                    ptr, 2, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B,
+                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
 }
 
 // Bt = B^T for the GEMM: B (R, C) row-major of ES-byte elements, R * ES a
@@ -805,8 +756,8 @@ __global__ void __launch_bounds__(256) transpose_kernel(const uint8_t* __restric
 template <typename T>
 int launch_gemm(const void* a, const void* bt, void* out, int M, int N, int K, void* stream) {
   CUtensorMap tmA, tmB;
-  if (tensor_map(&tmA, a, M, K, sizeof(T), GM) != CUDA_SUCCESS ||
-      tensor_map(&tmB, bt, N, K, sizeof(T), GN) != CUDA_SUCCESS)
+  if (gemm_map<T>(&tmA, a, M, K, GM) != CUDA_SUCCESS ||
+      gemm_map<T>(&tmB, bt, N, K, GN) != CUDA_SUCCESS)
     return (int)cudaErrorInvalidValue;
   auto kernel = gemm_kernel<T>;
   cudaError_t e =
@@ -906,6 +857,6 @@ extern "C" void isr_conv3x3_int8_tiling(int* out) {
 }
 extern "C" int isr_matmul_smem_bytes() { return GSMEM; }
 
-extern "C" const char* isr_matmul_error_string(int err) {
+extern "C" const char* isr_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -23,9 +23,10 @@ of the JAX package's ``models/deploy.py``).
   bytes))`` -- flax's own ndarray encoding.
 - ``export_program``/``load_program`` write and read a ``torch.export``
   program (``.pt2``) of the whole uint8 -> uint8 request, the port's
-  counterpart of the JAX package's StableHLO export. K1 is one node of it
-  (the op ``isr::scatter_rdb``), so the loaded program launches the
-  hand-written kernel on the card.
+  counterpart of the JAX package's StableHLO export. Each hand-written
+  kernel's call is one node of it (the ops ``isr::scatter_rdb``,
+  ``isr::ca_residual``), so the loaded program launches the kernels on
+  the card.
 """
 
 from __future__ import annotations
@@ -145,7 +146,7 @@ def _check_family(family: str) -> None:
 class DeploySpec:
     """Everything needed to rebuild the inference graph."""
 
-    family: str = "sr"  # "sr" | "fast" | "denoise" | "denoise_fast" | "denoise_legacy"
+    family: str = "sr"  # one of FAMILIES: sr, fast, denoise, denoise_fast, denoise_legacy, rcan
     depth: int = 16
     width: int = 64
     add_rate: float = 0.2
@@ -291,8 +292,7 @@ def export_program(deployed: DeployedModel, batch: int, height: int, width: int,
                    out_path: str | Path, polymorphic: bool = False) -> None:
     """Write the request (uint8 NHWC -> uint8 NHWC: normalize, the model,
     the family's output map) as a ``torch.export`` program on the model's
-    device. A model with ``card_export`` False (``rcan``: K3 is a ctypes
-    call, which ``torch.export`` cannot trace) exports on the CPU only.
+    device. Each hand-written kernel's call is one ``isr::`` node.
 
     Static: for a (batch, height, width, 3) input. ``polymorphic=True``:
     N, H and W are ``torch.export.Dim``s, the counterpart of the JAX
@@ -305,10 +305,6 @@ def export_program(deployed: DeployedModel, batch: int, height: int, width: int,
     keeps the tiling of the size it was traced at. Load with
     ``load_program``.
     """
-    if not getattr(deployed.model, "card_export", True) and deployed.device.type != "cpu":
-        raise ValueError(f"a {deployed.spec.family} program exports on the CPU only: its "
-                         f"kernel (K3, channel attention) is a ctypes call, which "
-                         f"torch.export cannot trace")
     f = 2 if deployed.spec.family == "denoise" else deployed.spec.downshuffle or 1
     f = deployed.wino_m or f
     dynamic = None
@@ -331,10 +327,9 @@ def export_program(deployed: DeployedModel, batch: int, height: int, width: int,
 
 def load_program(path: str | Path):
     """A program written by ``export_program``, as a callable module (uint8
-    NHWC in, uint8 NHWC out) on the device it was exported on. K1's op is
-    registered by importing ``ops.kernels.fused_rdb``, which this module
-    does, before the program is read."""
-    from ..ops.kernels import fused_rdb  # noqa: F401  registers isr::scatter_rdb
+    NHWC in, uint8 NHWC out) on the device it was exported on. Importing
+    ``ops.kernels`` registers every ``isr::`` op before the program is read."""
+    from ..ops import kernels  # noqa: F401  registers the isr:: ops
 
     return torch.export.load(str(path)).module()
 

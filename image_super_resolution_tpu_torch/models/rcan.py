@@ -101,11 +101,9 @@ class RCAN(nn.Module):
     What the serving code reads of it (``models/deploy``, ``infer/engine``):
     ``to_uint8``, its output map; ``global_pool``, a block's output depends
     on the whole image (the channel attention's average), so an image cannot
-    be cut into bands served apart; ``card_export`` False, ``torch.export``
-    cannot trace K3 (a ctypes call) on the card."""
+    be cut into bands served apart."""
 
     global_pool = True
-    card_export = False
 
     def __init__(self, groups: int = 10, blocks: int = 20, width: int = 64,
                  reduction: int = 16, scale: int = 4, dtype=torch.float32, device="cuda"):

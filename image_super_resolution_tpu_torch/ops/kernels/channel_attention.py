@@ -22,11 +22,10 @@ Two launches per block, both bound by device-memory bytes:
   bias folded in analytically), runs the tiny MLP itself, then streams its
   pixels and writes ``x'``.
 
-``ca_residual`` is the wrapper: CPU tensors take the plain version, CUDA
-tensors the kernel (or an error). It counts its launches
-by pass in ``ca_residual.launches_by_pass`` (``"reduce"``, ``"scale"``).
-It is not a ``torch.library`` op: the first call of such an op imports
-``torch._dynamo``, seconds of set-up.
+``ca_residual`` is the wrapper, through the op ``isr::ca_residual``: CPU
+tensors take the plain version, CUDA tensors the kernel (or an error). It
+counts its launches by pass in ``ca_residual.launches_by_pass``
+(``"reduce"``, ``"scale"``).
 """
 
 from __future__ import annotations
@@ -35,6 +34,8 @@ import ctypes
 import functools
 
 import torch
+
+from . import _build
 
 THREADS = 256  # per CTA, both passes (csrc/channel_attention.cu)
 VEC = 8  # channels a thread loads at once (16 bytes of bf16)
@@ -79,9 +80,7 @@ def reduce_chunks(b: int, hw: int, sms: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    from ._build import load
-
-    lib = load("channel_attention")
+    lib = _build.load("channel_attention")
     lib.isr_ca_residual.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     lib.isr_ca_residual.restype = ctypes.c_int
@@ -93,14 +92,7 @@ def _library() -> ctypes.CDLL:
     if tuple(got) != want:
         raise RuntimeError(f"the kernel's (THREADS, VEC, SCALE_PIXELS, MAX_CHUNKS, MAX_HIDDEN) "
                            f"= {tuple(got)} are not the wrapper's {want}")
-    lib.isr_ca_error_string.argtypes = [ctypes.c_int]
-    lib.isr_ca_error_string.restype = ctypes.c_char_p
     return lib
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def ca_residual(x: torch.Tensor, r: torch.Tensor, bias: torch.Tensor, w1: torch.Tensor,
@@ -111,10 +103,12 @@ def ca_residual(x: torch.Tensor, r: torch.Tensor, bias: torch.Tensor, w1: torch.
     ``bias`` (C,), ``w1`` (C/r, C), ``b1`` (C/r,), ``w2`` (C, C/r), ``b2``
     (C,). Returns ``x'`` in ``x``'s dtype. On the card: C a power of two
     from 8 to 256, C/r at most ``MAX_HIDDEN``."""
-    if x.device.type == "cpu":
-        return ca_residual_reference(x, r, bias, w1, b1, w2, b2)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+    _build.check_device(x)
+    return _op(x, r, bias, w1, b1, w2, b2)
+
+
+def _cuda_forward(x, r, bias, w1, b1, w2, b2) -> torch.Tensor:
+    """Both passes, counted in ``ca_residual.launches_by_pass``."""
     if x.dim() != 4 or r.shape != x.shape or r.dtype != x.dtype:
         raise ValueError(f"x and r must be one (B, H, W, C) shape and dtype, got "
                          f"{tuple(x.shape)} {x.dtype}, {tuple(r.shape)} {r.dtype}")
@@ -127,32 +121,29 @@ def ca_residual(x: torch.Tensor, r: torch.Tensor, bias: torch.Tensor, w1: torch.
     want = {"bias": (c,), "w1": (hidden, c), "b1": (hidden,), "w2": (c, hidden), "b2": (c,)}
     params = {"bias": bias, "w1": w1, "b1": b1, "w2": w2, "b2": b2}
     for name, t in params.items():
-        if t.dtype != torch.float32 or tuple(t.shape) != want[name] or t.device != x.device:
-            raise ValueError(f"{name} must be fp32 {want[name]} on {x.device}, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
+        if t.dtype != torch.float32 or tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} must be fp32 {want[name]}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
     if not 1 <= hidden <= MAX_HIDDEN:
         raise ValueError(f"the kernel takes C/r from 1 to {MAX_HIDDEN}, got {hidden}")
-    if not all(t.is_contiguous() for t in (x, r, *params.values())) or (
-            x.data_ptr() % 16 or r.data_ptr() % 16):
-        raise ValueError("operands must be contiguous, x and r 16-byte aligned")
+    _build.check_operands(x, r, *params.values())
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    chunks = reduce_chunks(b, h * w, _sm_count(x.device.index or 0))
+    chunks = reduce_chunks(b, h * w, _build.sm_count(x.device))
     partials = torch.empty((b, chunks, c), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _library().isr_ca_residual(
-            x.data_ptr(), r.data_ptr(), bias.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-            w2.data_ptr(), b2.data_ptr(), partials.data_ptr(), out.data_ptr(), b, h * w, c,
-            hidden, int(x.dtype == torch.float32), chunks, stream)
-    if err:
-        msg = _library().isr_ca_error_string(err).decode()
-        raise RuntimeError(f"channel attention kernel launch failed: CUDA error {err} ({msg})")
+    _build.launch(_library(), "isr_ca_residual", x.device, x.data_ptr(), r.data_ptr(),
+                  bias.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                  partials.data_ptr(), out.data_ptr(), b, h * w, c, hidden,
+                  int(x.dtype == torch.float32), chunks)
     for name in ("reduce", "scale"):
         ca_residual.launches_by_pass[name] = ca_residual.launches_by_pass.get(name, 0) + 1
     return out
 
 
-ca_residual.launches_by_pass = {}  # "reduce" / "scale" -> launches
+_op = _build.register(
+    "ca_residual", "(Tensor x, Tensor r, Tensor bias, Tensor w1, Tensor b1, Tensor w2, "
+    "Tensor b2) -> Tensor", ca_residual_reference, _cuda_forward,
+    lambda x, *args: torch.empty_like(x))
 
+ca_residual.launches_by_pass = {}  # "reduce" / "scale" -> launches

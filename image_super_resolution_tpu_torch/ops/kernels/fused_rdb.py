@@ -17,15 +17,12 @@ serving sends non-square images through it). Each launch runs on
 walking rectangles k, k + grid, ... . The CUDA design and its bound are
 described at the top of the ``.cu`` file.
 
-The wrapper ``scatter_rdb`` calls the registered op ``isr::scatter_rdb``
-(``scatter_rdb_op``), which dispatches by device: CUDA -> the counted
-launch, CPU -> the plain version, its fake implementation -> the output's
-shape. So ``torch.export`` records each RDB as one node, and a loaded
-program launches the hand-written kernel. Counters, plain integers on
-``scatter_rdb``: ``launches`` (RDB calls on the card), ``tiles`` (rectangles
-walked, all five launches) and ``blocks`` (blocks started, all five
-launches); ``tiles / blocks`` says how far each block's load ring runs on
-across rectangles.
+The wrapper ``scatter_rdb`` calls the op ``isr::scatter_rdb``
+(``_build.register``): CPU -> the plain version, CUDA -> the counted
+launch. Counters, plain integers on ``scatter_rdb``: ``launches`` (RDB
+calls on the card), ``tiles`` (rectangles walked, all five launches) and
+``blocks`` (blocks started, all five launches); ``tiles / blocks`` says
+how far each block's load ring runs on across rectangles.
 """
 
 from __future__ import annotations
@@ -39,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ..conv import same_conv
+from . import _build
 
 C = 64  # block width the kernel is written for
 G = C // 2  # growth channels
@@ -145,28 +143,19 @@ def tile_schedule(b: int, h: int, w: int, sms: int) -> Tuple[int, int]:
     return tiles, min(tiles, sms)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _schedule(x) -> Tuple[int, int]:
     b, h, w, _ = x.shape
-    return tile_schedule(b, h, w, _sm_count(x.device.index))
+    return tile_schedule(b, h, w, _build.sm_count(x.device))
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> Tuple[ctypes.CDLL, Any]:
-    from ._build import load
-
-    lib = load("fused_rdb")
+    lib = _build.load("fused_rdb")
     fn = lib.isr_fused_rdb_forward
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.isr_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.isr_cuda_error_string.restype = ctypes.c_char_p
     ints = _plan_ints()
     if len(ints) != 5 * lib.isr_fused_rdb_plan_ints():
         raise RuntimeError("csrc/fused_rdb.cu reads another plan layout")
@@ -190,20 +179,17 @@ def _check(x, weights, bias) -> None:
     if bias.dtype != torch.float32 or bias.numel() != PC:
         raise ValueError(f"bias must be {PC} fp32 values, got {bias.dtype} "
                          f"{tuple(bias.shape)}")
-    for t in (x, *weights, bias):
-        if t.device != x.device:
-            raise ValueError("all operands must be on one device")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("operands must be contiguous and 16-byte aligned")
+    _build.check_operands(x, *weights, bias)
 
 
 def scatter_rdb(x, sx, s0, s1, s2, s3, bias, add_rate: float = 0.2,
                 slope: float = 0.01) -> torch.Tensor:
-    """One scatter-form RDB, NHWC, through the registered op
-    ``isr::scatter_rdb`` (``scatter_rdb_op``). CPU tensor: the plain
-    version. CUDA tensor: the hand-written kernel, on the current stream, or
-    an error. Traced by ``torch.export``, it is one node of the graph."""
-    return scatter_rdb_op(x, sx, s0, s1, s2, s3, bias, float(add_rate), float(slope))
+    """One scatter-form RDB, NHWC, through the op ``isr::scatter_rdb``. CPU
+    tensor: the plain version. CUDA tensor: the hand-written kernel, on the
+    current stream, or an error. Traced by ``torch.export``, it is one node
+    of the graph."""
+    _build.check_device(x)
+    return _op(x, sx, s0, s1, s2, s3, bias, float(add_rate), float(slope))
 
 
 def _cuda_forward(x, sx, s0, s1, s2, s3, bias, add_rate, slope) -> torch.Tensor:
@@ -218,23 +204,10 @@ def _cuda_forward(x, sx, s0, s1, s2, s3, bias, add_rate, slope) -> torch.Tensor:
     return out
 
 
-@torch.library.custom_op("isr::scatter_rdb", mutates_args=())
-def scatter_rdb_op(x: torch.Tensor, sx: torch.Tensor, s0: torch.Tensor, s1: torch.Tensor,
-                   s2: torch.Tensor, s3: torch.Tensor, bias: torch.Tensor, add_rate: float,
-                   slope: float) -> torch.Tensor:
-    """K1 as an operator that ``torch.export`` records as one node and a
-    loaded program dispatches by device: CPU -> the plain version, CUDA ->
-    the kernel (counted); any other device raises."""
-    raise ValueError(f"unsupported device {x.device}")
-
-
-scatter_rdb_op.register_kernel("cpu")(scatter_rdb_reference)
-scatter_rdb_op.register_kernel("cuda")(_cuda_forward)
-
-
-@scatter_rdb_op.register_fake
-def _scatter_rdb_fake(x, sx, s0, s1, s2, s3, bias, add_rate, slope):
-    return torch.empty_like(x)
+_op = _build.register(
+    "scatter_rdb", "(Tensor x, Tensor sx, Tensor s0, Tensor s1, Tensor s2, Tensor s3, "
+    "Tensor bias, float add_rate, float slope) -> Tensor",
+    scatter_rdb_reference, _cuda_forward, lambda x, *args: torch.empty_like(x))
 
 
 def _launch(x, weights, bias, add_rate, slope, only: int = -1, y=None, out=None):
@@ -250,17 +223,10 @@ def _launch(x, weights, bias, add_rate, slope, only: int = -1, y=None, out=None)
     if x.numel() == 0:
         return out, y
     lib, plan = _library()
-    grid = _schedule(x)[1]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.isr_fused_rdb_forward(
-            x.data_ptr(), *(t.data_ptr() for t in weights), bias.data_ptr(),
-            y.data_ptr(), out.data_ptr(), b, h, w, float(add_rate), float(slope),
-            plan, only, grid, stream,
-        )
-    if err != 0:
-        msg = lib.isr_cuda_error_string(err).decode()
-        raise RuntimeError(f"fused_rdb kernel launch failed: CUDA error {err} ({msg})")
+    _build.launch(lib, "isr_fused_rdb_forward", x.device, x.data_ptr(),
+                  *(t.data_ptr() for t in weights), bias.data_ptr(), y.data_ptr(),
+                  out.data_ptr(), b, h, w, float(add_rate), float(slope), plan, only,
+                  _schedule(x)[1])
     return out, y
 
 

@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from ..activations import apply_act
+from . import _build
 
 LEAKY_SLOPE = 0.01  # the fast trunk's activation (models/fast.py)
 # The conv kernel's tiling (csrc/matmul.cu: RH, RW, NT, MAX_CC; _library()
@@ -130,9 +131,7 @@ def conv_plan(b: int, h: int, w: int, cin: int, cout: int, sms: int) -> dict:
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    from ._build import load
-
-    lib = load("matmul")
+    lib = _build.load("matmul")
     lib.isr_matmul.argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.isr_matmul.restype = ctypes.c_int
@@ -146,8 +145,6 @@ def _library() -> ctypes.CDLL:
     lib.isr_matmul_smem_bytes.restype = ctypes.c_int
     lib.isr_transpose.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.isr_transpose.restype = ctypes.c_int
-    lib.isr_matmul_error_string.argtypes = [ctypes.c_int]
-    lib.isr_matmul_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -165,29 +162,16 @@ def bind_conv(lib: ctypes.CDLL) -> tuple:
     return tuple(tiling)
 
 
-def _check_operands(*tensors) -> None:
-    dev = tensors[0].device
-    for t in tensors:
-        if t.device != dev:
-            raise ValueError("all operands must be on one device")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("operands must be contiguous and 16-byte aligned")
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        msg = _library().isr_matmul_error_string(err).decode()
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} ({msg})")
-
-
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(M, K) x (K, N): int8 -> int32 or bf16 -> fp32. CPU tensors: the
-    plain version. CUDA tensors: the hand-written kernel on the current
-    stream, or an error."""
-    if a.device.type == "cpu":
-        return matmul_reference(a, b)
-    if a.device.type != "cuda":
-        raise ValueError(f"unsupported device {a.device}")
+    """(M, K) x (K, N): int8 -> int32 or bf16 -> fp32, through the op
+    ``isr::matmul``. CPU tensors: the plain version. CUDA tensors: the
+    hand-written kernel on the current stream, or an error."""
+    _build.check_device(a)
+    return _matmul(a, b)
+
+
+def _matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The transposed copy of B and the GEMM, counted in ``matmul.launches``."""
     if a.dtype != b.dtype or a.dtype not in (torch.int8, torch.bfloat16):
         raise TypeError(f"matmul takes int8 or bf16 operands, got {a.dtype}, {b.dtype}")
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
@@ -198,28 +182,26 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     step = 32 if int8 else 16
     if k == 0 or k % step:
         raise ValueError(f"the kernel needs K a positive multiple of {step}, got {k}")
-    _check_operands(a, b)
+    _build.check_operands(a, b)
     out = torch.empty((m, n), dtype=torch.int32 if int8 else torch.float32,
                       device=a.device)
     if m == 0 or n == 0:
         return out
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        # wgmma reads both operands K-major (its transpose bit exists only for
-        # 16-bit types): one transposed copy of B per call, part of its time
-        bt = torch.empty((n, k), dtype=b.dtype, device=b.device)
-        _raise_on(_library().isr_transpose(b.data_ptr(), bt.data_ptr(), k, n,
-                                           b.element_size(), stream), "transpose")
-        err = _library().isr_matmul(a.data_ptr(), bt.data_ptr(), out.data_ptr(),
-                                    m, n, k, 0 if int8 else 1, stream)
-    _raise_on(err, "matmul")
+    # wgmma reads both operands K-major (its transpose bit exists only for
+    # 16-bit types): one transposed copy of B per call, part of its time
+    bt = torch.empty((n, k), dtype=b.dtype, device=b.device)
+    _build.launch(_library(), "isr_transpose", a.device, b.data_ptr(), bt.data_ptr(), k, n,
+                  b.element_size())
+    _build.launch(_library(), "isr_matmul", a.device, a.data_ptr(), bt.data_ptr(),
+                  out.data_ptr(), m, n, k, 0 if int8 else 1)
     matmul.launches += 1
     return out
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+_matmul = _build.register(
+    "matmul", "(Tensor a, Tensor b) -> Tensor", matmul_reference, _matmul_cuda,
+    lambda a, b: a.new_empty((a.shape[0], b.shape[1]),
+                             dtype=torch.int32 if a.dtype == torch.int8 else torch.float32))
 
 
 def conv3x3_int8(x: torch.Tensor, w_q: torch.Tensor, deq: torch.Tensor,
@@ -227,25 +209,46 @@ def conv3x3_int8(x: torch.Tensor, w_q: torch.Tensor, deq: torch.Tensor,
                  out_inv_x: float | None = None, w_k: torch.Tensor | None = None,
                  res: torch.Tensor | None = None, rate: float = 1.0,
                  keep_fp32: bool = False):
-    """One int8 trunk site, NHWC: fp32 ``x`` with its scale ``inv_x``
-    (requantized on load) or int8 ``x`` with ``inv_x=None``; with ``res``
-    (fp32, the output's shape) the epilogue adds ``res + y * rate``; fp32
-    out, or int8 requantized with ``out_inv_x``, or the pair (fp32, int8)
-    with ``keep_fp32``. ``w_k``: ``weights_k_major(w_q)``, laid out once by
-    the caller; the card needs it, the CPU reads ``w_q``. CPU tensors: the
-    plain version. CUDA tensors: the hand-written kernel on the current
-    stream, or an error."""
+    """One int8 trunk site, NHWC, through the op ``isr::conv3x3_int8``: fp32
+    ``x`` with its scale ``inv_x`` (requantized on load) or int8 ``x`` with
+    ``inv_x=None``; with ``res`` (fp32, the output's shape) the epilogue adds
+    ``res + y * rate``; fp32 out, or int8 requantized with ``out_inv_x``, or
+    the pair (fp32, int8) with ``keep_fp32``. ``w_k``:
+    ``weights_k_major(w_q)``, laid out once by the caller; the card needs it,
+    the CPU reads ``w_q``. CPU tensors: the plain version. CUDA tensors: the
+    hand-written kernel on the current stream, or an error."""
     if (x.dtype == torch.int8) != (inv_x is None):
         raise TypeError("x must be fp32 with its inv_x, or int8 with inv_x=None; got "
                         f"{x.dtype} with inv_x={inv_x}")
     if keep_fp32 and out_inv_x is None:
         raise ValueError("keep_fp32 keeps the fp32 output beside the int8 one: it needs "
                          "out_inv_x")
-    if x.device.type == "cpu":
-        return conv3x3_int8_reference(x, w_q, deq, bias, leaky, inv_x, out_inv_x, res, rate,
-                                      keep_fp32)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+    _build.check_device(x)
+    outs = _conv(x, w_q, deq, bias, bool(leaky), None if inv_x is None else float(inv_x),
+                 None if out_inv_x is None else float(out_inv_x), w_k, res, float(rate),
+                 bool(keep_fp32))
+    return tuple(outs) if keep_fp32 else outs[0]
+
+
+def _conv_cpu(x, w_q, deq, bias, leaky, inv_x, out_inv_x, w_k, res, rate, keep_fp32):
+    out = conv3x3_int8_reference(x, w_q, deq, bias, leaky, inv_x, out_inv_x, res, rate,
+                                 keep_fp32)
+    return list(out) if keep_fp32 else [out]
+
+
+def _conv_outputs(x, w_q, deq, bias, leaky, inv_x, out_inv_x, w_k, res, rate,
+                  keep_fp32) -> list:
+    """The op's outputs, empty (its fake implementation): the fp32 one
+    unless only int8 is asked for, then the int8 one if ``out_inv_x``."""
+    shape = (*x.shape[:3], w_q.shape[1])
+    dtypes = ([torch.float32] if out_inv_x is None or keep_fp32 else []) + (
+        [torch.int8] if out_inv_x is not None else [])
+    return [torch.empty(shape, dtype=dt, device=x.device) for dt in dtypes]
+
+
+def _conv_cuda(x, w_q, deq, bias, leaky, inv_x, out_inv_x, w_k, res, rate, keep_fp32):
+    """The conv kernel's launch, counted in ``conv3x3_int8.launches`` and by
+    variant and epilogue."""
     if x.dtype not in (torch.float32, torch.int8) or w_q.dtype != torch.int8:
         raise TypeError(f"x must be fp32 or int8 and w_q int8, got {x.dtype}, {w_q.dtype}")
     if deq.dtype != torch.float32 or bias.dtype != torch.float32:
@@ -270,35 +273,37 @@ def conv3x3_int8(x: torch.Tensor, w_q: torch.Tensor, deq: torch.Tensor,
     if w_k.dtype != torch.int8 or tuple(w_k.shape) != (npad, 9 * cin):
         raise ValueError(f"w_k must be int8 ({npad}, {9 * cin}), got {w_k.dtype} "
                          f"{tuple(w_k.shape)}")
-    _check_operands(x, w_q, w_k, deq, bias, *([] if res is None else [res]))
+    _build.check_operands(x, w_q, w_k, deq, bias, res)
     # out of place: the first block's residual is the head's output, which
     # the global skip reads again
-    out = (torch.empty((b, h, w, cout), device=x.device, dtype=torch.float32)
-           if out_inv_x is None or keep_fp32 else None)
-    out8 = (torch.empty((b, h, w, cout), device=x.device, dtype=torch.int8)
-            if out_inv_x is not None else None)
-    result = out if out8 is None else (out, out8) if keep_fp32 else out8
+    outs = _conv_outputs(x, w_q, deq, bias, leaky, inv_x, out_inv_x, w_k, res, rate, keep_fp32)
     if b * h * w * cout == 0:
-        return result
-    plan = conv_plan(b, h, w, cin, cout, _sm_count(x.device.index or 0))
+        return outs
+    out = outs[0] if outs[0].dtype == torch.float32 else None
+    out8 = outs[-1] if out_inv_x is not None else None
+    plan = conv_plan(b, h, w, cin, cout, _build.sm_count(x.device))
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _library().isr_conv3x3_int8(
-            x.data_ptr(), w_k.data_ptr(), deq.data_ptr(), bias.data_ptr(), ptr(res), ptr(out),
-            ptr(out8), b, h, w, cin, cout, int(x.dtype == torch.float32), int(bool(leaky)),
-            LEAKY_SLOPE, float(rate), float(inv_x or 0.0), float(out_inv_x or 0.0),
-            plan["cc"], plan["grid_x"], stream)
-    _raise_on(err, "conv3x3_int8")
+    _build.launch(_library(), "isr_conv3x3_int8", x.device, x.data_ptr(), w_k.data_ptr(),
+                  deq.data_ptr(), bias.data_ptr(), ptr(res), ptr(out), ptr(out8), b, h, w,
+                  cin, cout, int(x.dtype == torch.float32), int(bool(leaky)), LEAKY_SLOPE,
+                  float(rate), float(inv_x or 0.0), float(out_inv_x or 0.0), plan["cc"],
+                  plan["grid_x"])
     conv3x3_int8.launches += 1
     _count(conv3x3_int8.launches_by_variant,
            conv_variant(x.dtype, torch.float32 if out is not None else torch.int8))
     for epilogue in conv_epilogues(res is not None, out_inv_x is not None):
         _count(conv3x3_int8.launches_by_epilogue, epilogue)
-    return result
+    return outs
+
+
+_conv = _build.register(
+    "conv3x3_int8", "(Tensor x, Tensor w_q, Tensor deq, Tensor bias, bool leaky, "
+    "float? inv_x, float? out_inv_x, Tensor? w_k, Tensor? res, float rate, "
+    "bool keep_fp32) -> Tensor[]",
+    _conv_cpu, _conv_cuda, _conv_outputs)
 
 
 def _count(counts: dict, key: str) -> None:

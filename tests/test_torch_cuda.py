@@ -942,3 +942,29 @@ def test_rcan_on_card_launches_k3_per_block(card):
     want = DeployedModel(spec, params, dtype=torch.float32, device="cpu")(x)
     assert got.shape == (2, 96, 80, 3)
     assert (got.cpu().int() - want.int()).abs().max().item() <= 2
+
+
+def test_rcan_program_exported_on_card_launches_k3(card, tmp_path):
+    """A bf16 rcan ``.pt2`` exported on the card: one ``isr::ca_residual``
+    node a block; the loaded program launches K3 twice a block (counted)
+    and equals the eager model byte for byte."""
+    from image_super_resolution_tpu_torch.models.deploy import export_program, load_program
+    from image_super_resolution_tpu_torch.models.rcan import RCAN_MEAN, RCAN_STD
+    from image_super_resolution_tpu_torch.ops.kernels.channel_attention import ca_residual
+
+    spec = DeploySpec(family="rcan", depth=2, blocks=3, width=64, scale=4, mean=RCAN_MEAN,
+                      std=RCAN_STD)
+    eager = DeployedModel(spec, init_fused_params(spec, seed=5), dtype=torch.bfloat16,
+                          device=card)
+    export_program(eager, 2, 24, 20, tmp_path / "rcan.pt2")
+    graph = torch.export.load(str(tmp_path / "rcan.pt2")).graph
+    assert sum(n.target is torch.ops.isr.ca_residual.default for n in graph.nodes) == 6
+    program = load_program(tmp_path / "rcan.pt2")
+    x = torch.from_numpy(np.random.default_rng(5).integers(0, 256, (2, 24, 20, 3),
+                                                           dtype=np.uint8)).to(card)
+    before = dict(ca_residual.launches_by_pass)
+    got = program(x)
+    torch.cuda.synchronize()
+    assert {p: ca_residual.launches_by_pass[p] - before.get(p, 0)
+            for p in ("reduce", "scale")} == {"reduce": 6, "scale": 6}
+    assert got.device.type == "cuda" and torch.equal(got, eager(x))

@@ -39,6 +39,7 @@ from image_super_resolution_tpu_torch.ops.kernels.fused_rdb import (
     scatter_rdb_reference,
     tile_schedule,
 )
+from image_super_resolution_tpu_torch.ops.kernels import _build
 from image_super_resolution_tpu_torch.ops.kernels import fused_rdb as k1
 from image_super_resolution_tpu_torch.ops.scatter import (
     ScatterRDB,
@@ -331,7 +332,7 @@ def test_counters_of_rectangles_and_blocks(b, h, w, tiles, monkeypatch):
     input launches nothing. The launch itself is stubbed: this is the
     wrapper's arithmetic, on a meta tensor."""
     monkeypatch.setattr(k1, "_launch", lambda x, *a, **kw: (x, None))
-    monkeypatch.setattr(k1, "_sm_count", lambda index: H100_SMS)
+    monkeypatch.setattr(_build, "sm_count", lambda device: H100_SMS)
     monkeypatch.setattr(scatter_rdb, "launches", 0)
     monkeypatch.setattr(scatter_rdb, "tiles", 0)
     monkeypatch.setattr(scatter_rdb, "blocks", 0)

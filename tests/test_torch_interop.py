@@ -12,7 +12,9 @@ width 64 (K1's plain version takes width 64 only), the denoisers at width 8.
 """
 
 import importlib.util
+import os
 import re
+import subprocess
 import sys
 from dataclasses import asdict
 from pathlib import Path
@@ -45,7 +47,9 @@ from image_super_resolution_tpu_torch.models.deploy import (
 )
 from image_super_resolution_tpu_torch.models.discriminator import Discriminator
 from image_super_resolution_tpu_torch.models.generator import SRGenerator
+from image_super_resolution_tpu_torch.ops.kernels import channel_attention as k3
 from image_super_resolution_tpu_torch.ops.kernels import fused_rdb as k1
+from image_super_resolution_tpu_torch.ops.kernels import matmul as k2
 from image_super_resolution_tpu_torch.ops.scatter import rdb_params_to_scatter
 from image_super_resolution_tpu_torch.utils.general import flatten_tree
 import torch_threads  # noqa: F401  (shares the CPU cores among the test workers)
@@ -402,11 +406,83 @@ def test_k1_op_cpu_and_fake_implementations():
     got = torch.ops.isr.scatter_rdb(x, *mats, 0.2, 0.01)
     assert torch.equal(got, k1.scatter_rdb_reference(x, *mats))
     assert k1.scatter_rdb.launches == before
-    torch.library.opcheck(k1.scatter_rdb_op, (x, *mats, 0.2, 0.01))
+    torch.library.opcheck(torch.ops.isr.scatter_rdb.default, (x, *mats, 0.2, 0.01))
     with FakeTensorMode() as mode:
         fx, fm = mode.from_tensor(x), [mode.from_tensor(t) for t in mats]
-        out = k1.scatter_rdb_op(fx, *fm, 0.2, 0.01)
+        out = torch.ops.isr.scatter_rdb(fx, *fm, 0.2, 0.01)
     assert out.shape == x.shape and out.dtype == torch.bfloat16
+
+
+def _launch_counts():
+    return (k1.scatter_rdb.launches, k1.scatter_rdb.tiles, k1.scatter_rdb.blocks,
+            k2.matmul.launches, k2.conv3x3_int8.launches,
+            dict(k2.conv3x3_int8.launches_by_variant),
+            dict(k2.conv3x3_int8.launches_by_epilogue), dict(k3.ca_residual.launches_by_pass))
+
+
+def _op_cases(name):
+    """(op arguments, the plain version's output) of each ``isr::`` op at a
+    small size on the CPU."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+
+    def f32(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))
+
+    def i8(*shape):
+        return torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
+
+    if name == "scatter_rdb":
+        x, mats = _k1_inputs()
+        return (x, *mats, 0.2, 0.01), k1.scatter_rdb_reference(x, *mats)
+    if name == "matmul":
+        a, b = i8(5, 64), i8(64, 7)
+        return (a, b), k2.matmul_reference(a, b)
+    if name == "conv3x3_int8":
+        x, w_q, deq, bias = f32(1, 5, 6, 32, scale=20.0), i8(288, 8), f32(8) ** 2 / 100, f32(8)
+        res = f32(1, 5, 6, 8)
+        want = k2.conv3x3_int8_reference(x, w_q, deq, bias, True, 0.5, 0.25, res, 0.2, True)
+        return ((x, w_q, deq, bias, True, 0.5, 0.25, k2.weights_k_major(w_q), res, 0.2, True),
+                list(want))
+    x, r = f32(2, 5, 6, 32), f32(2, 5, 6, 32)
+    params = (f32(32), f32(2, 32), f32(2), f32(32, 2), f32(32))
+    return (x, r, *params), k3.ca_residual_reference(x, r, *params)
+
+
+@pytest.mark.parametrize("name", ["scatter_rdb", "conv3x3_int8", "matmul", "ca_residual"])
+def test_isr_op_cpu_implementation_is_the_plain_version(name):
+    """Each hand-written kernel's op ``isr::<name>``, registered the one way
+    (``ops/kernels/_build.register``): on CPU tensors it is the plain version
+    bit for bit and counts no launch; ``torch.library.opcheck`` runs its
+    schema, fake-tensor and dispatch checks."""
+    op = getattr(torch.ops.isr, name).default
+    args, want = _op_cases(name)
+    before = _launch_counts()
+    got = op(*args)
+    assert _launch_counts() == before
+    if isinstance(want, list):
+        assert len(got) == len(want) and all(map(torch.equal, got, want))
+    else:
+        assert torch.equal(got, want)
+    torch.library.opcheck(op, args)
+
+
+def test_sr_forward_imports_no_dynamo():
+    """A fresh process that builds a depth-1 sr ``DeployedModel`` on the CPU
+    and calls it (K1's op on its first call) never imports ``torch._dynamo``:
+    a first call of a plain ``torch.library`` op costs no set-up."""
+    code = (
+        "import sys, numpy as np, torch\n"
+        "from image_super_resolution_tpu_torch.models.deploy import (DeployedModel,"
+        " DeploySpec, init_fused_params)\n"
+        "spec = DeploySpec(family='sr', depth=1, width=64, scale=4)\n"
+        "d = DeployedModel(spec, init_fused_params(spec, 0), torch.float32, 'cpu')\n"
+        "assert d(np.zeros((1, 8, 8, 3), np.uint8)).shape == (1, 32, 32, 3)\n"
+        "print('torch._dynamo' in sys.modules)\n")
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=Path(__file__).resolve().parents[1],
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"
 
 
 def _warm(eager):

@@ -3,8 +3,9 @@ plain float32 transcription of the source (``tests/rcan_reference.py``),
 at a small size (2 groups of 2 blocks, width 32, reduction 16) on seeded
 weights: the generator through the import of the source's checkpoint
 layout, the block's channel attention and residual, the deployed uint8
-model through an ``.isr`` file and a ``.pt2`` program, tiled photos against
-the benchmark's plain tiling, and the refusals."""
+model through an ``.isr`` file and a ``.pt2`` program (K3 one node a
+block), tiled photos against the benchmark's plain tiling, and the
+refusals."""
 
 import importlib.util
 import json
@@ -181,6 +182,23 @@ def test_export_program_equals_deployed(tmp_path):
     assert torch.equal(load_program(path)(x), d(x))
 
 
+@pytest.mark.parametrize("polymorphic", [False, True])
+def test_export_program_records_k3_once_a_block(tmp_path, polymorphic):
+    """K3 is the op ``isr::ca_residual``: a ``.pt2`` of the small model holds
+    one node of it a block (groups x blocks), and the loaded program equals
+    the eager model byte for byte, the dynamic one at a second shape too."""
+    d, _, spec, _ = deployed(11)
+    path = tmp_path / "rcan.pt2"
+    export_program(d, 2, 12, 12, path, polymorphic=polymorphic)
+    graph = torch.export.load(str(path)).graph
+    nodes = sum(n.target is torch.ops.isr.ca_residual.default for n in graph.nodes)
+    assert nodes == spec.depth * spec.blocks
+    program = load_program(path)
+    for shape in [(2, 12, 12, 3)] + ([(3, 9, 14, 3)] if polymorphic else []):
+        x = torch.from_numpy(inputs(11, shape))
+        assert torch.equal(program(x), d(x))
+
+
 def test_tiled_photo_matches_reference_tiling():
     """An odd-sized photo through ``TiledUpscaler`` (the channel attention's
     mean per tile) against ``perfbench/reference/tiling.upscale`` over the
@@ -208,10 +226,10 @@ def test_band_sharding_refused(kw):
 
 def test_serving_reads_what_the_model_owns():
     """Deploy and the engine read RCAN's own facts, not its family name:
-    the output map, a whole-image block (band sharding refused) and no
-    export on the card; a model without them keeps tanh and every path."""
+    the output map and a whole-image block (band sharding refused); a
+    model without them keeps tanh and every path."""
     d, _, _, _ = deployed(10)
-    assert d.model.global_pool and not d.model.card_export
+    assert d.model.global_pool
     y = torch.linspace(-300.0, 300.0, 12).reshape(1, 2, 2, 3)
     assert torch.equal(deploy_module.to_uint8(d.model, y, RCAN_MEAN),
                        rgb255_to_uint8(y, RCAN_MEAN))
