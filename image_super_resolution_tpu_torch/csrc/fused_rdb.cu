@@ -33,70 +33,88 @@
  * launch i reads the bf16 sources that exist so far (x, y_0..y_{i-1}) and
  * keeps one fp32 accumulator per output in registers; nothing but bf16
  * y_0..y_3 (one (B,H,W,128) buffer) and the output go to device memory.
- *   - Rectangles of 24 x 24 output pixels of one image (one serving tile):
- *     576 rows, three consumer warpgroups of three 64-row tiles each. Ragged
- *     edges are masked, so any H, W. (8 x 24 rectangles with two blocks per
- *     SM took 0.35 ms at the serving shape against 0.29 for 24 x 24.)
+ *   - Rectangles of 24 x 24 output pixels of one image (one serving tile),
+ *     nine row tiles of 8 x 8 pixels: three consumer warpgroups, warpgroup
+ *     w the three tiles of columns 8w .. 8w + 7, row r of a tile its pixel
+ *     (r / 8, r % 8). Ragged edges are masked, so any H, W. (8 x 24
+ *     rectangles with two blocks per SM took 0.35 ms at the serving shape
+ *     against 0.29 for 24 x 24.)
  *   - Persistent blocks: a launch starts min(rectangles, SMs) blocks, one
  *     per SM, and block k walks rectangles k, k + grid, ... . Where there are
  *     no more rectangles than SMs (photo tile batches, small requests, the
  *     sharded paths) every block owns one rectangle.
  *   - Warp specialisation: a fourth warpgroup produces, and gives registers
- *     to the consumers with setmaxnreg (24 against 160 a thread: at 152 the
- *     last launch's 96 accumulators spill). K walks 32-channel source groups
- *     (2 for x, 1 per y_j). One producer thread loads each group's 26 x 26
- *     halo patch by TMA into a ring of 3-4 stages under full and empty
- *     mbarriers; the ring runs on across every group of every rectangle a
- *     block owns, so the next rectangle's patches load while this one is
- *     multiplied and stored. The patch is a box of a 4-D tensor map over
- *     (B, H, W, channels) at signed coordinates (h0 - 1, w0 - 1): TMA fills
- *     the zeros at the image border and past the ragged edge, and its
- *     64-byte swizzle XORs 16-byte chunk c of pixel p with (p / 2) % 4,
- *     which keeps the 8 rows one ldmatrix phase reads (8 neighbouring
- *     pixels) in 8 distinct banks.
+ *     to the consumers with setmaxnreg (24 against 160 a thread). K walks
+ *     32-channel source groups (2 for x, 1 per y_j). One producer thread
+ *     loads each group's 26 x 26 halo patch by TMA into a ring of 3-4 stages
+ *     under full and empty mbarriers; the ring runs on across every group
+ *     of every rectangle a block owns, so the next rectangle's patches load
+ *     while this one is multiplied and stored. The patch is a box of a 4-D
+ *     tensor map over (B, H, W, channels) at signed coordinates (h0 - 1,
+ *     w0 - 1): TMA fills the zeros at the image border and past the ragged
+ *     edge, and its 64-byte swizzle XORs 16-byte chunk c of pixel p with
+ *     (p / 2) % 4.
  *   - Weights (wgmma's B operand, N-major), also by TMA, one box per tap in
  *     the N * 2-byte swizzle, from another producer thread: a y launch
  *     (N = 32, 36,864 to 92,160 bytes) copies all its weights into shared
  *     memory once per block; the last launch (N = 64, 221,184 bytes)
  *     streams each group's weights through a ring of its own, two stages
  *     beside three patch stages.
- *   - The nine taps read the patch at shifted pixel addresses: ldmatrix.x4
- *     loads each 16 x 16 A fragment into registers, and wgmma m64nNk16
- *     multiplies it with the weights. Each step issues one tap of one 64-row
- *     tile, and waits only for the step whose A registers it reuses: each
- *     tile has its own (N = 32: two steps in flight while the third loads),
- *     or two buffers take turns (N = 64), across group boundaries. Tile m's
- *     pixels lie 208 patch pixels after tile 0's, in the same swizzle phase,
- *     so one address a tap serves all three (as an immediate offset). A
- *     warpgroup hands a group's stages back on the empty barriers as soon
- *     as its wgmmas on them are done; no block barrier is left in the loop,
- *     so a warpgroup's epilogue overlaps the producers' loads.
+ *   - wgmma reads A straight from the patch. At tap (dy, dx) core matrix j
+ *     of a tile is its row j, 8 consecutive patch pixels, and the next core
+ *     matrix is a patch row on: one descriptor in the 64-byte swizzle mode
+ *     with a uniform stride. The swizzle applies to the address computed, so
+ *     a descriptor starts at any pixel with a base offset of 0 (the base
+ *     offset (start >> 7) & 7 reads wrong values). Tiles, taps and k16 steps
+ *     are immediate offsets of one descriptor: a group is 9 taps x 2 k16
+ *     steps x 3 tiles, 54 wgmma m64nNk16 under one commit, and a warpgroup
+ *     waits only before it hands the group before's stages back on the
+ *     empty barriers. No block barrier is left in the loop, so a
+ *     warpgroup's epilogue overlaps the producers' loads.
  *   - Every accumulator sums group, then tap, then k16 step, in the plan's
  *     order, whatever the schedule: the outputs do not depend on the grid,
  *     and are bit for bit those of the one-block-a-rectangle cp.async design
- *     this replaced.
+ *     and of the ldmatrix design this replaced.
  *   - The epilogue works on the registers: bias (from shared memory), then
  *     leaky and the bf16 rounding (y_i), or * add_rate + x and the rounding
  *     (output), with __fadd_rn/__fmul_rn so no FMA fuses the residual; a
  *     row's residual loads go before its stores.
  *
- * Measured on an H100 80GB HBM3 at 700 W (CUDA events, the frames shape):
- * 1.18-1.20 ms a call, against 1.82-1.93 for that design, launch by launch
- * 0.125, 0.170, 0.204, 0.245 and 0.455 ms. Without loads the consumers take
- * 1.13 ms, without them and the stores 1.02: the kernel is bound by the
- * consumers' ldmatrix and wgmma steps.
+ * The shared-memory floor. wgmma with A from shared memory reads A (2 KB)
+ * and B (N * 32 bytes) a k16 step; at 128 bytes a clock an SM that is 24
+ * clocks for m64n32k16 against 16 of arithmetic, 32 for m64n64k16, equal to
+ * its arithmetic (a microbenchmark on the card read 24.2 and 32.4 clocks,
+ * with A from registers 16.4 and 32.3). At the frames shape the y launches'
+ * loops need 0.44 ms and the last launch's 0.25 ms.
  *
- * What it leaves on the table: the consumers are bound by shared-memory
- * bandwidth, each 64-row tile loading its A fragments by ldmatrix (wgmma A
- * straight from shared memory, K2's route, is next); the y's round trip
- * through device memory between launches (kept on chip, with halo
- * recompute, the floor above falls to 0.50 ms); 4-byte epilogue stores
- * (staged through shared memory to 16 bytes, they pushed the last launch
- * into spills and gained nothing at N = 32); the three warpgroups' epilogues
- * fall together, with the tensor cores idle. A persistent grid was first
- * tried at the serving shape, b256 t24, under 2 rectangles per SM, with a
- * ring every thread filled and a block barrier per group, and was not
- * faster there; that said nothing of shapes with many rectangles per SM.
+ * Measured on an H100 80GB HBM3 at 700 W (CUDA events, the frames shape,
+ * best of four in turns with the ldmatrix design): 1.14-1.16 ms a call
+ * against 1.19-1.20, launch by launch 0.113-0.119, 0.156-0.159,
+ * 0.180-0.190, 0.225-0.231 and 0.472-0.484 ms (the ldmatrix design's last
+ * launch 0.452-0.457). What bounds it now:
+ *   - the y launches, the memory side: with 1 tap of 9 they take 0.101,
+ *     0.144, 0.142 and 0.182 ms, and without loads 0.100, 0.133, 0.166 and
+ *     0.198. Without their stores they move a third fewer bytes and take a
+ *     third less time.
+ *   - the last launch, shared-memory bandwidth (the floor above) and its
+ *     weight ring: 0.367 ms without loads, 0.401 without waiting for the
+ *     weights.
+ * Tried (scripts/torch_k1_variants.py keeps the first two): the patch as
+ * four 8-channel planes with no swizzle, 16 bytes a pixel, four TMA boxes a
+ * group (K2's layout): bit for bit the same, 1.29 ms a call (its loads alone
+ * take 1.05 ms against 0.84); warpgroups taking turns on the tensor cores,
+ * as K2's do; a third weight stage (two patch stages) for the last launch;
+ * the taps unrolled; the patch map's L2 promotion at 64 and 256 bytes or
+ * none. None was faster.
+ *
+ * What it leaves on the table: the y's round trip through device memory
+ * between launches (kept on chip, with halo recompute, the memory side of
+ * the y launches goes); 4-byte epilogue stores; the last launch's weights,
+ * read from L2 by every block for every rectangle (TMA multicast across a
+ * cluster). A persistent grid was first tried at the serving shape, b256
+ * t24, under 2 rectangles per SM, with a ring every thread filled and a
+ * block barrier per group, and was not faster there; that said nothing of
+ * shapes with many rectangles per SM.
  */
 
 #include <cuda_bf16.h>
@@ -105,7 +123,6 @@
 
 #include <initializer_list>
 #include <mutex>
-#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -117,22 +134,22 @@ using bf16 = __nv_bfloat16;
 constexpr int C = 64;                     // block width
 constexpr int G = 32;                     // growth channels = channels per K group
 constexpr int YC = 4 * G;                 // channels of the y buffer
-constexpr int MT = 3;                     // 64-row tiles per warpgroup
-constexpr int TH = 8 * MT, TW = 24;       // output rectangle
-constexpr int PW = TW + 2;                // halo patch width
-constexpr int PPIX = (TH + 2) * PW;       // halo patch pixels (676)
+constexpr int MT = 3;                     // 8 x 8 row tiles per warpgroup
 constexpr int CONSUMERS = 384;            // three warpgroups
 constexpr int THREADS = CONSUMERS + 128;  // and the producer warpgroup
+constexpr int TH = 8 * MT, TW = 8 * (CONSUMERS / 128);  // output rectangle: 3 x 3 row tiles
+constexpr int PW = TW + 2;                // halo patch width
+constexpr int PPIX = (TH + 2) * PW;       // halo patch pixels (676)
 // Registers a thread after setmaxnreg. Each SM sub-partition holds 16,384
 // and one warp of each warpgroup.
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 160;
 static_assert(32 * (PRODUCER_REGS + 3 * CONSUMER_REGS) <= 16384, "register file");
-constexpr int SLAB = CONSUMERS / 2;       // rows of one tile in all warpgroups (192)
-static_assert(TH * TW == MT * SLAB, "the rectangle's pixels are the consumers' rows");
-constexpr int TILE_PIX = SLAB / TW * PW;  // patch pixels from one row tile to the next (208)
-static_assert(SLAB % TW == 0 && TILE_PIX % 8 == 0, "row tiles share the swizzle phase");
 constexpr int KG = 9 * G;                 // K rows per source group (288)
 constexpr int PATCH_BYTES = PPIX * G * 2; // 43,264, one TMA box
+// The patch as wgmma reads A: a pixel's 32 channels in 64 bytes, in TMA's
+// 64-byte swizzle.
+constexpr int PIX_BYTES = G * 2;          // A: from one patch pixel to the next
+constexpr int KSTEP_BYTES = 32;           // A: from one k16 step to the next
 // TMA's 64-byte swizzle (patches, N = 32 weights) starts over every 512
 // bytes, its 128-byte swizzle (N = 64 weights) every 1024: boxes start
 // there.
@@ -197,50 +214,52 @@ struct Maps {
   CUtensorMap w[5];
 };
 
-// D (64 x N fp32, registers) += A (64 x 16 bf16, registers) * B (descriptor),
-// B transposed (N-major).
+// D (64 x N fp32, registers) += A (64 x 16 bf16, descriptor, K-major) *
+// B (descriptor), B transposed (N-major).
 template <int N>
 struct Wgmma;
 
 template <>
 struct Wgmma<32> {
-  __device__ static void run(float (&d)[16], const uint32_t (&a)[4], uint64_t desc) {
+  __device__ static void run(float (&d)[16], uint64_t a, uint64_t b) {
     asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        "%16, %17, p, 1, 1, 0, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+        : "l"(a), "l"(b), "r"(1));
   }
 };
 
 template <>
 struct Wgmma<64> {
-  __device__ static void run(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
+  __device__ static void run(float (&d)[32], uint64_t a, uint64_t b) {
     asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        "%32, %33, p, 1, 1, 0, 1;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
           "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
           "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
           "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+        : "l"(a), "l"(b), "r"(1));
   }
 };
 
-// Byte offset of 16-byte chunk `chunk` (0..3) of patch pixel `pix`: pixels
-// are 64 bytes apart and their chunks XOR-swizzled as TMA's 64-byte swizzle
-// writes them.
-__device__ __forceinline__ uint32_t patch_offset(int pix, int chunk) {
-  return pix * (G * 2) + ((chunk ^ ((pix >> 1) & 3)) << 4);
+// Descriptor of 64 rows of A, an 8 x 8 pixel row tile, from patch pixel
+// `addr` on (plus 32 bytes for the second k16 step): K-major in the 64-byte
+// swizzle, core matrix j the 8 pixels of the tile's row j, the next a patch
+// row on. The swizzle applies to the address computed, so the descriptor
+// may start at any pixel with a base offset of 0, as TMA wrote the patch.
+__device__ __forceinline__ uint64_t patch_desc(uint32_t addr) {
+  return smem_desc(addr, 16, PW * PIX_BYTES) | (2ull << 62);
 }
 
 // Descriptor of 16 K rows of weights as TMA writes them: rows of N bf16
@@ -311,8 +330,9 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int gi = 0; gi < p.groups; ++gi) {
         if (round > 0) mbar_wait(empty(stage), (round - 1) & 1);
         mbar_expect_tx(full(stage), PATCH_BYTES);
-        tma_load_4d(ring + stage * PATCH_STRIDE, &maps.src[p.g[gi].src], p.g[gi].src_c0, w0 - 1,
-                    h0 - 1, b, full(stage));
+        const Group& g = p.g[gi];
+        tma_load_4d(ring + stage * PATCH_STRIDE, &maps.src[g.src], g.src_c0, w0 - 1, h0 - 1, b,
+                    full(stage));
         if (++stage == p.stages) {
           stage = 0;
           ++round;
@@ -345,23 +365,16 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   // Three warpgroups multiply and store.
   auto consume = [&] {
-    // A fragments: each 64-row tile has its own buffer (N = 32); at N = 64,
-    // whose 96 accumulators leave no room for a third, two take turns. A
-    // group's 27 steps move the rotation on by SHIFT buffers, undone by the
-    // next group's.
-    constexpr int NBUF = N == C ? 2 : MT;
-    constexpr int SHIFT = 9 * MT % NBUF;
-    static_assert(2 * SHIFT % NBUF == 0, "two groups bring the rotation back");
     float acc[MT][N / 2];
-    // Rows (pixels, row-major in the rectangle) 192m .. 192m+191 are row
-    // tile m of the three warpgroups; warp w holds rows 192m + 16w + 0..15.
-    // Tile m lies 8m image rows below tile 0, TILE_PIX patch pixels on, in
-    // the same swizzle phase: one address a tap serves all three tiles.
-    // ldmatrix addressing: lane l gives row l % 16 of its warp's 16, 16-byte
-    // chunk l / 16 of the k16 step.
-    const int r0 = warp * 16 + (lane & 15);
-    const int apix = (r0 / TW) * PW + r0 % TW;  // patch pixel of that row at tap (0, 0)
-    const int akc = lane >> 4;
+    // Row tile m of warpgroup wg is the 8 x 8 pixels (8m + r / 8, 8wg +
+    // r % 8), r = 0..63, of the rectangle; warp q of the warpgroup holds
+    // rows 16q .. 16q + 15 of each. At tap (dy, dx) its core matrix j reads
+    // patch pixels (8m + j + dy) * PW + 8wg + dx + 0..7: the tiles, taps and
+    // k16 steps of a group are offsets of one descriptor (in 16-byte units).
+    // The warpgroup index through a shuffle, so that ptxas knows it is
+    // warp-uniform and keeps the descriptors in uniform registers.
+    const int wg = __shfl_sync(0xffffffffu, tid / 128, 0), q = warp & 3;
+    const uint64_t a0 = patch_desc(ring + 8 * wg * PIX_BYTES);
     const bool signals = tid % 128 == 0;  // arrives on the empty barriers
 
     if constexpr (!LAST) mbar_wait(wbar, 0);
@@ -375,42 +388,6 @@ __global__ void __launch_bounds__(THREADS, 1)
         if constexpr (LAST) mbar_arrive(wempty((k - 1) & 1));
       }
     };
-    uint32_t a[NBUF][2][4];  // [buffer][k16 step][fragment]
-    // Group gi of a rectangle: 27 steps, step u tap u / MT of row tile
-    // u % MT, its A fragments in buffer (u + PAR) % NBUF.
-    auto group = [&](auto par, int gi) {
-      constexpr int PAR = decltype(par)::value;
-      mbar_wait(full(stage), round & 1);
-      if constexpr (LAST) mbar_wait(wfull(k & 1), (k >> 1) & 1);
-      const uint32_t patch = ring + stage * PATCH_STRIDE;
-      const uint32_t bs = wts + (LAST ? k & 1 : gi) * W_BYTES;
-#pragma unroll
-      for (int u = 0; u < 9 * MT; ++u) {
-        const int tap = u / MT, m = u % MT;
-        uint32_t(&ab)[2][4] = a[(u + PAR) % NBUF];
-        // Step u - NBUF, the last reader of ab, is done (and so, at
-        // u == NBUF - 1, the group before's last step: its stages go back).
-        wgmma_wait<NBUF - 1>();
-        if (u == NBUF - 1 && gi > 0) release();
-        // k16 step 1 reads chunks 2, 3: step 0's address with bit 5 flipped.
-        const uint32_t at = patch + patch_offset(apix + (tap / 3) * PW + tap % 3, akc);
-        ldmatrix_x4(ab[0], at + m * TILE_PIX * G * 2);
-        ldmatrix_x4(ab[1], (at ^ 32) + m * TILE_PIX * G * 2);
-        wgmma_fence();
-#pragma unroll
-        for (int ks = 0; ks < 2; ++ks) {
-          const uint32_t k0 = tap * G + ks * 16;  // B: K rows k0 .. k0 + 15
-          Wgmma<N>::run(acc[m], ab[ks], weight_desc<N>(bs + k0 * N * 2));
-        }
-        wgmma_commit();
-      }
-      held = stage;
-      if (++stage == p.stages) {
-        stage = 0;
-        ++round;
-      }
-      ++k;
-    };
 
     for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
       int b, h0, w0;
@@ -421,22 +398,51 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
         for (int i = 0; i < N / 2; ++i) acc[m][i] = 0.f;
 
+      // Group gi: 9 taps x 2 k16 steps x MT tiles, 54 wgmmas under one
+      // commit; each accumulator sums tap after tap, k16 step after step.
       for (int gi = 0; gi < p.groups; ++gi) {
-        if (SHIFT != 0 && (k & 1))
-          group(std::integral_constant<int, SHIFT>{}, gi);
-        else
-          group(std::integral_constant<int, 0>{}, gi);
+        mbar_wait(full(stage), round & 1);
+        if constexpr (LAST) mbar_wait(wfull(k & 1), (k >> 1) & 1);
+        const uint64_t as = a0 + stage * (PATCH_STRIDE >> 4);
+        const uint64_t bs = weight_desc<N>(wts + (LAST ? k & 1 : gi) * W_BYTES);
+        wgmma_fence();
+        // One tap an iteration, its k16 steps and tiles unrolled with the
+        // descriptor offsets as immediates (the taps unrolled too were no
+        // faster).
+#pragma unroll 1
+        for (int tap = 0; tap < 9; ++tap) {
+          const uint64_t at = as + ((tap / 3 * PW + tap % 3) * PIX_BYTES >> 4);
+          const uint64_t bt = bs + (tap * TAP_BYTES >> 4);
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+            for (int m = 0; m < MT; ++m)
+              Wgmma<N>::run(acc[m], at + ((8 * m * PW * PIX_BYTES + ks * KSTEP_BYTES) >> 4),
+                            bt + (ks * 16 * N * 2 >> 4));
+        }
+        wgmma_commit();
+        // The group before is done: its stages go back.
+        if (gi > 0) {
+          wgmma_wait<1>();
+          release();
+        }
+        held = stage;
+        if (++stage == p.stages) {
+          stage = 0;
+          ++round;
+        }
+        ++k;
       }
       wgmma_wait<0>();
       release();
 
-      // Epilogue from the accumulators: element 4j + 2h + e of tile m is row
-      // 192m + 16 * warp + lane / 4 + 8h, column 8j + 2 (lane % 4) + e.
+      // Epilogue from the accumulators: element 4j + 2h + e of tile m is
+      // its row 16q + lane / 4 + 8h (rectangle pixel (8m + 2q + h, 8wg +
+      // lane / 4)), column 8j + 2 (lane % 4) + e.
 #pragma unroll
       for (int mh = 0; mh < 2 * MT; ++mh) {
         const int m = mh >> 1, h = mh & 1;
-        const int r = m * SLAB + warp * 16 + (lane >> 2) + 8 * h;
-        const int oh = h0 + r / TW, ow = w0 + r % TW;
+        const int oh = h0 + 8 * m + 2 * q + h, ow = w0 + 8 * wg + (lane >> 2);
         if (oh >= p.H || ow >= p.W) continue;
         const long long pix = img + (long long)oh * p.W + ow;
         bf16* dst = p.dst + pix * p.dst_ld + p.dst_c0;

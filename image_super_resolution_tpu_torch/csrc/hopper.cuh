@@ -1,6 +1,6 @@
 /*
  * Small PTX wrappers for Hopper (sm_90a) shared by the port's kernels:
- * cp.async, the generic-to-async proxy fence, ldmatrix, named barriers,
+ * cp.async, the generic-to-async proxy fence, named barriers,
  * wgmma's fence/commit/wait and its shared-memory matrix descriptor,
  * mbarriers and TMA tensor loads, and the host's tensor-map encoder.
  */
@@ -37,12 +37,6 @@ __device__ __forceinline__ void cp_async_wait() {
 // operands through the async proxy.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
 }
 
 // Named barriers 1..15 (0 is __syncthreads): `threads` arrive in all, some

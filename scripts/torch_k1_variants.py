@@ -14,7 +14,8 @@ y buffer and output are bit-equal to the committed kernel's: the diagnostic
 variants (no stores, no wgmma, ...) compute the wrong result on purpose and
 show where the time goes. A variant that does not build is left out with
 nvcc's message. Prints the card's name and power limit first, and each
-variant's ptxas report (registers, spills, wgmma serialisations).
+variant's ptxas report (registers, spills, wgmma serialisations, injected wgmma
+fences).
 """
 
 from __future__ import annotations
@@ -30,16 +31,41 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 _STORE = "          *reinterpret_cast<__nv_bfloat162*>(dst + n) = __floats2bfloat162_rn(v0, v1);"
-_WGMMA = "          Wgmma<N>::run(acc[m], ab[ks], weight_desc<N>(bs + k0 * N * 2));"
-_LDMATRIX = ("        ldmatrix_x4(ab[0], at + m * TILE_PIX * G * 2);\n"
-             "        ldmatrix_x4(ab[1], (at ^ 32) + m * TILE_PIX * G * 2);\n")
-_STEPS = "      for (int u = 0; u < 9 * MT; ++u) {"
+_WGMMA = ("              Wgmma<N>::run(acc[m], at + ((8 * m * PW * PIX_BYTES + ks * KSTEP_BYTES) >> 4),\n"
+          "                            bt + (ks * 16 * N * 2 >> 4));\n")
+_TAPS = "        for (int tap = 0; tap < 9; ++tap) {"
 _COMPUTE_ONLY = [
-    ("      mbar_wait(full(stage), round & 1);\n"
-     "      if constexpr (LAST) mbar_wait(wfull(k & 1), (k >> 1) & 1);\n", ""),
+    ("        mbar_wait(full(stage), round & 1);\n"
+     "        if constexpr (LAST) mbar_wait(wfull(k & 1), (k >> 1) & 1);\n", ""),
     ("    if (tid == CONSUMERS) load_patches();\n", ""),
     ("    if (tid == CONSUMERS + 32) load_all_weights();",
      "    if (!LAST && tid == CONSUMERS + 32) load_all_weights();")]
+# The patch layout not chosen, (b): four planes of 8 channels of every
+# patch pixel, 16 bytes a pixel, no swizzle (each plane a TMA box, 128-byte
+# aligned), read by a descriptor whose LBO is the plane stride; a k16 step
+# is two planes on.
+_LAYOUT_B = [
+    ("constexpr int PIX_BYTES = G * 2;          // A: from one patch pixel to the next\n"
+     "constexpr int KSTEP_BYTES = 32;           // A: from one k16 step to the next\n",
+     "constexpr int PLANE = (PPIX * 16 + 127) / 128 * 128;\n"
+     "constexpr int PIX_BYTES = 16;\n"
+     "constexpr int KSTEP_BYTES = 2 * PLANE;\n"),
+    ("  return smem_desc(addr, 16, PW * PIX_BYTES) | (2ull << 62);\n",
+     "  return smem_desc(addr, PLANE, PW * PIX_BYTES);\n"),
+    ("  const cuuint32_t box[4] = {G, PW, TH + 2, 1};\n"
+     "  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, src, 4, dims, strides, box,\n"
+     "                    CU_TENSOR_MAP_SWIZZLE_64B);\n",
+     "  const cuuint32_t box[4] = {8, PW, TH + 2, 1};\n"
+     "  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, src, 4, dims, strides, box,\n"
+     "                    CU_TENSOR_MAP_SWIZZLE_NONE);\n"),
+    ("        tma_load_4d(ring + stage * PATCH_STRIDE, &maps.src[g.src], g.src_c0, w0 - 1, h0 - 1, b,\n"
+     "                    full(stage));\n",
+     "        for (int c = 0; c < G / 8; ++c)\n"
+     "          tma_load_4d(ring + stage * PATCH_STRIDE + c * PLANE, &maps.src[g.src], g.src_c0 + 8 * c,\n"
+     "                      w0 - 1, h0 - 1, b, full(stage));\n")]
+_FENCE = "        wgmma_fence();\n        // One tap an iteration"
+_COMMIT = "        wgmma_commit();\n"
+_TAP_DESC = "          const uint64_t at = as + ((tap / 3 * PW + tap % 3) * PIX_BYTES >> 4);\n"
 
 # name -> (what it tests, diagnostic (a wrong result on purpose), [(text, replacement)])
 VARIANTS = {
@@ -48,47 +74,42 @@ VARIANTS = {
                          "get 152", False,
                          [("PRODUCER_REGS = 24, CONSUMER_REGS = 160;",
                            "PRODUCER_REGS = 56, CONSUMER_REGS = 152;")]),
-    "six A buffers": ("two A buffers a row tile at N = 32: five steps in flight", False,
-                      [("constexpr int NBUF = N == C ? 2 : MT;", "constexpr int NBUF = N == C ? 2 : 2 * MT;")]),
-    "three A buffers": ("each row tile its own A buffer at N = 64 too", False,
-                        [("constexpr int NBUF = N == C ? 2 : MT;", "constexpr int NBUF = MT;")]),
-    "two A buffers": ("two A buffers taking turns at N = 32 too", False,
-                      [("constexpr int NBUF = N == C ? 2 : MT;", "constexpr int NBUF = 2;")]),
-    "tile addresses": ("each row tile's ldmatrix address computed apart, not as an offset "
-                       "from tile 0's", False, [
-        ("        const uint32_t at = patch + patch_offset(apix + (tap / 3) * PW + tap % 3, akc);\n"
-         "        ldmatrix_x4(ab[0], at + m * TILE_PIX * G * 2);\n"
-         "        ldmatrix_x4(ab[1], (at ^ 32) + m * TILE_PIX * G * 2);\n",
-         "        const uint32_t at =\n"
-         "            patch + patch_offset(apix + m * TILE_PIX + (tap / 3) * PW + tap % 3, akc);\n"
-         "        ldmatrix_x4(ab[0], at);\n"
-         "        ldmatrix_x4(ab[1], at ^ 32);\n")]),
+    "patch (b)": ("the patch in four 8-channel planes, no swizzle, four TMA boxes of 16 bytes "
+                  "a pixel", False, _LAYOUT_B),
+    "base offset": ("each tap's descriptor with the base offset (start >> 7) & 7 (reads "
+                    "wrong values: the swizzle applies to the address computed)", True,
+                    [(_TAP_DESC, _TAP_DESC.replace("const uint64_t at", "uint64_t at")
+                      + "          at |= ((at >> 3) & 7) << 49;\n")]),
+    "turns": ("the consumer warpgroups take turns on the tensor cores, a named barrier each "
+              "passed on once a group's wgmmas are issued (K2's scheme)", False, [
+        (_FENCE, "        if (t != (int)blockIdx.x || gi > 0 || wg > 0) bar_sync(1 + wg, 256);\n"
+         + _FENCE),
+        (_COMMIT, _COMMIT + "        if (t + (int)gridDim.x < p.tiles || gi + 1 < p.groups || wg + 1 < 3)\n"
+                            "          bar_arrive(1 + (wg + 1) % 3, 256);\n")]),
     "stages 3": ("at most 3 ring stages (the y launches)", False,
                  [("constexpr int MAX_STAGES = 4;", "constexpr int MAX_STAGES = 3;")]),
     "stages 2": ("at most 2 ring stages", False,
                  [("constexpr int MAX_STAGES = 4;", "constexpr int MAX_STAGES = 2;")]),
     "no stores": ("the epilogue computes but does not store", True,
                   [(_STORE, "          if (v0 == 1234.5f) " + _STORE.strip())]),
-    "no wgmma": ("the A fragments are loaded but not multiplied", True,
-                 [(_WGMMA, "          if (ab[ks][0] == k0 + bs) acc[m][ks] += 1.f;")]),
-    "no ldmatrix": ("wgmma on A registers that are not loaded", True,
-                    [(_LDMATRIX, "        for (int ks = 0; ks < 2; ++ks)\n"
-                                 "          ab[ks][0] = ab[ks][1] = ab[ks][2] = ab[ks][3] = at + ks;\n")]),
-    "loads only": ("3 steps of 27 a group: the load ring and the epilogue", True,
-                   [(_STEPS, _STEPS.replace("u < 9 * MT", "u < 3"))]),
+    "no wgmma": ("the descriptors are computed but nothing is multiplied", True,
+                 [(_WGMMA, "              if (at == bt + ks) acc[m][ks] += 1.f;\n")]),
+    "loads only": ("1 tap of 9 a group: the load ring and the epilogue", True,
+                   [(_TAPS, _TAPS.replace("tap < 9", "tap < 1"))]),
     "compute only": ("no loads: the consumers multiply whatever shared memory holds", True,
                      _COMPUTE_ONLY),
     "compute only without stores": ("no loads and no stores", True, _COMPUTE_ONLY + [
         (_STORE, "          if (v0 == 1234.5f) " + _STORE.strip())]),
     "loads only without stores": ("the load ring alone", True,
-                              [(_STEPS, _STEPS.replace("u < 9 * MT", "u < 3")),
+                              [(_TAPS, _TAPS.replace("tap < 9", "tap < 1")),
                                (_STORE, "          if (v0 == 1234.5f) " + _STORE.strip())]),
 }
 
 
 def sass_report(so: Path) -> str:
     """Per kernel instantiation in the library's SASS: local-memory stores
-    and loads (spills) and whether setmaxnreg survived into the code."""
+    and loads (spills), ldmatrix (LDSM) and wgmma (HGMMA) instructions, and
+    whether setmaxnreg survived into the code."""
     from image_super_resolution_tpu_torch.ops.kernels._build import _nvcc
 
     cuobjdump = Path(_nvcc()).with_name("cuobjdump")
@@ -102,7 +123,9 @@ def sass_report(so: Path) -> str:
         where = [f"{w}@{o}" for o, w in re.findall(r"/\*([0-9a-f]{4,})\*/\s+(\S*SETMAXREG\S*|STL\S*)", chunk)]
         parts.append(f"N={m.group(1)} SASS: {len(re.findall(r'\bSTL', chunk))} STL, "
                      f"{len(re.findall(r'\bLDL', chunk))} LDL, "
-                     f"{len(re.findall(r'SETMAXREG', chunk))} SETMAXREG; at {' '.join(where[:12])}")
+                     f"{len(re.findall(r'SETMAXREG', chunk))} SETMAXREG, "
+                     f"{len(re.findall(r'LDSM', chunk))} LDSM, {len(re.findall(r'HGMMA', chunk))} HGMMA; "
+                     f"at {' '.join(where[:12])}")
     return "; ".join(parts)
 
 
@@ -138,9 +161,12 @@ def build(out_dir: Path, names) -> dict:
                 report.append(f"N={m.group(1)}:")
             elif report and ("registers" in line or "spill" in line):
                 report.append(line.split(":", 1)[-1].strip())
-        serial = {n: sum(("C7513" in line or "C7510" in line or "C7519" in line)
-                         and f"rdb_dense_convILi{n}E" in line for line in log.splitlines())
-                  for n in (32, 64)}
+        def notes(codes, n):
+            return sum(any(c in line for c in codes) and f"rdb_dense_convILi{n}E" in line
+                       for line in log.splitlines())
+        serial = {n: notes(("C7510", "C7513"), n) for n in (32, 64)}
+        # C7519: ptxas put a wgmma fence (warpgroup.arrive) where the source has none
+        arrives = {n: notes(("C7519",), n) for n in (32, 64)}
         lib = ctypes.CDLL(str(so))
         lib.isr_fused_rdb_forward.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [
             ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -149,6 +175,7 @@ def build(out_dir: Path, names) -> dict:
         libs[name] = lib
         print(f"[build] {name}: {VARIANTS[name][0]}; {' '.join(report)}; "
               f"wgmma serialisation notes N=32 {serial[32]}, N=64 {serial[64]}; "
+              f"fences injected N=32 {arrives[32]}, N=64 {arrives[64]}; "
               f"{sass_report(so)}", flush=True)
         for line in log.splitlines():
             if "warning" in line.lower() and "C7519" not in line:

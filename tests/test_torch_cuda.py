@@ -37,12 +37,15 @@ def mats(card):
 
 @pytest.mark.parametrize("b,h,w", [(1, 1, 1), (2, 8, 8), (3, 17, 29), (1, 33, 130),
                                    (1, 9, 25), (2, 24, 24), (1, 7, 200), (1, 96, 128),
-                                   (3, 200, 300)])
+                                   (3, 200, 300), (1, 23, 47), (2, 270, 480)])
 def test_fused_rdb_matches_plain_version(card, mats, b, h, w):
     """Any batch and any H, W: images smaller than one 24 x 24 rectangle,
     rectangles that straddle both image edges (9 x 25), the serving tile,
-    rows much wider than a rectangle, a whole-image sr input, and more
-    rectangles than SMs (351: each persistent block walks several). Tolerance:
+    rows much wider than a rectangle, a whole-image sr input, more
+    rectangles than SMs (351: each persistent block walks several), a
+    ragged bottom and right edge met by every row and column of a
+    rectangle's 8 x 8 row tiles (23 x 47), and two frames of the benchmark's
+    frame shape (270 x 480). Tolerance:
     KERNEL_ATOL + KERNEL_RTOL|want| (a few bf16 ulps; the two sum each conv
     in another order)."""
     rng = np.random.default_rng(b * 1000 + h * 10 + w)

@@ -8,6 +8,8 @@ form, driven by the same launch plan the kernel is given, is held against
 both.
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -345,3 +347,51 @@ def test_counters_of_rectangles_and_blocks(b, h, w, tiles, monkeypatch):
         assert scatter_rdb.tiles / scatter_rdb.blocks == pytest.approx(14.545, abs=1e-3)
     if (b, h, w) == (8, 96, 96):
         assert scatter_rdb.tiles == scatter_rdb.blocks
+
+
+# ------------------------------------------------- the kernel's row tiles --
+
+PW = RECT[1] + 2  # halo patch width
+PIX_BYTES = 2 * k1.G  # a patch pixel: one group's 32 channels, bf16
+
+
+def tile_row_pixel(wg, m, r):
+    """Rectangle pixel (row, column) of row r of warpgroup wg's row tile m:
+    the 8 x 8 square of rows 8m.., columns 8wg.. (``consume`` in
+    csrc/fused_rdb.cu)."""
+    return 8 * m + r // 8, 8 * wg + r % 8
+
+
+def test_row_tiles_cover_the_rectangle_once():
+    """Three warpgroups of three 64-row tiles hold each of the rectangle's
+    24 x 24 pixels once."""
+    pixels = [tile_row_pixel(wg, m, r) for wg in range(3) for m in range(3) for r in range(64)]
+    assert sorted(pixels) == [(i, j) for i in range(RECT[0]) for j in range(RECT[1])]
+
+
+@pytest.mark.parametrize("tap", range(9))
+def test_tile_descriptor_reads_each_rows_tap_pixel(tap):
+    """wgmma reads row i of core matrix j of a K-major operand at the
+    descriptor's start + j * SBO + i * (a row's bytes), and 16-byte chunk c
+    of the row c * 16 bytes on. With the start at the tile's tap pixel
+    (8m + dy) * PW + 8wg + dx (plus 32 bytes at the second k16 step) and SBO
+    one patch row, row r = 8j + i reads chunk 2 ks + c of the patch pixel of
+    its own output pixel moved by the tap: the patch pixel (oh + dy) * PW +
+    ow + dx, where TMA wrote it. (The swizzle then applies to this address,
+    as it did to TMA's.)"""
+    dy, dx = divmod(tap, 3)
+    sbo = PW * PIX_BYTES
+    for wg, m, ks, r, c in itertools.product(range(3), range(3), range(2), range(64), range(2)):
+        start = ((8 * m + dy) * PW + 8 * wg + dx) * PIX_BYTES + 32 * ks
+        got = start + (r // 8) * sbo + (r % 8) * PIX_BYTES + 16 * c
+        oh, ow = tile_row_pixel(wg, m, r)
+        assert got == ((oh + dy) * PW + ow + dx) * PIX_BYTES + 16 * (2 * ks + c)
+
+
+def test_epilogue_rows_are_the_tile_rows():
+    """wgmma's accumulator rows: warp q of the warpgroup holds rows 16q +
+    lane / 4 + 8h, which the epilogue stores at rectangle pixel (8m + 2q +
+    h, 8wg + lane / 4)."""
+    for wg, m, q, lane, h in itertools.product(range(3), range(3), range(4), range(32), range(2)):
+        assert tile_row_pixel(wg, m, 16 * q + lane // 4 + 8 * h) == (
+            8 * m + 2 * q + h, 8 * wg + lane // 4)
