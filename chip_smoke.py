@@ -198,6 +198,23 @@ Phases, each of which raises on failure:
     and ``TiledUpscaler`` -> ``rs.video_pipeline`` over three frame
     batches, K3 counted on both (200 ``reduce`` and 200 ``scale`` a
     forward) and the video's frames equal to the model's.
+20. K4, BasicVSR's flow warp (``csrc/flow_warp.cu``, built in phase 2): its
+    ptxas report, then ``flow_warp`` against its plain version at the
+    propagation shape (both branches' states, two 64-channel windows of a
+    1x270x480x128 bf16 tensor, into 2x270x480x72 trunk inputs) and at
+    SPyNet's finest and coarsest levels (14x288x480x3 and 14x9x15x3
+    fp32, border), with flows out of the frame, within ``KERNEL_ATOL_REL *
+    max|x| + KERNEL_RTOL |want|``, bitwise the same twice, timed beside
+    its plain version, ``F.grid_sample`` on a ready grid and its bound by
+    bytes; then BasicVSR x4 at its published widths (width 64, 30 blocks a
+    branch, SPyNet's 6 levels) through ``.isr`` -> ``load_artifact`` ->
+    ``DeployedModel`` in bf16: a 5-frame 48x64 crop against the port's
+    fp32 CPU path within ``BASICVSR_MAX_RMS_LSB`` / ``BASICVSR_MAX_LSB``,
+    SPyNet's mean and largest |flow| on a 270x480 segment, a 15-frame
+    segment at 270x480 timed (20 K4 launches a segment: 14 propagation,
+    one a step for both branches, 6 SPyNet), and ``TiledUpscaler`` -> ``rs.video_pipeline`` over 37
+    frames (segments 15, 15 and 7, the last on its valid frames), each
+    segment's frames equal to the model's own, K4 counted.
 
 It prints one JSON line of per-kernel numbers (each kernel's launches
 summed over the counted runs of phases 5/6 and 9-19, and given by path),
@@ -226,7 +243,7 @@ from perfbench.roofline.peaks import bound_s, peaks
 SEED = 0
 ROOT = Path(__file__).resolve().parent
 PACKAGE = "image_super_resolution_tpu_torch"
-SOURCES = ("fused_rdb", "matmul", "channel_attention")  # csrc/<name>.cu
+SOURCES = ("fused_rdb", "matmul", "channel_attention", "flow_warp")  # csrc/<name>.cu
 
 
 def _log(msg: str) -> None:
@@ -331,6 +348,11 @@ def _instance(source: str, mangled: str) -> str:
     if source == "channel_attention":
         stream = "fp32" if "IfE" in mangled else "bf16"
         return f"{'reduce' if 'reduce' in mangled else 'scale'}, {stream} stream"
+    if source == "flow_warp":
+        m = re.search(r"flow_warp_kernelI(f|13__nv_bfloat16)(f|13__nv_bfloat16)Li(\d+)E", mangled)
+        dtype = {"f": "fp32", "13__nv_bfloat16": "bf16"}
+        return (f"{dtype[m.group(1)]} -> {dtype[m.group(2)]}, {m.group(3)} channels a thread"
+                if m else mangled)
     m = re.search(r"conv3x3_int8_kernelILb([01])ELi([123])ELb([01])ELi(\d+)E", mangled)
     if m:
         ks = "K steps unrolled" if m.group(4) != "0" else "K steps at run time"
@@ -3967,6 +3989,208 @@ def phase_rcan(work: Path, card: str, device: str = "cuda") -> dict:
             "rs.video_pipeline rcan x4 (phase 19)": video}
 
 
+# ----------------------------------------------------------------- phase 20 --
+
+# (shape, dtype, padding, frame slot, flow scale in pixels): the propagation
+# step, SPyNet's finest and coarsest levels, flows far out of the frame.
+# (shape, dtype, padding, frame slot, flow scale, x as channel windows): the
+# propagation's launch warps both branches' states, two 64-channel windows of
+# the 128-channel tensor that stacks them; SPyNet's, its finest and coarsest
+# levels.
+K4_CASES = (((2, 270, 480, 64), "bfloat16", "zeros", True, 2.0, True),
+            ((2, 270, 480, 64), "bfloat16", "zeros", True, 700.0, True),
+            ((14, 288, 480, 3), "float32", "border", False, 4.0, False),
+            ((14, 9, 15, 3), "float32", "border", False, 40.0, False))
+BASICVSR_DIMS = (64, 30)  # width, residual blocks a branch: the published x4
+BASICVSR_SEGMENT = (15, 270, 480)  # basicvsr_x4.clips' segment
+BASICVSR_VIDEO = 37  # frames through rs.video_pipeline: segments of 15, 15 and 7
+BASICVSR_CROP = (5, 48, 64)  # frames, height, width held against the CPU's fp32 path
+# Card bf16 against the CPU's fp32 path on the crop: RMS within 0.5 LSB
+# (bf16 against float32 reads 0.14-0.27 on the CPU at published widths,
+# 15 frames of 64x96, growing along the forward branch), no value more
+# than 3 LSB away (measured 1 on the CPU).
+BASICVSR_MAX_RMS_LSB, BASICVSR_MAX_LSB = 0.5, 3
+
+
+def _k4_operands(case, seed: int):
+    import torch
+
+    shape, dtype, padding, frame, scale, windows = case
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n, h, w, c = shape
+    if windows:
+        x = torch.randn(1, h, w, n * c, generator=g, device="cuda").to(getattr(torch, dtype))
+        x = x.view(h, w, n, c).permute(2, 0, 1, 3)
+    else:
+        x = torch.randn(shape, generator=g, device="cuda").to(getattr(torch, dtype))
+    flow = (torch.rand(n, h, w, 2, generator=g, device="cuda") * 2 - 1) * scale
+    slot = torch.randn(n, h, w, 8, generator=g, device="cuda").to(x.dtype) if frame else None
+    return x, flow, padding, slot
+
+
+def phase_k4(kind: str, card: str, ptxas_log: str) -> dict:
+    """K4 (``csrc/flow_warp.cu``): its ptxas report, then against its plain
+    version at each of ``K4_CASES`` within ``KERNEL_ATOL_REL * max|x| +
+    KERNEL_RTOL |want|``, the frame slot bit for bit, bitwise the same on a
+    second call, one launch a call; then timed beside its plain version,
+    ``F.grid_sample`` on a ready grid in the features' dtype (the one
+    PyTorch call that computes the warp, the yardstick; a bf16 grid cannot
+    address a 480-wide row to the pixel, so it times the call, not the
+    port's precision) and its bound by bytes."""
+    import torch
+    import torch.nn.functional as F
+
+    from image_super_resolution_tpu_torch.ops.kernels import flow_warp as k4
+    from perfbench.roofline.k4 import work_bytes
+
+    _ptxas("flow_warp", ptxas_log)
+    _, _, _, peak_bw = _peaks(kind)
+    times, max_err = {}, 0.0
+    for case in K4_CASES:
+        x, flow, padding, slot = _k4_operands(case, sum(case[0]))
+        before = sum(k4.flow_warp.launches_by_mode.values())
+        got, again = k4.flow_warp(x, flow, padding, slot), k4.flow_warp(x, flow, padding, slot)
+        want = k4.flow_warp_reference(x, flow, padding, slot)
+        torch.cuda.synchronize()
+        launches = sum(k4.flow_warp.launches_by_mode.values()) - before
+        err = (got.float() - want.float()).abs()
+        tol = (k4.KERNEL_ATOL_REL * float(x.float().abs().max())
+               + k4.KERNEL_RTOL[x.dtype] * want.float().abs())
+        bad = int((err > tol).sum())
+        max_err = max(max_err, float(err.max()))
+        what = (f"{tuple(case[0])} {case[1]}{' windows' if case[5] else ''} {padding} flows "
+                f"+-{case[4]}")
+        _log(f"[kernel] flow_warp {what}: max_abs_err {float(err.max()):.6g}, worst err / tol "
+             f"{float((err / tol).max()):.4f}, {bad} of {err.numel()} outside; "
+             f"{int((got != want).sum())} values differ; launches {launches}")
+        if bad or not torch.equal(got, again) or launches != 2 or (
+                slot is not None and not torch.equal(got[..., :8], slot)):
+            raise AssertionError(f"flow_warp disagrees with its plain version at {what} (or "
+                                 f"with itself, or in its launches)")
+        ms = _cuda_ms(lambda: k4.flow_warp(x, flow, padding, slot))
+        plain_ms = _cuda_ms(lambda: k4.flow_warp_reference(x, flow, padding, slot), warmup=1,
+                            iters=5)
+        xn, grid = x.permute(0, 3, 1, 2), k4.sampling_grid(flow).to(x.dtype)
+        library_ms = _cuda_ms(lambda: F.grid_sample(xn, grid, mode="bilinear",
+                                                     padding_mode=padding, align_corners=True))
+        n, h, w, c = case[0]
+        nbytes = work_bytes(n, h, w, c, 8 if slot is not None else 0, x.element_size(),
+                            x.element_size())
+        bound_ms = nbytes / peak_bw * 1e3
+        times[what] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                       "bound_ms": bound_ms}
+        _log(f"[kernel] flow_warp {what} on {card}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+             f"grid_sample {library_ms:.4f} ms; bound {bound_ms:.4f} ms by bytes ({nbytes} B), "
+             f"{bound_ms / ms:.1%} of bound")
+    main = times[next(iter(times))]
+    return {"name": "flow_warp", "route": "cuda", "source": f"{PACKAGE}/csrc/flow_warp.cu",
+            "replaces": None,  # a port kernel: the JAX package has no video model
+            "launches": None,  # filled in from the basicvsr serving phase
+            "max_abs_err": max_err, "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": "bytes",
+            "library_ms": main["library_ms"], "shapes": times}
+
+
+def _k4_counted(fn, want: dict, what: str, device: str):
+    """fn() with ``flow_warp.launches_by_mode`` cleared just before and read
+    just after: ``want`` on the card, nothing on the CPU."""
+    import torch
+
+    from image_super_resolution_tpu_torch.ops.kernels.flow_warp import flow_warp
+
+    flow_warp.launches_by_mode.clear()
+    out = fn()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    got = dict(flow_warp.launches_by_mode)
+    if got != (want if device == "cuda" else {}):
+        raise AssertionError(f"{what}: flow_warp launched {got}, want {want}")
+    return out, sum(got.values())
+
+
+def phase_basicvsr(work: Path, card: str, device: str = "cuda") -> dict:
+    """BasicVSR x4 at its published widths served as users serve it: seeded
+    weights -> ``.isr`` -> ``load_artifact`` -> ``DeployedModel`` (bf16); a
+    crop segment against the port's fp32 CPU path; SPyNet's |flow| on the
+    cell's segment; a segment timed, K4 counted; then ``TiledUpscaler`` and
+    ``rs.video_pipeline`` over ``BASICVSR_VIDEO`` frames in segments of 15,
+    the last on its valid frames, each equal to the model on that segment
+    alone. Returns the launches by path."""
+    import numpy as np
+    import torch
+
+    from image_super_resolution_tpu_torch.cli import rs
+    from image_super_resolution_tpu_torch.infer.engine import TiledUpscaler
+    from image_super_resolution_tpu_torch.models.basicvsr import BASICVSR_MEAN, BASICVSR_STD
+    from image_super_resolution_tpu_torch.models.deploy import (DeploySpec, init_fused_params,
+                                                                load_artifact, save_artifact)
+
+    width, blocks = BASICVSR_DIMS
+    spec = DeploySpec(family="basicvsr", width=width, blocks=blocks, scale=4,
+                      mean=BASICVSR_MEAN, std=BASICVSR_STD)
+    isr = work / "basicvsr_x4.isr"
+    save_artifact(isr, spec, init_fused_params(spec, SEED))
+    deployed = load_artifact(isr, dtype=torch.bfloat16, device=device)
+    rng = np.random.default_rng(SEED + 20)
+
+    def per_segment(t):  # a propagation warp a step for both branches
+        return {"zeros": t - 1, "border": 6} if t > 1 else {}
+
+    crop = rng.integers(0, 256, BASICVSR_CROP + (3,), dtype=np.uint8)
+    got, _ = _k4_counted(lambda: deployed(crop).cpu(), per_segment(len(crop)), "basicvsr crop",
+                         device)
+    want = load_artifact(isr, dtype=torch.float32, device="cpu")(crop)
+    diff = (got.double() - want.double())
+    rms = max(float(d.pow(2).mean().sqrt()) for d in diff)
+    worst = int(diff.abs().max())
+    _log(f"[basicvsr] x4 w{width} b{blocks} {BASICVSR_CROP} crop, card bf16 vs CPU fp32: "
+         f"largest frame RMS {rms:.4f} LSB (bound {BASICVSR_MAX_RMS_LSB}), max {worst} "
+         f"(bound {BASICVSR_MAX_LSB})")
+    if rms > BASICVSR_MAX_RMS_LSB or worst > BASICVSR_MAX_LSB:
+        raise AssertionError("basicvsr's card output is outside the recorded bounds")
+
+    t, h, w = BASICVSR_SEGMENT
+    x = torch.from_numpy(rng.integers(0, 256, (t, h, w, 3), dtype=np.uint8)).to(device)
+    with torch.inference_mode():
+        flows = torch.cat(deployed.model.spynet(x.float() / 255))
+    mag = flows.norm(dim=-1)
+    _log(f"[basicvsr] SPyNet on a seeded {t}x{h}x{w} segment: |flow| mean "
+         f"{float(mag.mean()):.4f} px, largest {float(mag.max()):.4f} px, largest component "
+         f"{float(flows.abs().max()):.4f} px")
+    n = 3
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    want_k4 = {m: v * (n + 1) for m, v in per_segment(t).items()}
+    (ms, out), served = _k4_counted(lambda: _serve(deployed, x, n), want_k4, "basicvsr segments",
+                                    device)
+    if out.dtype != torch.uint8 or tuple(out.shape) != (t, 4 * h, 4 * w, 3):
+        raise AssertionError(f"bad basicvsr output {out.dtype} {tuple(out.shape)}")
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    _log(f"[basicvsr] x4 bf16 segment {t}x{h}x{w} on {card}: {ms:.3f} ms a segment (host clock "
+         f"over {n} after one), {t * h * w * 16 / ms / 1e3:.2f} output MPix/s; flow_warp "
+         f"launches {served}; peak memory {peak} B")
+
+    frames = rng.integers(0, 256, (BASICVSR_VIDEO, h, w, 3), dtype=np.uint8)
+    segments = [(frames[i:i + t], len(frames[i:i + t])) for i in range(0, len(frames), t)]
+    padded = [(np.concatenate([f, np.repeat(f[-1:], t - k, 0)]), k) for f, k in segments]
+    engine = TiledUpscaler(deployed)
+    written = []
+    t0 = time.perf_counter()
+    want_k4 = {m: sum(per_segment(k)[m] for _, k in segments) for m in ("zeros", "border")}
+    n_out, video = _k4_counted(lambda: rs.video_pipeline(engine, iter(padded), written.append),
+                               want_k4, "basicvsr video", device)
+    secs = time.perf_counter() - t0
+    own = np.concatenate([deployed(f).cpu().numpy() for f, _ in segments])
+    if n_out != len(frames) or not np.array_equal(np.stack(written), own):
+        raise AssertionError("basicvsr video: frames missing or not the model's own on each "
+                             "segment's valid frames")
+    _log(f"[basicvsr] rs.video_pipeline, {n_out} frames {h}x{w} -> x4 in segments "
+         f"{[k for _, k in segments]} on {card}: {n_out / secs:.2f} frames/s (host clock); "
+         f"flow_warp launches {video}")
+    return {"serve basicvsr x4 (phase 20)": served,
+            "rs.video_pipeline basicvsr x4 (phase 20)": video}
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--dp-rank":  # phase 16 (b)'s ranks
         return _dp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
@@ -4021,6 +4245,10 @@ def main() -> int:
         t0 = time.perf_counter()
         k3["launches_by_path"] = phase_rcan(Path(tmp), card)
         _log(f"[rcan] phase 19 in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        k4 = phase_k4(kind, card, logs["flow_warp"])
+        k4["launches_by_path"] = phase_basicvsr(Path(tmp), card)
+        _log(f"[basicvsr] phase 20 in {time.perf_counter() - t0:.1f} s")
     # launches: every counted main-path run, by path
     k1["launches_by_path"] = {"serve sr x4 (phase 5)": k1_serve,
                               "train -> checkpoint -> serve sr x2 (phase 9)":
@@ -4045,10 +4273,10 @@ def main() -> int:
         if not n:
             raise AssertionError(f"{path}: {kernel} was launched no time")
         (k1 if kernel == "fused_rdb" else k2)["launches_by_path"][path] = n
-    for k in (k1, k2, k3):
+    for k in (k1, k2, k3, k4):
         k["launches"] = sum(k["launches_by_path"].values())
     trained["timings"]["data-parallel step ms (phase 16)"] = dp["step_ms"]
-    print(json.dumps({"kernels": [k1, k2, k3], "training": trained["timings"],
+    print(json.dumps({"kernels": [k1, k2, k3, k4], "training": trained["timings"],
                       "loader": loader["rates"]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

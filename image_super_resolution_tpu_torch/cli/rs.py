@@ -31,6 +31,10 @@ from ..utils.general import IMG_FORMATS, VID_FORMATS
 from ..utils.image_io import read_image_rgb as _read_image_rgb
 from ..utils.profiling import annotate, trace
 
+# A sequence model's default segment: BasicSR's inference_basicvsr.py runs a
+# video in separate segments of --interval 15 frames.
+SEGMENT = 15
+
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="Tiled SR inference (image, folder or video)")
@@ -39,7 +43,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--save_dir", type=str, default="result.png")
     parser.add_argument("--window_size", type=int, default=96,
                         help="tile size; 0 = whole-image (untiled) inference")
-    parser.add_argument("--batch_size", type=int, default=8)
+    parser.add_argument("--batch_size", type=int, default=None,
+                        help="frames or tiles a forward (default 8); for a sequence "
+                             "model (basicvsr) the video segment length, default 15")
     parser.add_argument("--worker", type=int, default=4, help="accepted for parity; unused")
     parser.add_argument("--overlap", type=int, default=8)
     parser.add_argument("--device", type=str, default="cuda",
@@ -142,7 +148,7 @@ def run(
     src: str,
     save_dir: str = "result.png",
     window_size: int = 96,
-    batch_size: int = 8,
+    batch_size: int | None = None,
     overlap: int = 8,
     worker: int = 4,
     device: str = "cuda",
@@ -163,6 +169,12 @@ def run(
     use_tp = _check_sharding_flags(spatial_devices, data_devices, spatial_grid,
                                    tp_devices, int8, int8_percentile)
     deployed = load_artifact(model, device=device)
+    sequence = getattr(deployed.model, "sequence", False)
+    if sequence and not (src_path.is_file() and src_path.suffix.lower() in VID_FORMATS):
+        raise SystemExit(f"a {deployed.spec.family} artifact is a sequence model: "
+                         f"--src must be a video")
+    if batch_size is None:
+        batch_size = SEGMENT if sequence else 8
     if (spatial_devices != 1 or spatial_grid) and (deployed.spec.downshuffle or 1) > 1:
         raise SystemExit(
             "--spatial_devices/--spatial_grid cannot serve a downshuffle>1 "
@@ -444,7 +456,7 @@ def video_pipeline(engine, batches, write_frame) -> int:
                 break
             batch, n_valid = item
             with annotate("video/upscale"):
-                out, _ = engine.upscale_batch_device(batch)
+                out, _ = engine.upscale_batch_device(batch, n_valid)
                 fetch = _fetch_async(out)
             if pending is not None:  # batch k-1, while batch k computes
                 with annotate("video/write"):

@@ -21,8 +21,10 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
-def _c(vals: Sequence[float], like: torch.Tensor) -> torch.Tensor:
-    return _const(tuple(float(v) for v in vals), like.dtype, like.device)  # broadcasts on C
+def constant(vals: Sequence[float], like: torch.Tensor) -> torch.Tensor:
+    """``vals`` as a 1-D tensor in ``like``'s dtype on its device (so it
+    broadcasts on an NHWC tensor's channels), made once (``_const``)."""
+    return _const(tuple(float(v) for v in vals), like.dtype, like.device)
 
 
 @lru_cache(maxsize=64)
@@ -49,7 +51,7 @@ def normalize(
 ) -> torch.Tensor:
     """uint8/float image -> ((x/255) - mean) / std, channels-last."""
     x = to_float01(x)
-    return (x - _c(mean, x)) / _c(std, x)
+    return (x - constant(mean, x)) / constant(std, x)
 
 
 def to_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -68,7 +70,7 @@ def rgb255_to_uint8(x: torch.Tensor, mean) -> torch.Tensor:
     uint8: ``round(clamp(x + 255 mean, 0, 255))`` in fp32, half to even.
     ``mean`` a sequence or a tensor (a program's buffer)."""
     y = x.float()
-    m = mean if isinstance(mean, torch.Tensor) else _c(mean, y)
+    m = mean if isinstance(mean, torch.Tensor) else constant(mean, y)
     return torch.round(torch.clamp(y + 255.0 * m, 0.0, 255.0)).to(torch.uint8)
 
 
@@ -84,13 +86,13 @@ def tanh_to_norm(
     """tanh output -> [0,1] -> (x - mean) / std (the GAN phase feeds D and
     VGG with this)."""
     y = tanh_to_01(x)
-    return (y - _c(mean, y)) / _c(std, y)
+    return (y - constant(mean, y)) / constant(std, y)
 
 
 def y_channel(x01: torch.Tensor, border: int = 4) -> torch.Tensor:
     """ITU-R BT.601 luma (in [16, 235]) of an NHWC [0,1] batch, ``border``
     pixels cropped: (255 x) . [65.481, 128.553, 24.966] / 255 + 16."""
-    w = _c((65.481, 128.553, 24.966), x01)
+    w = constant((65.481, 128.553, 24.966), x01)
     if border:
         x01 = x01[:, border:-border, border:-border, :]
     return (255.0 * x01) @ w / 255.0 + 16.0

@@ -10,7 +10,10 @@ replica of the model per device (``core.mesh.replicate``). A model whose
 blocks average over the whole image (``global_pool``: ``rcan``'s channel
 attention) refuses the spatial paths: a band is no whole input (a tile
 is: the tiled path averages per tile, as every tiled RCAN deployment
-does).
+does). A sequence model (``sequence``: ``basicvsr``, whose batch axis is
+time) takes whole segments of frames through ``upscale_batch_device``,
+their valid frames only, and refuses tiles, bands and data shards, each
+of which would cut a segment apart.
 """
 
 from __future__ import annotations
@@ -115,6 +118,14 @@ class TiledUpscaler:
                 f"its blocks average over the whole image, and each band "
                 f"would average over itself alone; use data_devices or tiles"
             )
+        self._sequence = getattr(getattr(deployed, "model", None), "sequence", False)
+        if self._sequence and (spatial_devices != 1 or data_devices != 1
+                               or self.spatial_grid not in (None, (1, 1))):
+            raise ValueError(
+                f"a {deployed.spec.family} artifact is a sequence model: each "
+                f"output frame depends on its whole segment, and spatial or "
+                f"data sharding would cut a segment apart; serve it on one device"
+            )
         if self.spatial_grid:
             if min(self.spatial_grid) < 1:
                 raise ValueError(
@@ -167,17 +178,23 @@ class TiledUpscaler:
         return [r(s) for r, s in zip(self._replicas, shards)]
 
     # -- whole frames (video path) -------------------------------------------
-    def upscale_batch_device(self, batch_u8):
-        """Dispatch only: uint8 NHWC in -> (result, n input frames). The
+    def upscale_batch_device(self, batch_u8, n_valid=None):
+        """Dispatch only: uint8 NHWC in -> (result, n frames). The
         result is a uint8 NHWC tensor on the device or, under
         ``data_devices``, its shards on their devices (``tiling.fetch``
         gathers either). It returns without waiting for the devices: on the
         card the input goes up from pinned memory without blocking, so the
         caller can fetch and encode the previous batch while this one
         computes (``cli/rs.py``'s video path). That copy up is the span
-        ``model/upload``."""
+        ``model/upload``. ``n_valid``: how many leading frames are real
+        (a video's last batch is padded with its last frame); a sequence
+        model runs on those alone, since padding frames would reach the
+        valid ones through its backward branch, and the other models
+        take the whole batch (their frames are independent)."""
         x = torch.as_tensor(np.ascontiguousarray(batch_u8)
                             if isinstance(batch_u8, np.ndarray) else batch_u8)
+        if self._sequence and n_valid is not None:
+            x = x[:n_valid]
         n = x.shape[0]
         if self._data_devices is not None:
             pad = -n % self.data_devices
@@ -197,6 +214,11 @@ class TiledUpscaler:
     # -- arbitrary-size single images ----------------------------------------
     def upscale_image(self, image_u8: np.ndarray) -> np.ndarray:
         """uint8 HWC RGB of any size -> uint8 HWC RGB."""
+        if self._sequence:
+            raise ValueError(
+                f"a {self.deployed.spec.family} artifact is a sequence model: it "
+                f"upscales segments of video frames, not single images"
+            )
         if self._spatial_mesh_2d is not None:
             return self._upscale_spatial_2d(image_u8)
         if self._spatial_mesh is not None:

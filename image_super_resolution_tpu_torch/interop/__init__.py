@@ -11,6 +11,7 @@ from .torch_export import (
 )
 from .torch_import import (
     conv_kernel_to_flax,
+    import_basicvsr_state,
     import_denoiser_state,
     import_discriminator_state,
     import_generator_state,
@@ -28,6 +29,7 @@ __all__ = [
     "export_denoiser_state",
     "export_discriminator_state",
     "export_generator_state",
+    "import_basicvsr_state",
     "linear_to_torch",
     "save_torch_state_dict",
     "import_denoiser_state",

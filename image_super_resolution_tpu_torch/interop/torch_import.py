@@ -16,7 +16,8 @@ Three kinds of reference artifact are read:
    path). The per-family mappers turn a state_dict into the flax-layout
    (params, batch_stats) trees that the rest of the port reads.
 3. **RCAN state dicts** in the layout of RCAN's own source
-   (``import_rcan_state``), as its published checkpoints hold them.
+   (``import_rcan_state``), as its published checkpoints hold them, and
+   **BasicVSR state dicts** in BasicSR's layout (``import_basicvsr_state``).
 
 Every mapper returns nested dicts of numpy arrays in the JAX package's
 layout, so ``save_artifact`` writes the JAX package's ``.isr`` and
@@ -325,6 +326,68 @@ def import_rcan_state(sd: Dict[str, np.ndarray], mean: Tuple[float, float, float
     params["tail"] = {"conv": _conv_params(sd, "tail.1")}
     spec = DeploySpec(family="rcan", depth=groups, blocks=blocks, width=width,
                       reduction=width // hidden, scale=2 ** n_up, mean=mean, std=RCAN_STD)
+    return spec, params
+
+
+def import_basicvsr_state(sd: Dict[str, np.ndarray], prefix: str = ""):
+    """A state_dict in the layout of BasicSR's ``BasicVSR``
+    (``basicsr/archs/basicvsr_arch.py``, as its published
+    ``BasicVSR_REDS4.pth`` holds it under ``params``) -> the port's
+    ``basicvsr`` (spec, params tree).
+
+    ``spynet.basic_module.{l}.basic_module.{0,2,4,6,8}`` ->
+    ``spynet/level{l}/conv{0..4}``; ``{backward,forward}_trunk.main.0`` ->
+    ``{backward,forward}_trunk/conv_in``; ``..._trunk.main.2.{b}.conv{1,2}``
+    -> ``..._trunk/block{b}/conv{0,1}``; ``fusion``, ``upconv1`` -> ``up0``,
+    ``upconv2`` -> ``up1``, ``conv_hr``, ``conv_last``. Widths and blocks
+    are read from the shapes and checked against the architecture (six
+    SPyNet levels of 8 -> 32 -> 64 -> 32 -> 16 -> 2, trunks of 3 + width
+    inputs); SPyNet's ``mean``/``std`` buffers, where present, must be its
+    ImageNet normalisation. A wrong layout raises ``ValueError``."""
+    from ..models.basicvsr import (BASICVSR_MEAN, BASICVSR_STD, HR_WIDTH, SPYNET_LEVELS,
+                                   SPYNET_MEAN, SPYNET_STD, SPYNET_WIDTHS)
+    from ..models.deploy import DeploySpec
+
+    sd = {k[len(prefix):]: np.asarray(v, np.float32) for k, v in sd.items()
+          if k.startswith(prefix)}
+    for name, want in (("mean", SPYNET_MEAN), ("std", SPYNET_STD)):
+        got = sd.pop(f"spynet.{name}", None)
+        if got is not None and not np.allclose(got.reshape(-1), want, atol=1e-6):
+            raise ValueError(f"spynet.{name} is {got.reshape(-1).tolist()}, not SPyNet's {want}")
+    if "backward_trunk.main.0.weight" not in sd:
+        raise ValueError(f"not a BasicVSR state_dict: sample keys {sorted(sd)[:5]}")
+    width, cin = sd["backward_trunk.main.0.weight"].shape[:2]
+    blocks = sum(1 for k in sd if k.startswith("backward_trunk.main.2.")
+                 and k.endswith(".conv1.weight"))
+    layers = []  # (port name, source name, cin, cout, kernel)
+    for level in range(SPYNET_LEVELS):
+        layers += [(f"spynet/level{level}/conv{k}",
+                    f"spynet.basic_module.{level}.basic_module.{2 * k}", ci, co, 7)
+                   for k, (ci, co) in enumerate(zip(SPYNET_WIDTHS, SPYNET_WIDTHS[1:]))]
+    for branch in ("backward_trunk", "forward_trunk"):
+        layers.append((f"{branch}/conv_in", f"{branch}.main.0", 3 + width, width, 3))
+        layers += [(f"{branch}/block{b}/conv{k}", f"{branch}.main.2.{b}.conv{k + 1}",
+                    width, width, 3) for b in range(blocks) for k in (0, 1)]
+    layers += [("fusion", "fusion", 2 * width, width, 1),
+               ("up0", "upconv1", width, 4 * width, 3), ("up1", "upconv2", width, 4 * HR_WIDTH, 3),
+               ("conv_hr", "conv_hr", HR_WIDTH, HR_WIDTH, 3),
+               ("conv_last", "conv_last", HR_WIDTH, 3, 3)]
+    want = {}
+    for _, src, ci, co, k in layers:
+        want[f"{src}.weight"], want[f"{src}.bias"] = (co, ci, k, k), (co,)
+    got = {k: tuple(v.shape) for k, v in sd.items()}
+    if cin != 3 + width or got != want:
+        off = sorted(k for k in set(want) | set(got) if want.get(k) != got.get(k))
+        raise ValueError(f"not BasicVSR's layout: conv_in takes {cin} channels for width "
+                         f"{width}; keys missing, unknown or of another shape: {off[:4]}")
+    params: Dict[str, Any] = {}
+    for dst, src, *_ in layers:
+        node = params
+        for part in dst.split("/"):
+            node = node.setdefault(part, {})
+        node["conv"] = _conv_params(sd, src)
+    spec = DeploySpec(family="basicvsr", blocks=blocks, width=width, scale=4,
+                      mean=BASICVSR_MEAN, std=BASICVSR_STD)
     return spec, params
 
 

@@ -10,9 +10,12 @@ of the JAX package's ``models/deploy.py``).
   ``models/quantized.py``. The x1 denoisers (``denoise``,
   ``denoise_legacy``, ``models/denoiser.py``) serve their BN-folded graph.
   A model with its own output map (``to_uint8``: ``rcan``,
-  ``models/rcan.py``, ``y + 255 mean`` clamped and rounded) is mapped
-  with it, the others with ``tanh_to_uint8``. Every family but the
-  optimized ``sr`` commits its params in the compute dtype.
+  ``models/rcan.py``, ``y + 255 mean`` clamped and rounded; ``basicvsr``,
+  ``models/basicvsr.py``, ``255 y`` clamped and rounded) is mapped with
+  it, the others with ``tanh_to_uint8``. ``basicvsr`` is a sequence model:
+  a call takes one segment of frames (T, H, W, 3) and returns its T
+  frames. Every family but the optimized ``sr`` commits its params in the
+  compute dtype.
 - ``build_deployed`` turns a training checkpoint into a ``DeployedModel``:
   EMA weights unless ``use_ema=False`` (``cli/export.py --no_ema``), BN
   folded (``ops/fuse.py``), mean/std from the checkpoint's meta.
@@ -47,13 +50,14 @@ from ..ops.fuse import fuse_conv_bn
 from ..utils.profiling import annotate
 from ..utils.serialization import (map_tree, msgpack_restore, msgpack_serialize,
                                    to_fp16, to_fp32)
+from .basicvsr import BasicVSR
 from .denoiser import Denoiser, LegacyDenoiser
 from .fast import FastSRGenerator
 from .generator import SRGenerator
 from .optimized import OptimizedSRGenerator, optimize_generator_params
 from .rcan import RCAN
 
-FAMILIES = ("sr", "fast", "denoise", "denoise_fast", "denoise_legacy", "rcan")
+FAMILIES = ("sr", "fast", "denoise", "denoise_fast", "denoise_legacy", "rcan", "basicvsr")
 
 # Largest uint8 difference allowed between a bf16 and an fp32 run of one
 # sr x4 artifact at full depth 16. Measured on the CPU: 3
@@ -85,10 +89,11 @@ DENOISE_BF16_MAX_LSB = 2
 
 def family_defaults(family: str, rs_deep=None, width=None) -> Tuple[int, int]:
     """Resolve (depth, width) CLI defaults per model family (``rcan``: its
-    residual groups and features)."""
+    residual groups and features; ``basicvsr``: its residual blocks a
+    branch, ``DeploySpec.blocks``, and features)."""
     fast = family in ("fast", "denoise_fast")
     if rs_deep is None:
-        rs_deep = 14 if fast else 10 if family == "rcan" else 16
+        rs_deep = {"rcan": 10, "basicvsr": 30}.get(family, 14 if fast else 16)
     if width is None:
         width = 128 if fast else 64
     return rs_deep, width
@@ -99,12 +104,14 @@ def infer_family_dims(params, family: str):
     prefixes = {"sr": ("rrdb", 1), "fast": ("block", 1),
                 "denoise_fast": ("block", 1),
                 "denoise": ("res0_", 2), "denoise_legacy": ("res", 1),
-                "rcan": ("group", 1)}
+                "rcan": ("group", 1), "basicvsr": ("block", 1)}
     try:
         prefix, per_unit = prefixes[family]
-        depth = per_unit * sum(1 for k in params
+        tree = params["backward_trunk"] if family == "basicvsr" else params
+        depth = per_unit * sum(1 for k in tree
                                if str(k).startswith(prefix))
-        width = int(params["head"]["conv"]["kernel"].shape[-1])
+        head = tree["conv_in"] if family == "basicvsr" else params["head"]
+        width = int(head["conv"]["kernel"].shape[-1])
     except Exception:
         return None, None
     return (depth, width) if depth > 0 and width > 0 else (None, None)
@@ -146,7 +153,7 @@ def _check_family(family: str) -> None:
 class DeploySpec:
     """Everything needed to rebuild the inference graph."""
 
-    family: str = "sr"  # one of FAMILIES: sr, fast, denoise, denoise_fast, denoise_legacy, rcan
+    family: str = "sr"  # one of FAMILIES: sr, fast, denoise, denoise_fast, denoise_legacy, rcan, basicvsr
     depth: int = 16
     width: int = 64
     add_rate: float = 0.2
@@ -159,8 +166,9 @@ class DeploySpec:
     refine_blocks: int = 0
     refine_width: int = 32
     # rcan: RCABs per residual group (``depth`` counts the groups) and the
-    # channel attention's reduction. The port's own fields: an ``.isr`` file
-    # holds them only where they differ from these defaults.
+    # channel attention's reduction; basicvsr: residual blocks a branch
+    # (``depth`` unused). The port's own fields: an ``.isr`` file holds them
+    # only where they differ from these defaults.
     blocks: int = 20
     reduction: int = 16
 
@@ -180,6 +188,9 @@ class DeploySpec:
                 width=self.width, downshuffle=self.downshuffle or 1,
                 refine_blocks=self.refine_blocks or 0,
                 refine_width=self.refine_width or 32, dtype=dtype, device=device)
+        if self.family == "basicvsr":
+            return BasicVSR(width=self.width, blocks=self.blocks, scale=self.scale,
+                            dtype=dtype, device=device)
         if self.family == "rcan":
             return RCAN(groups=self.depth, blocks=self.blocks, width=self.width,
                         reduction=self.reduction, scale=self.scale, dtype=dtype,

@@ -31,30 +31,16 @@ launches. Each group is the span ``rcan/group``.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..data.transforms import rgb255_to_uint8
-from ..ops.conv import ConvBlock, conv_bias_nhwc
+from ..ops.conv import ConvBlock, conv_bias_nhwc, conv_relu
 from ..ops.kernels.channel_attention import ca_residual
 from ..ops.pixel_shuffle import pixel_shuffle
 from ..utils.profiling import annotate
 
 RCAN_MEAN = (0.4488, 0.4371, 0.4040)  # the source's rgb_mean, at rgb_range 255
 RCAN_STD = (1.0 / 255.0,) * 3  # normalize's (x / 255 - mean) / std is x - 255 mean
-
-
-def conv_relu(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
-    """relu(conv(x) + bias), 3x3 'same', NHWC, the sum rounded once to the
-    dtype. On the card cuDNN's fused conv-bias-ReLU: 0.18 ms at the frames
-    shape against 0.44 for the conv, the bias add and the ReLU as three
-    kernels (PERF.md, section 6)."""
-    xn = x.permute(0, 3, 1, 2)
-    if xn.is_cuda:
-        y = torch.cudnn_convolution_relu(xn, conv.weight, conv.bias, (1, 1), (1, 1), (1, 1), 1)
-    else:
-        y = torch.relu(F.conv2d(xn, conv.weight, conv.bias, padding=1))
-    return y.permute(0, 2, 3, 1).contiguous()
 
 
 class RCAB(nn.Module):

@@ -47,6 +47,44 @@ def conv_nhwc(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
                           conv.dilation, conv.groups)
 
 
+def conv_relu_nchw(xn: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, padding=(1, 1),
+                   groups: int = 1) -> torch.Tensor:
+    """relu(conv(xn) + bias) of an NCHW tensor (a channels-last one stays
+    so), stride 1, the sum rounded once to the dtype. On the card cuDNN's
+    fused conv-bias-ReLU: for RCAN's 3x3 convs 0.18 ms at the frames shape
+    against 0.44 for the conv, the bias add and the ReLU as three kernels
+    (PERF.md, section 6)."""
+    if xn.is_cuda:
+        return torch.cudnn_convolution_relu(xn, weight, bias, (1, 1), padding, (1, 1), groups)
+    return torch.relu(F.conv2d(xn, weight, bias, padding=padding, groups=groups))
+
+
+def conv_nchw(xn: torch.Tensor, weight: torch.Tensor, padding, groups: int = 1) -> torch.Tensor:
+    """Stride-1 conv of an NCHW tensor (a channels-last one stays so), no
+    bias, rounded to the dtype. On the card cuDNN's conv op is called
+    directly: through ``F.conv2d`` a call costs some 20-30 us more of the
+    H100 host's time (PERF.md, section 6)."""
+    if xn.is_cuda:
+        cudnn = torch.backends.cudnn
+        return torch.cudnn_convolution(xn, weight, padding, (1, 1), (1, 1), groups,
+                                       cudnn.benchmark, cudnn.deterministic, cudnn.allow_tf32)
+    return F.conv2d(xn, weight, None, 1, padding, 1, groups)
+
+
+def conv_bias_nchw(xn: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                   padding, groups: int = 1) -> torch.Tensor:
+    """``conv_nchw`` then ``+ bias`` in place: each rounded to the dtype, as
+    ``conv_bias_nhwc`` rounds them."""
+    return conv_nchw(xn, weight, padding, groups).add_(bias.view(1, -1, 1, 1))
+
+
+def conv_relu(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    """``conv_relu_nchw`` of an NHWC tensor with an ``nn.Conv2d``'s kernel,
+    bias and padding, returning NHWC."""
+    return conv_relu_nchw(x.permute(0, 3, 1, 2), conv.weight, conv.bias,
+                          conv.padding).permute(0, 2, 3, 1).contiguous()
+
+
 def _channels(v: torch.Tensor) -> torch.Tensor:
     return v[None, :, None, None]
 

@@ -9,9 +9,9 @@ source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
 source or header is rebuilt. Every library exports ``isr_error_string``
 and takes the CUDA stream as the last argument of each launch.
 
-A wrapper (``fused_rdb``, ``matmul``, ``channel_attention``) registers its
-op with ``register``: the CPU implementation is the plain version, the
-CUDA one the counted launch (``launch``), the fake one the output's shape
+A wrapper (``fused_rdb``, ``matmul``, ``channel_attention``, ``flow_warp``)
+registers its op with ``register``: the CPU implementation is the plain
+version, the CUDA one the counted launch (``launch``), the fake one the output's shape
 and dtype, so ``torch.export`` records one node a call and a loaded
 program launches the kernel. The ops are defined on a plain
 ``torch.library.Library``, whose first call imports nothing more: the
@@ -118,15 +118,15 @@ def check_device(t: torch.Tensor) -> None:
         raise ValueError(f"unsupported device {t.device}")
 
 
-def check_operands(*tensors) -> None:
+def check_operands(*tensors, align: int = 16) -> None:
     """A launch's operands (None skipped): on one device, each contiguous
-    and 16-byte aligned."""
+    and ``align``-byte aligned."""
     tensors = [t for t in tensors if t is not None]
     for t in tensors:
         if t.device != tensors[0].device:
             raise ValueError("all operands must be on one device")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("operands must be contiguous and 16-byte aligned")
+        if not t.is_contiguous() or t.data_ptr() % align:
+            raise ValueError(f"operands must be contiguous and {align}-byte aligned")
 
 
 @functools.lru_cache(maxsize=None)

@@ -971,3 +971,123 @@ def test_rcan_program_exported_on_card_launches_k3(card, tmp_path):
     assert {p: ca_residual.launches_by_pass[p] - before.get(p, 0)
             for p in ("reduce", "scale")} == {"reduce": 6, "scale": 6}
     assert got.device.type == "cuda" and torch.equal(got, eager(x))
+
+
+def _k4_case(card, shape, dtype, frame, scale, seed):
+    """K4's operands on the card: features ~N(0, 1), a flow of ``scale``
+    pixels (uniform, either sign), a frame slot of 8 channels or none."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    n, h, w, c = shape
+    x = torch.randn(shape, generator=g, device=card).to(dtype)
+    flow = (torch.rand(n, h, w, 2, generator=g, device=card) * 2 - 1) * scale
+    slot = torch.randn(n, h, w, 8, generator=g, device=card).to(dtype) if frame else None
+    return x, flow.contiguous(), slot
+
+
+@pytest.mark.parametrize("shape,dtype,padding,frame,scale", [
+    ((1, 270, 480, 64), torch.bfloat16, "zeros", True, 2.0),  # the propagation step
+    ((1, 270, 480, 64), torch.bfloat16, "zeros", True, 700.0),  # flows far out of the frame
+    ((1, 270, 480, 64), torch.float32, "zeros", False, 3.0),
+    ((14, 288, 480, 3), torch.float32, "border", False, 4.0),  # SPyNet's finest level
+    ((14, 144, 240, 3), torch.float32, "border", False, 4.0),
+    ((14, 72, 120, 3), torch.float32, "border", False, 300.0),
+    ((14, 36, 60, 3), torch.float32, "border", False, 4.0),
+    ((14, 18, 30, 3), torch.float32, "border", False, 4.0),
+    ((14, 9, 15, 3), torch.float32, "border", False, 40.0),  # SPyNet's coarsest level
+    ((2, 1, 7, 3), torch.float32, "zeros", False, 4.0),  # a side of length 1
+    ((3, 17, 29, 16), torch.bfloat16, "border", True, 5.0),
+])
+def test_k4_matches_plain_version(card, shape, dtype, padding, frame, scale):
+    """K4 at the propagation shape (1x270x480x64 bf16 into the 72-channel
+    trunk input, and fp32 without a frame slot), at SPyNet's levels
+    (14x{288x480 ... 9x15}x3 fp32, border), at flows far outside the frame
+    and on ragged shapes: within ``KERNEL_ATOL_REL * max|x| + KERNEL_RTOL
+    |want|`` of the plain version (the sampling point differs by fp32 ulps
+    of the grid sampler's normalised coordinate; a bf16 output may round
+    the other way), the frame slot copied bit for bit, bitwise the same on
+    a second call, one launch counted by mode and by shape."""
+    from image_super_resolution_tpu_torch.ops.kernels import flow_warp as k4
+
+    x, flow, slot = _k4_case(card, shape, dtype, frame, scale, sum(shape))
+    modes, shapes = dict(k4.flow_warp.launches_by_mode), dict(k4.flow_warp.launches_by_shape)
+    got = k4.flow_warp(x, flow, padding, slot)
+    again = k4.flow_warp(x, flow, padding, slot)
+    torch.cuda.synchronize()
+    assert k4.flow_warp.launches_by_mode[padding] - modes.get(padding, 0) == 2
+    key = (*shape, 8 if frame else 0, x.element_size(), x.element_size())
+    assert k4.flow_warp.launches_by_shape[key] - shapes.get(key, 0) == 2
+    want = k4.flow_warp_reference(x, flow, padding, slot)
+    assert got.dtype == want.dtype and got.shape == want.shape and torch.equal(got, again)
+    if frame:
+        assert torch.equal(got[..., :8], slot)
+    tol = k4.KERNEL_ATOL_REL * x.float().abs().max() + k4.KERNEL_RTOL[dtype] * want.float().abs()
+    assert ((got.float() - want.float()).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("scale", [2.0, 700.0])
+def test_k4_reads_channel_windows(card, scale):
+    """The propagation's launch: both branches' states as two 64-channel
+    windows of the 1x270x480x128 bf16 tensor that stacks them, warped into
+    2x270x480x72 trunk inputs. Within the plain version's tolerance, equal
+    bit for bit to the kernel on contiguous copies of the windows, one
+    launch counted under the shape (2, 270, 480, 64, 8, 2, 2)."""
+    from image_super_resolution_tpu_torch.ops.kernels import flow_warp as k4
+
+    stacked, flow, slot = _k4_case(card, (1, 270, 480, 128), torch.bfloat16, True, scale, 5)
+    windows = stacked.view(270, 480, 2, 64).permute(2, 0, 1, 3)
+    flow = torch.cat([flow, flow.flip(2)])
+    slot = torch.cat([slot, -slot])
+    shapes = dict(k4.flow_warp.launches_by_shape)
+    got = k4.flow_warp(windows, flow, "zeros", slot)
+    torch.cuda.synchronize()
+    key = (2, 270, 480, 64, 8, 2, 2)
+    assert k4.flow_warp.launches_by_shape[key] - shapes.get(key, 0) == 1
+    assert torch.equal(got, k4.flow_warp(windows.contiguous(), flow, "zeros", slot))
+    want = k4.flow_warp_reference(windows, flow, "zeros", slot)
+    tol = (k4.KERNEL_ATOL_REL * windows.float().abs().max()
+           + k4.KERNEL_RTOL[torch.bfloat16] * want.float().abs())
+    assert ((got.float() - want.float()).abs() <= tol).all()
+    with pytest.raises(ValueError):  # pixels not evenly spaced
+        k4.flow_warp(stacked.permute(0, 2, 1, 3), flow[:1].transpose(1, 2).contiguous())
+
+
+def test_k4_rejects_what_it_does_not_take(card):
+    from image_super_resolution_tpu_torch.ops.kernels.flow_warp import flow_warp
+
+    x = torch.zeros(1, 4, 4, 64, device=card, dtype=torch.bfloat16)
+    flow = torch.zeros(1, 4, 4, 2, device=card)
+    with pytest.raises(ValueError):
+        flow_warp(x, flow.bfloat16())
+    with pytest.raises(ValueError):
+        flow_warp(x, flow[:, :3].contiguous())
+    with pytest.raises(ValueError):
+        flow_warp(x, flow, "reflection")
+    with pytest.raises(ValueError):
+        flow_warp(x, flow.cpu())
+    with pytest.raises(ValueError):
+        flow_warp(x.half(), flow)
+
+
+def test_basicvsr_on_card_launches_k4(card):
+    """bf16 BasicVSR on the card, width 64, 2 blocks a branch, a 5-frame
+    segment of 40 x 72: SPyNet's 6 border warps (both directions in one
+    batch) and 4 propagation warps (both branches in one launch), counted;
+    the uint8 frames within 2
+    LSB of the port's fp32 CPU path (bf16 against float32 measured at most
+    1 LSB at this size on the CPU, tests/test_torch_basicvsr.py; one more
+    for cuDNN's sums)."""
+    from image_super_resolution_tpu_torch.models.basicvsr import BASICVSR_MEAN, BASICVSR_STD
+    from image_super_resolution_tpu_torch.ops.kernels.flow_warp import flow_warp
+
+    spec = DeploySpec(family="basicvsr", width=64, blocks=2, scale=4, mean=BASICVSR_MEAN,
+                      std=BASICVSR_STD)
+    params = init_fused_params(spec, seed=6)
+    x = np.random.default_rng(6).integers(0, 256, (5, 40, 72, 3), dtype=np.uint8)
+    before = dict(flow_warp.launches_by_mode)
+    got = DeployedModel(spec, params, dtype=torch.bfloat16, device="cuda")(x)
+    torch.cuda.synchronize()
+    assert {m: flow_warp.launches_by_mode[m] - before.get(m, 0)
+            for m in ("zeros", "border")} == {"zeros": 4, "border": 6}
+    want = DeployedModel(spec, params, dtype=torch.float32, device="cpu")(x)
+    assert got.shape == (5, 160, 288, 3)
+    assert (got.cpu().int() - want.int()).abs().max().item() <= 2

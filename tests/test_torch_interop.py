@@ -48,6 +48,7 @@ from image_super_resolution_tpu_torch.models.deploy import (
 from image_super_resolution_tpu_torch.models.discriminator import Discriminator
 from image_super_resolution_tpu_torch.models.generator import SRGenerator
 from image_super_resolution_tpu_torch.ops.kernels import channel_attention as k3
+from image_super_resolution_tpu_torch.ops.kernels import flow_warp as k4
 from image_super_resolution_tpu_torch.ops.kernels import fused_rdb as k1
 from image_super_resolution_tpu_torch.ops.kernels import matmul as k2
 from image_super_resolution_tpu_torch.ops.scatter import rdb_params_to_scatter
@@ -417,7 +418,8 @@ def _launch_counts():
     return (k1.scatter_rdb.launches, k1.scatter_rdb.tiles, k1.scatter_rdb.blocks,
             k2.matmul.launches, k2.conv3x3_int8.launches,
             dict(k2.conv3x3_int8.launches_by_variant),
-            dict(k2.conv3x3_int8.launches_by_epilogue), dict(k3.ca_residual.launches_by_pass))
+            dict(k2.conv3x3_int8.launches_by_epilogue), dict(k3.ca_residual.launches_by_pass),
+            dict(k4.flow_warp.launches_by_mode), dict(k4.flow_warp.launches_by_shape))
 
 
 def _op_cases(name):
@@ -443,12 +445,16 @@ def _op_cases(name):
         want = k2.conv3x3_int8_reference(x, w_q, deq, bias, True, 0.5, 0.25, res, 0.2, True)
         return ((x, w_q, deq, bias, True, 0.5, 0.25, k2.weights_k_major(w_q), res, 0.2, True),
                 list(want))
+    if name == "flow_warp":
+        x, flow, frame = f32(2, 5, 6, 16), f32(2, 5, 6, 2, scale=3.0), f32(2, 5, 6, 8)
+        return (x, flow, "zeros", frame), k4.flow_warp_reference(x, flow, "zeros", frame)
     x, r = f32(2, 5, 6, 32), f32(2, 5, 6, 32)
     params = (f32(32), f32(2, 32), f32(2), f32(32, 2), f32(32))
     return (x, r, *params), k3.ca_residual_reference(x, r, *params)
 
 
-@pytest.mark.parametrize("name", ["scatter_rdb", "conv3x3_int8", "matmul", "ca_residual"])
+@pytest.mark.parametrize("name", ["scatter_rdb", "conv3x3_int8", "matmul", "ca_residual",
+                                  "flow_warp"])
 def test_isr_op_cpu_implementation_is_the_plain_version(name):
     """Each hand-written kernel's op ``isr::<name>``, registered the one way
     (``ops/kernels/_build.register``): on CPU tensors it is the plain version

@@ -362,7 +362,7 @@ def test_pipeline_surfaces_decode_and_compute_failures(clip, sr_x2):
     class Failing:
         deployed = engine.deployed
 
-        def upscale_batch_device(self, batch):
+        def upscale_batch_device(self, batch, n_valid=None):
             raise MemoryError("device full")
 
     with pytest.raises(MemoryError):
